@@ -15,8 +15,12 @@ of which fails the run on any mismatch:
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, byte for byte, at the main path's shapes, for RS(10,4) parity
    rows, RS(10,4) decode rows with shards 2, 7, 11 and 13 lost, RS(6,3)
-   and RS(12,4) parity rows and a ragged S; then each kernel's time at the
-   encode slab beside its plain version's and its memory bound;
+   and RS(12,4) parity rows and a ragged S; then a sweep that launches
+   every instance the dispatch has (1-8 outputs of 10 inputs; 4, 6, 12
+   and 70 inputs; 12 outputs; a ragged S), also against the numpy oracle;
+   then each kernel's time at the encode slab (25, 10, 1 MiB) and at the
+   rebuild chunk (1, 10, 21,600,768) beside its plain version's and its
+   memory bound, and its blocks per SM at both;
 4. path: a seeded 1 GiB volume of real needles sealed with
    ``encode_volume`` overlapped and sync (identical bytes, parity checked
    against the numpy oracle ``rs_ref``), shards 2, 7, 11, 13 rebuilt with
@@ -43,6 +47,8 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_ref, rs_torch
+from seaweedfs_tpu_torch.ops.kernel_bench import (HBM_BYTES_PER_S, shapes,
+                                                  time_ms)
 from seaweedfs_tpu_torch.pipeline import decode, encode, pipe, rebuild
 from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
 from seaweedfs_tpu_torch.storage import ec_files, idx as idx_mod
@@ -52,10 +58,11 @@ SEED = 20261016
 MIB = 1 << 20
 #: The deployment's volume: a 1 GiB .dat, RS(10,4), 1 GiB / 1 MiB blocks.
 VOLUME_BYTES = 1 << 30
-#: H100 SXM device-memory rate (NVIDIA data sheet), for the bound.
-HBM_BYTES_PER_S = 3.35e12
 LOST_REBUILD = (2, 7, 11, 13)
 LOST_DECODE = (0, 5)
+#: The sweep's shard length: not a multiple of the kernels' 1 KiB blocks
+#: after padding to either granule, nor of 16 or 128 itself.
+SWEEP_S = 200_037
 KERNELS = {
     "transpose": dict(
         wrapper=rs_cuda.apply_gf_matrix_transpose,
@@ -105,27 +112,6 @@ def counts() -> dict:
 # kernel phase
 # --------------------------------------------------------------------------
 
-def _time_ms(fn, inputs, reps: int) -> float:
-    """Device milliseconds per call: distinct inputs, one untimed warm-up
-    pass over every input, CUDA events around ``reps`` calls, and the
-    window closed by fetching a checksum of every output."""
-    for x in inputs:
-        fn(x)
-    torch.cuda.synchronize()
-    outs = []
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for r in range(reps):
-        outs.append(fn(inputs[r % len(inputs)]))
-    end.record()
-    checksum = 0
-    for y in outs:
-        checksum ^= int(y.view(-1)[::4097].to(torch.int64).sum().item())
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def kernel_phase(dev: torch.device) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -134,23 +120,28 @@ def kernel_phase(dev: torch.device) -> dict:
         return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                              generator=gen)
 
-    e104 = rs_torch.Encoder(10, 4, device=dev)
-    present = [i for i in range(14) if i not in LOST_REBUILD]
-    decode_rows = e104.decode_matrix_rows(present, list(LOST_REBUILD))
-    slab = (25, 10, MIB)          # one 256 MiB encode batch: 25 small rows
-    chunk = rebuild.chunk_length(                 # one rebuild chunk
-        DEFAULT_SCHEME.shard_file_size(VOLUME_BYTES), 10)
+    # the encode slab (one 256 MiB batch: 25 small rows) and one rebuild
+    # chunk with the decode rows for lost 2, 7, 11, 13
+    main_shapes = shapes(dev)
+    (_, parity, slab), (_, decode_rows, chunk) = main_shapes
     cases = [
-        ("RS(10,4) parity", e104.parity_coefs, slab),
-        ("RS(10,4) decode rows, lost 2,7,11,13", decode_rows,
-         (1, 10, chunk)),
+        ("RS(10,4) parity", parity, slab),
+        ("RS(10,4) decode rows, lost 2,7,11,13", decode_rows, chunk),
         ("RS(6,3) parity", rs_torch.Encoder(6, 3, device=dev).parity_coefs,
          (25, 6, MIB)),
         ("RS(12,4) parity", rs_torch.Encoder(12, 4, device=dev).parity_coefs,
          (25, 12, MIB)),
-        ("RS(10,4) parity, ragged S", e104.parity_coefs,
-         (3, 10, MIB + 1000 + 3)),
+        ("RS(10,4) parity, ragged S", parity, (3, 10, MIB + 1000 + 3)),
     ]
+    # the sweep: every output-count instance, other input counts, a table
+    # that fits only 7 outputs per launch (70 inputs), and more outputs
+    # than one launch takes; S is ragged for both kernels' 1 KiB blocks
+    sweep = [(10, m) for m in range(1, 9)] + [(4, 4), (6, 3), (12, 4),
+                                                (70, 8), (4, 12)]
+    for n_in, n_out in sweep:
+        cases.append((f"sweep {n_in} inputs -> {n_out} outputs",
+                      gf256.build_code_matrix(n_in, n_in + n_out)[n_in:],
+                      (3, n_in, SWEEP_S)))
     max_err = {name: 0 for name in KERNELS}
     for label, coefs, shape in cases:
         x = rand(shape)
@@ -178,22 +169,30 @@ def kernel_phase(dev: torch.device) -> dict:
         del x
     torch.cuda.empty_cache()
 
-    # time both kernels and their plain versions at the encode slab
-    coefs = e104.parity_coefs
-    inputs = [rand(slab) for _ in range(4)]
-    moved = (coefs.shape[0] + coefs.shape[1]) * slab[0] * slab[2]
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    # time both kernels and their plain versions at the encode slab and
+    # at the rebuild chunk; occupancy of the instances those shapes use
     timings = {}
-    for name, k in KERNELS.items():
-        ms = _time_ms(lambda x, w=k["wrapper"]: w(coefs, x), inputs, 20)
-        plain_ms = _time_ms(lambda x, p=k["plain"]: p(coefs, x), inputs, 3)
-        timings[name] = (ms, plain_ms)
-        say(f"  {name}: {ms:.4f} ms per {slab} parity call "
-            f"({moved / ms / 1e6:.1f} GB/s moved), bound {bound_ms:.4f} ms "
-            f"(bytes), plain version {plain_ms:.3f} ms, no library call")
-    del inputs
-    torch.cuda.empty_cache()
-    return {"max_err": max_err, "timings": timings, "bound_ms": bound_ms}
+    for what, coefs, shape in main_shapes:
+        inputs = [rand(shape) for _ in range(4)]
+        moved = (coefs.shape[0] + coefs.shape[1]) * shape[0] * shape[2]
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        for name, k in KERNELS.items():
+            ms = time_ms(lambda x, w=k["wrapper"]: w(coefs, x), inputs, 20)
+            plain_ms = time_ms(lambda x, p=k["plain"]: p(coefs, x),
+                                inputs, 3)
+            per_sm = rs_cuda.blocks_per_sm(name, *coefs.shape)
+            timings[(name, shape)] = (ms, plain_ms, bound_ms)
+            say(f"  {name}: {ms:.4f} ms per {shape} {what} call "
+                f"({moved / ms / 1e6:.1f} GB/s moved, "
+                f"{bound_ms / ms:.1%} of the bound), bound {bound_ms:.4f} ms "
+                f"(bytes), plain version {plain_ms:.3f} ms, no library "
+                f"call; {per_sm} blocks per SM")
+        del inputs
+        torch.cuda.empty_cache()
+    occ = {name: [rs_cuda.blocks_per_sm(name, m, 10) for m in range(1, 9)]
+           for name in KERNELS}
+    say(f"  blocks per SM with 10 inputs and 1-8 outputs: {json.dumps(occ)}")
+    return {"max_err": max_err, "timings": timings, "slab": slab}
 
 
 # --------------------------------------------------------------------------
@@ -373,14 +372,14 @@ def main() -> int:
 
     rows = []
     for name, k in KERNELS.items():
-        ms, plain_ms = kres["timings"][name]
+        ms, plain_ms, bound_ms = kres["timings"][(name, kres["slab"])]
         rows.append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": pres["launches"][name],
             "max_abs_err": kres["max_err"][name],
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": kres["bound_ms"], "bound_by": "bytes",
+            "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None,
         })
     say(json.dumps({"kernels": rows}))

@@ -11,105 +11,131 @@
 // For a 32-bit word holding 4 bytes, ((x >> j) & 0x01010101) has bit j of
 // each byte at the bottom of that byte, and an integer multiply by the
 // byte (c * 2^j) spreads it to the whole byte without carries between
-// bytes. So each (output, input, bit) triple costs one multiply and one XOR,
-// plus one shift and one AND per (input, bit) shared by every output. Each thread
-// owns 16 bytes (one uint4) of every shard at one position: a purely
-// elementwise kernel with coalesced 16-byte loads and stores.
+// bytes. Each lane owns 32 bytes (two 16-byte vectors, gf_common.cuh) of
+// every shard at one position. Per input shard it makes the 8 planes of
+// its 8 words (a shift and an AND each, shared by every output), and per
+// output and pair of bits it does two multiplies and one 3-input XOR:
+// acc ^= p_j * (c * 2^j) ^ p_j+1 * (c * 2^j+1). The output count NO (1-8)
+// is a template parameter, so no work is done for rows that do not
+// exist; wider matrices take one launch per 8 rows.
 //
-// The coefficient matrix is data: colbyte[(o*n_in + d)*8 + j] = c[o,d] * 2^j
-// in GF(2^8), staged in shared memory once per block, so one build serves
-// every survivor set. At most MAXO outputs are computed per launch; the
-// wrapper (ops/rs_cuda.py) launches once per MAXO outputs.
+// The matrix is data: the launch's table (in its parameter block) holds
+// table[(o*n_in + d)*8 + j] = c[o,d] * 2^j in GF(2^8). A block expands it
+// once into shared memory as 32-bit words, word ((d*NO + o)*8 + j), read as
+// warp-uniform 8-byte broadcasts with no byte extraction; one build serves
+// every survivor set.
 //
-// Bound on an H100: the bytes moved, (n_in + n_out) * B * S read and
-// written once. Arithmetic is 8 * n_in * (2 + 2 * n_out) 32-bit integer
-// operations per word position: for RS(10,4) about 14 per byte moved, so
-// this first version may be held by the integer pipes rather than by
-// memory. A Paar-factored network (ops/xor_cse.py) would cut that; it is
-// left for the PR that makes the kernel fast.
+// What bounds it on an H100. Memory: (n_in + n_out) * B * S bytes over
+// 3.35 TB/s. Work per 32-byte position and input shard: 64 * n_out
+// multiplies, 32 * n_out 3-input XORs, and 120 shifts and ANDs shared by
+// every output. As built for sm_90a with 4 outputs (ops/sass_report.py),
+// the shard loop is 602 instructions: 287 IMAD, 196 LOP3, 58 SHF, 8 LDS;
+// its 12 predicated ones are the ragged-edge loads and branches, and no
+// instruction is spent on absent outputs. 96 registers, no spills; 5 blocks
+// of 128 threads per SM. The multiplies fill the 64-lane multiply pipe
+// and the logic ops the 64-lane integer pipe about equally, so the
+// instruction rate (one per cycle per scheduler), at about 600 per warp
+// and shard, sets its pace: on an H100
+// 80GB HBM3 at 700 W (chip_smoke.py), 0.193 ms per (25, 10, 1 MiB)
+// RS(10,4) parity call, 57% of its memory bound.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gf_common.cuh"
 
 namespace {
 
-constexpr int MAXO = 8;       // outputs per launch
-constexpr int THREADS = 256;
+constexpr uint32_t LO = 0x01010101u;
 
-__device__ __forceinline__ void mac4(uint4& acc, const uint4& p, uint32_t c) {
-  acc.x ^= p.x * c;
-  acc.y ^= p.y * c;
-  acc.z ^= p.z * c;
-  acc.w ^= p.w * c;
-}
-
-__global__ void __launch_bounds__(THREADS)
-gf_swar_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
-               const uint8_t* __restrict__ colbyte, int n_in, int n_out,
-               int y_shards, long long vecs, long long n_tasks) {
-  extern __shared__ uint8_t s_col[];
-  const int n_col = n_out * n_in * 8;
-  for (int t = threadIdx.x; t < n_col; t += blockDim.x) s_col[t] = colbyte[t];
+template <int NO>
+__global__ void __launch_bounds__(gf::THREADS, NO <= 4 ? 5 : 3)
+gf_swar_kernel(const __grid_constant__ gf::Args a) {
+  extern __shared__ uint2 s_coef[];
+  const int n_in = a.n_in;
+  uint32_t* words = reinterpret_cast<uint32_t*>(s_coef);
+  for (int t = threadIdx.x; t < NO * n_in * 8; t += gf::THREADS) {
+    const int od = t >> 3, d = od / NO, o = od - d * NO;
+    words[t] = a.table[(o * n_in + d) * 8 + (t & 7)];
+  }
   __syncthreads();
 
-  const uint32_t lo = 0x01010101u;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long task = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       task < n_tasks; task += stride) {
-    const long long b = task / vecs;
-    const long long q = task - b * vecs;
-    const uint4* xb = x + b * n_in * vecs + q;
-    uint4 acc[MAXO];
+  const int lane = threadIdx.x & 31;
+  const int vecs = a.vecs;
+  const int blks = (vecs + 63) >> 6;
+  const int n_tasks = blks * a.batch;
+  const int nwarps = gridDim.x * gf::WARPS;
+  int task = (blockIdx.x * gf::THREADS + threadIdx.x) >> 5;
+  if (task >= n_tasks) return;
+  gf::Slot cur = gf::slot(a, task, blks, lane);
+  uint4 na, nb;
+  gf::load2(a, cur, cur.x, na, nb);
+  for (;;) {
+    const int next = task + nwarps;
+    gf::Slot nxt = cur;
+    uint32_t acc[NO][8];
 #pragma unroll
-    for (int o = 0; o < MAXO; ++o) acc[o] = make_uint4(0, 0, 0, 0);
+    for (int o = 0; o < NO; ++o)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[o][k] = 0u;
+    const uint4* xp = cur.x;
     for (int d = 0; d < n_in; ++d) {
-      const uint4 v = __ldg(xb + d * vecs);
-      uint2 col[MAXO];  // the 8 bytes c[o,d] * 2^j, j = 0..7
+      const uint32_t w[8] = {na.x, na.y, na.z, na.w, nb.x, nb.y, nb.z, nb.w};
+      if (d + 1 < n_in) {
+        xp += vecs;
+        gf::load2(a, cur, xp, na, nb);
+      } else if (next < n_tasks) {
+        nxt = gf::slot(a, next, blks, lane);
+        gf::load2(a, nxt, nxt.x, na, nb);
+      }
+      const uint2* c = s_coef + d * NO * 4;
 #pragma unroll
-      for (int o = 0; o < MAXO; ++o)
-        col[o] = o < n_out
-                     ? *reinterpret_cast<const uint2*>(s_col + (o * n_in + d) * 8)
-                     : make_uint2(0, 0);
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t pa[8], pb[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint4 p = make_uint4((v.x >> j) & lo, (v.y >> j) & lo,
-                                   (v.z >> j) & lo, (v.w >> j) & lo);
+        for (int k = 0; k < 8; ++k) {
+          pa[k] = (w[k] >> (2 * jp)) & LO;
+          pb[k] = (w[k] >> (2 * jp + 1)) & LO;
+        }
 #pragma unroll
-        for (int o = 0; o < MAXO; ++o) {
-          if (o < n_out) {
-            const uint32_t c =
-                ((j < 4 ? col[o].x : col[o].y) >> (8 * (j & 3))) & 0xFFu;
-            mac4(acc[o], p, c);
-          }
+        for (int o = 0; o < NO; ++o) {
+          const uint2 cc = c[o * 4 + jp];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            acc[o][k] ^= (pa[k] * cc.x) ^ (pb[k] * cc.y);
         }
       }
     }
-    uint4* yb = y + b * y_shards * vecs + q;
 #pragma unroll
-    for (int o = 0; o < MAXO; ++o)
-      if (o < n_out) yb[o * vecs] = acc[o];
+    for (int o = 0; o < NO; ++o) gf::store2(a, cur, o, acc[o]);
+    if (next >= n_tasks) break;
+    task = next;
+    cur = nxt;
   }
 }
+
+const gf::Kernel KERNELS[gf::MAXO] = {
+    gf_swar_kernel<1>, gf_swar_kernel<2>, gf_swar_kernel<3>,
+    gf_swar_kernel<4>, gf_swar_kernel<5>, gf_swar_kernel<6>,
+    gf_swar_kernel<7>, gf_swar_kernel<8>};
+
+size_t smem_bytes(int n_out, int n_in) { return (size_t)n_out * n_in * 32; }
 
 }  // namespace
 
 // x: (B, n_in, S) bytes; y: output shard 0 of this launch inside a
-// (B, y_shards, S) buffer; colbyte: (n_out, n_in, 8) bytes. S % 16 == 0,
-// 1 <= n_out <= 8, all pointers 16-byte aligned. Returns
-// cudaGetLastError() after the launch.
-extern "C" int gf_swar_launch(const void* x, void* y, const void* colbyte,
+// (B, y_shards, S) buffer; table: HOST pointer to (n_out, n_in, 8) bytes
+// c * 2^j, n_out * n_in * 8 <= 4032. S % 16 == 0, 1 <= n_out <= 8, x and
+// y 16-byte aligned. Returns cudaGetLastError() after the launch.
+extern "C" int gf_swar_launch(const void* x, void* y, const void* table,
                               int batch, int n_in, int n_out, int y_shards,
                               long long s_bytes, void* stream) {
-  if (n_out < 1 || n_out > MAXO || n_in < 1 || s_bytes % 16)
-    return (int)cudaErrorInvalidValue;
-  const long long vecs = s_bytes / 16;
-  const long long n_tasks = vecs * batch;
-  if (n_tasks == 0) return 0;
-  long long blocks = (n_tasks + THREADS - 1) / THREADS;
-  if (blocks > 8192) blocks = 8192;
-  const size_t smem = (size_t)n_out * n_in * 8;
-  gf_swar_kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint4*)x, (uint4*)y, (const uint8_t*)colbyte, n_in, n_out,
-      y_shards, vecs, n_tasks);
-  return (int)cudaGetLastError();
+  if (n_out < 1 || n_out > gf::MAXO) return (int)cudaErrorInvalidValue;
+  return gf::launch(KERNELS[n_out - 1], smem_bytes(n_out, n_in), x, y, table,
+                    batch, n_in, n_out, y_shards, s_bytes, stream);
+}
+
+// Blocks per SM of the instance for n_out outputs and n_in inputs, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; -(CUDA error) on failure.
+extern "C" int gf_swar_blocks_per_sm(int n_out, int n_in) {
+  if (n_out < 1 || n_out > gf::MAXO || n_in < 1)
+    return -(int)cudaErrorInvalidValue;
+  return gf::blocks_per_sm(KERNELS[n_out - 1], smem_bytes(n_out, n_in));
 }

@@ -5,18 +5,24 @@ Both compute y[b, o, s] = XOR_d coefs[o, d] * x[b, d, s] over GF(2^8)
 
 * the **transpose kernel** (``csrc/gf_transpose.cu``) replaces
   ``seaweedfs_tpu/ops/rs_pallas.py`` ``_make_kernel`` (via
-  ``apply_gf_matrix_words``): a warp bit-transposes 128-byte groups with
-  shuffles and evaluates the expanded GF(2) matrix on the bit planes.
-  Plain version: :func:`apply_gf_matrix_transpose_ref` (ops/bitslice.py).
+  ``apply_gf_matrix_words``): each lane bit-transposes 32 bytes per shard
+  in registers and applies the expanded GF(2) matrix to the bit planes by
+  the method of four Russians (per-lane XOR tables of 4 planes in shared
+  memory, two lookups per matrix row). Plain version:
+  :func:`apply_gf_matrix_transpose_ref` (ops/bitslice.py).
 * the **SWAR kernel** (``csrc/gf_swar.cu``) replaces ``_make_swar_kernel``
   (via ``apply_gf_matrix_swar_words``): per 32-bit word, bit plane j of the
   4 bytes is ``(x >> j) & 0x01010101`` and output bytes accumulate
   ``plane * (c * 2^j)``. Plain version: :func:`apply_gf_matrix_swar_ref`.
 
-What bounds them on an H100 is memory traffic, (n_in + n_out) * B * S
-bytes over 3.35 TB/s; the source notes in ``csrc/`` say what each design
-does about it. The coefficient matrix is passed as data (a small table
-staged in shared memory), so one build serves every survivor set.
+Their memory bound on an H100 is (n_in + n_out) * B * S bytes over
+3.35 TB/s; the source notes in ``csrc/`` say what bounds each in fact.
+The coefficient matrix is data: a table of ``(n_out, n_in, 8)`` bytes
+built on the host (cached per matrix in host memory) travels in the
+launch's parameter block, so one build serves every survivor set and no
+table lives in device memory, where a launch queued on another stream
+could outlive it. The parameter block holds ``TABLE_BYTES``, so a launch
+takes at most :func:`outputs_per_launch` rows.
 
 Both sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 process per source in parallel, into one shared library with a plain C
@@ -45,9 +51,12 @@ import torch
 
 from . import bitslice, gf256
 
-#: Outputs per kernel launch (the kernels' MAXO): wider matrices take
-#: one launch per MAXO output rows.
+#: Outputs per kernel launch at most (the kernels' MAXO): wider
+#: matrices take one launch per MAXO output rows.
 MAXO = 8
+#: Bytes of coefficient table a launch carries in its parameter block
+#: (csrc/gf_common.cuh): n_out * n_in * 8 of them.
+TABLE_BYTES = 4032
 #: Byte granules along S: the wrappers zero-pad S up to these (zero bytes
 #: give zero output, so padding is transparent) and slice the result.
 TRANSPOSE_GRANULE = 128
@@ -57,6 +66,7 @@ GRANULE = max(TRANSPOSE_GRANULE, SWAR_GRANULE)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gf_transpose.cu", "gf_swar.cu")
+HEADERS = ("gf_common.cuh",)
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -90,7 +100,7 @@ def _build() -> Path:
     edited source never loads a stale build."""
     global BUILDS, BUILD_LOG
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update((CSRC / src).read_bytes())
     tag = h.hexdigest()[:16]
     lib = BUILD_DIR / f"libgf256_kernels_{tag}.so"
@@ -139,6 +149,10 @@ def library() -> ctypes.CDLL:
                                ctypes.c_int, ctypes.c_int,
                                ctypes.c_longlong, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            for fn in (lib.gf_transpose_blocks_per_sm,
+                       lib.gf_swar_blocks_per_sm):
+                fn.argtypes = [ctypes.c_int, ctypes.c_int]
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -168,15 +182,41 @@ def swar_table(coefs: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=128)
-def _device_table(kind: str, coefs_bytes: bytes, n_out: int, n_in: int,
-                  device: str) -> torch.Tensor:
-    """The coefficient table on the card, made once per matrix: a copy
-    from pageable host memory waits for the stream, so the steady state
-    must not make one per launch."""
+def _host_table(kind: str, coefs_bytes: bytes, n_out: int,
+                n_in: int) -> np.ndarray:
+    """A kernel's table in host memory, made once per matrix. The launch
+    function copies it into the kernel's parameters, so evicting it
+    never frees anything a queued launch still reads."""
     coefs = np.frombuffer(coefs_bytes, dtype=np.uint8).reshape(n_out, n_in)
     table = transpose_table(coefs) if kind == "transpose" \
         else swar_table(coefs)
-    return torch.from_numpy(table).to(device)
+    table.setflags(write=False)
+    return table
+
+
+def outputs_per_launch(n_in: int) -> int:
+    """Output rows one launch takes: MAXO, or fewer where their table
+    would not fit in ``TABLE_BYTES`` (more than 63 inputs)."""
+    per = min(MAXO, TABLE_BYTES // (8 * n_in))
+    if per < 1:
+        raise ValueError(f"{n_in} inputs: a launch's table holds at most "
+                         f"{TABLE_BYTES // 8} input shards")
+    return per
+
+
+def blocks_per_sm(kind: str, n_out: int, n_in: int) -> int:
+    """Resident blocks per SM of the kernel instance a launch of
+    ``n_out`` outputs over ``n_in`` inputs uses, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
+    card."""
+    lib = library()
+    fn = (lib.gf_transpose_blocks_per_sm if kind == "transpose"
+          else lib.gf_swar_blocks_per_sm)
+    got = fn(n_out, n_in)
+    if got <= 0:
+        raise RuntimeError(f"{kind} occupancy query failed: CUDA error "
+                           f"{-got}")
+    return got
 
 
 # --------------------------------------------------------------------------
@@ -246,8 +286,10 @@ def _check(coefs, x: torch.Tensor) -> np.ndarray:
 def _launch(kind: str, coefs: np.ndarray, x: torch.Tensor,
             counted) -> torch.Tensor:
     """Run one kernel on CUDA tensor ``x`` on the current stream, one
-    launch per MAXO output rows. Pads S to the kernel's granule."""
+    launch per :func:`outputs_per_launch` output rows. Pads S to the
+    kernel's granule."""
     n_out, n_in = coefs.shape
+    per = outputs_per_launch(n_in)
     lib = library()
     fn, granule = ((lib.gf_transpose_launch, TRANSPOSE_GRANULE)
                    if kind == "transpose"
@@ -257,13 +299,12 @@ def _launch(kind: str, coefs: np.ndarray, x: torch.Tensor,
         xp = _pad_s(x, granule)
         sp = xp.shape[-1]
         y = torch.empty((b, n_out, sp), dtype=torch.uint8, device=x.device)
-        table = _device_table(kind, coefs.tobytes(), n_out, n_in,
-                              str(x.device))
+        table = _host_table(kind, coefs.tobytes(), n_out, n_in)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for o0 in range(0, n_out, MAXO):
-            oc = min(MAXO, n_out - o0)
+        for o0 in range(0, n_out, per):
+            oc = min(per, n_out - o0)
             err = fn(xp.data_ptr(), y.data_ptr() + o0 * sp,
-                     table.data_ptr() + o0 * n_in * 8, b, n_in, oc, n_out,
+                     table.ctypes.data + o0 * n_in * 8, b, n_in, oc, n_out,
                      sp, stream)
             if err:
                 raise RuntimeError(f"{kind} kernel launch failed: CUDA "

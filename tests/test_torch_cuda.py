@@ -21,6 +21,10 @@ PRESENT = [i for i in range(14) if i not in LOST]
 KERNELS = [(rs_cuda.apply_gf_matrix_transpose,
             rs_cuda.apply_gf_matrix_transpose_ref),
            (rs_cuda.apply_gf_matrix_swar, rs_cuda.apply_gf_matrix_swar_ref)]
+KINDS = ["transpose", "swar"]
+#: (n_in, n_out): every output-count instance with 10 inputs, other input
+#: counts, and 70 inputs, whose table fits only 7 outputs per launch
+SWEEP = [(10, m) for m in range(1, 9)] + [(4, 4), (6, 3), (12, 4), (70, 8)]
 
 
 def _need_card():
@@ -29,25 +33,58 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [0, 1], ids=["transpose", "swar"])
-@pytest.mark.parametrize("s", [65536, 65536 + 1003])
-def test_kernel_matches_plain_version(kernel, s):
+@pytest.mark.parametrize("kernel", [0, 1], ids=KINDS)
+@pytest.mark.parametrize("s", [65536, 65536 + 300, 65536 + 1003])
+@pytest.mark.parametrize("n_in,n_out", SWEEP,
+                         ids=[f"{k}to{m}" for k, m in SWEEP])
+def test_kernel_matches_plain_version(kernel, s, n_in, n_out):
     _need_card()
     wrapper, plain = KERNELS[kernel]
-    enc = rs_torch.Encoder(10, 4, device="cuda")
-    x = torch.randint(0, 256, (3, 10, s), dtype=torch.uint8, device="cuda",
+    enc = rs_torch.Encoder(n_in, n_out, device="cuda")
+    x = torch.randint(0, 256, (3, n_in, s), dtype=torch.uint8,
+                      device="cuda",
                       generator=torch.Generator("cuda").manual_seed(s))
-    for coefs in (enc.parity_coefs,
-                  enc.decode_matrix_rows(PRESENT, list(LOST))):
+    sets = [enc.parity_coefs]
+    if (n_in, n_out) == (10, 4):
+        sets.append(enc.decode_matrix_rows(PRESENT, list(LOST)))
+    per = rs_cuda.outputs_per_launch(n_in)
+    for coefs in sets:
         n = wrapper.launches
         y = wrapper(coefs, x)
         torch.cuda.synchronize()
-        assert wrapper.launches == n + 1
+        assert wrapper.launches == n + -(-n_out // per)
         assert torch.equal(y, plain(coefs, x))
+    assert rs_cuda.blocks_per_sm(KINDS[kernel], min(n_out, per), n_in) >= 1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [0, 1], ids=["transpose", "swar"])
+@pytest.mark.parametrize("kernel", [0, 1], ids=KINDS)
+def test_queued_launch_outlives_its_table(kernel):
+    """A launch queued on a side stream keeps its coefficients after the
+    table cache is cleared and the default stream reuses freed memory:
+    the table travels in the launch's parameters."""
+    _need_card()
+    wrapper, plain = KERNELS[kernel]
+    coefs = rs_torch.Encoder(10, 4, device="cuda").parity_coefs
+    x = torch.randint(0, 256, (1, 10, 1 << 20), dtype=torch.uint8,
+                      device="cuda")
+    want = plain(coefs, x)
+    wrapper(coefs, x)                    # first use on the default stream
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)   # keep the next launch queued
+        y = wrapper(coefs, x)
+    rs_cuda._host_table.cache_clear()
+    junk = [torch.full((coefs.size * 8,), 0xFF, dtype=torch.uint8,
+                       device="cuda") for _ in range(64)]
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+    del junk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [0, 1], ids=KINDS)
 def test_kernel_more_outputs_than_one_launch(kernel):
     _need_card()
     wrapper, plain = KERNELS[kernel]
@@ -60,7 +97,7 @@ def test_kernel_more_outputs_than_one_launch(kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [0, 1], ids=["transpose", "swar"])
+@pytest.mark.parametrize("kernel", [0, 1], ids=KINDS)
 def test_kernel_takes_a_view_at_an_odd_offset(kernel):
     _need_card()
     wrapper, plain = KERNELS[kernel]

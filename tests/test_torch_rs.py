@@ -10,6 +10,8 @@ held against seaweedfs_tpu.ops.rs_jax.Encoder. GF(2^8) coding is exact:
 every comparison is byte for byte. The kernels themselves run only on a
 card: tests/test_torch_cuda.py."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -69,36 +71,77 @@ def test_swar_plain_matches_pallas_interpret(which, s):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _transpose8(w):
+    """gf_transpose.cu ``transpose8`` over 8 uint32 arrays: three
+    swap-move rounds, an 8x8 bit transpose in each byte lane."""
+    w = list(w)
+    for s, m, pairs in ((1, 0x55555555, ((0, 1), (2, 3), (4, 5), (6, 7))),
+                        (2, 0x33333333, ((0, 2), (1, 3), (4, 6), (5, 7))),
+                        (4, 0x0F0F0F0F, ((0, 4), (1, 5), (2, 6), (3, 7)))):
+        m, s = np.uint32(m), np.uint32(s)
+        for lo, hi in pairs:
+            w[lo], w[hi] = ((w[lo] & m) | ((w[hi] << s) & ~m),
+                            ((w[lo] >> s) & m) | (w[hi] & ~m))
+    return w
+
+
 @pytest.mark.parametrize("k,m", [(10, 4), (6, 3), (12, 4), (4, 12)])
 def test_kernel_tables_encode_the_map(k, m):
-    """The tables the CUDA kernels read, evaluated with each kernel's own
-    formula in numpy: (4, 12) takes two launches of MAXO=8 outputs."""
+    """The tables the CUDA kernels read, expanded and evaluated with each
+    kernel's own formula in numpy: (4, 12) takes two launches of MAXO=8
+    outputs."""
     coefs = ReferenceEncoder(k, m).matrix[k:]
     x = np.random.default_rng(k + m).integers(0, 256, (2, k, 64), np.uint8)
     want = _oracle(coefs, x)
-    w = x.view(np.uint32).astype(np.uint64)
-    # SWAR: y_o = XOR_{d,j} ((x_d >> j) & 0x01010101) * (c[o,d] * 2^j)
-    col = rs_cuda.swar_table(coefs).astype(np.uint64)
-    y = np.zeros((2, m, w.shape[2]), np.uint64)
+    # SWAR: words c[o,d] * 2^j, y_o = XOR_{d, j pairs}
+    # ((x_d >> j) & 0x01010101) * c_j ^ ((x_d >> j+1) & 0x01010101) * c_j+1
+    lo = np.uint32(0x01010101)
+    col = rs_cuda.swar_table(coefs).astype(np.uint32)
+    w = x.view(np.uint32)
+    y = np.zeros((2, m, w.shape[2]), np.uint32)
     for o in range(m):
         for d in range(k):
-            for j in range(8):
-                y[:, o] ^= (((w[:, d] >> j) & 0x01010101) * col[o, d, j]) \
-                    & 0xFFFFFFFF
-    np.testing.assert_array_equal(y.astype(np.uint32).view(np.uint8), want)
+            for j in range(0, 8, 2):
+                y[:, o] ^= (((w[:, d] >> np.uint32(j)) & lo) * col[o, d, j]
+                            ^ ((w[:, d] >> np.uint32(j + 1)) & lo)
+                            * col[o, d, j + 1])
+    np.testing.assert_array_equal(y.view(np.uint8), want)
     # transpose: row byte [o, d, i] bit j == bit (8o+i, 8d+j) of the
-    # expanded matrix; bit i of an output byte is the parity of the
-    # selected bits of its input bytes
+    # expanded matrix; each 32-byte position is 8 words, transposed to 8
+    # bit planes; entry e of table h is the XOR of planes 4h + j for the
+    # bits j of e; acc[o][i] ^= table0[row & 15] ^ table1[row >> 4]; and
+    # the accumulators are transposed back
     rows = rs_cuda.transpose_table(coefs)
-    bits = np.unpackbits(x[..., None], axis=-1, bitorder="little")
-    out = np.zeros((2, m, 64, 8), np.uint8)
+    words = x.view(np.uint32).reshape(2, k, 2, 8)      # (B, d, pos, word)
+    out = np.zeros((2, m, 2, 8), np.uint32)
     for o in range(m):
+        acc = [np.zeros((2, 2), np.uint32) for _ in range(8)]
         for d in range(k):
-            sel = np.unpackbits(rows[o, d][:, None], axis=-1,
-                                bitorder="little")           # [i, j]
-            out[:, o] ^= (bits[:, d] @ sel.T.astype(np.uint8)) & 1
-    np.testing.assert_array_equal(
-        np.packbits(out, axis=-1, bitorder="little")[..., 0], want)
+            planes = _transpose8([words[:, d, :, r] for r in range(8)])
+            tables = [[np.bitwise_xor.reduce(
+                [np.zeros((2, 2), np.uint32)]
+                + [planes[4 * h + j] for j in range(4) if e >> j & 1])
+                for e in range(16)] for h in range(2)]
+            for i in range(8):
+                row = int(rows[o, d, i])
+                acc[i] ^= tables[0][row & 15] ^ tables[1][row >> 4]
+        out[:, o] = np.stack(_transpose8(acc), axis=-1)
+    np.testing.assert_array_equal(out.view(np.uint8).reshape(want.shape),
+                                  want)
+
+
+def test_launch_table_limit_matches_the_kernels():
+    """The table a launch carries in its parameter block: the wrapper's
+    TABLE_BYTES and MAXO are the kernels' (csrc/gf_common.cuh), and wide
+    codes take fewer outputs per launch."""
+    header = (Path(rs_cuda.__file__).parent / "csrc"
+              / "gf_common.cuh").read_text()
+    assert f"TABLE_BYTES = {rs_cuda.TABLE_BYTES};" in header
+    assert f"MAXO = {rs_cuda.MAXO};" in header
+    assert [rs_cuda.outputs_per_launch(n) for n in (4, 10, 63, 64, 70, 255)] \
+        == [8, 8, 8, 7, 7, 1]
+    with pytest.raises(ValueError, match="at most 504"):
+        rs_cuda.outputs_per_launch(505)
 
 
 def test_wrappers_take_the_plain_version_on_cpu(monkeypatch):
