@@ -21,12 +21,21 @@ of which fails the run on any mismatch:
    then each kernel's time at the encode slab (25, 10, 1 MiB) and at the
    rebuild chunk (1, 10, 21,600,768) beside its plain version's and its
    memory bound, and its blocks per SM at both;
-4. path: a seeded 1 GiB volume of real needles sealed with
+4. native: the host codec (``rs_native``, built with ``g++``) against
+   ``rs_ref`` at 4 sizes, with its SIMD level;
+5. path: a seeded 1 GiB volume of real needles sealed with
    ``encode_volume`` overlapped and sync (identical bytes, parity checked
    against the numpy oracle ``rs_ref``), shards 2, 7, 11, 13 rebuilt with
-   ``rebuild_ec_files``, the volume decoded with ``decode_volume`` after
-   losing shards 0 and 5, and encode + rebuild again with
-   ``SEAWEEDFS_TORCH_KERNEL=swar``; launch counters prove each kernel ran.
+   ``rebuild_ec_files``; then the read phase: shards 0, 5, 11, 13 removed,
+   every needle read through ``EcVolumeReader`` (once directly, once from
+   8 threads through one ``IntervalRepairAggregator``) and held against
+   the original ``.dat``, and the shards rebuilt; the volume decoded with
+   ``decode_volume`` after losing shards 0 and 5, and encode + rebuild
+   again with ``SEAWEEDFS_TORCH_KERNEL=swar``; launch counters prove each
+   kernel ran, and the host codec's call counter which reads it served;
+6. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
+   a bulk decode of 4 lost shards through the kernels while 8 reader
+   threads issue 64 QPS of 4 KiB interval repairs, all checked.
 
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -41,17 +50,21 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_ref, rs_torch
+from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_native, rs_ref
+from seaweedfs_tpu_torch.ops import rs_torch
 from seaweedfs_tpu_torch.ops.kernel_bench import (HBM_BYTES_PER_S, shapes,
                                                   time_ms)
-from seaweedfs_tpu_torch.pipeline import decode, encode, pipe, rebuild
+from seaweedfs_tpu_torch.pipeline import (decode, encode, pipe, read,
+                                          rebuild, repair, repair_bench)
 from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
 from seaweedfs_tpu_torch.storage import ec_files, idx as idx_mod
+from seaweedfs_tpu_torch.storage import needle as needle_mod
 from seaweedfs_tpu_torch.storage import volume as volume_mod
 
 SEED = 20261016
@@ -60,6 +73,9 @@ MIB = 1 << 20
 VOLUME_BYTES = 1 << 30
 LOST_REBUILD = (2, 7, 11, 13)
 LOST_DECODE = (0, 5)
+#: The read phase's and config 5's lost shards: two data, two parity.
+LOST_READ = repair_bench.DEFAULT_LOST
+READ_THREADS = 8
 #: The sweep's shard length: not a multiple of the kernels' 1 KiB blocks
 #: after padding to either granule, nor of 16 or 128 itself.
 SWEEP_S = 200_037
@@ -102,6 +118,7 @@ def nvidia_smi_line() -> str:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
+    rs_native.apply_gf_matrix.calls = 0
 
 
 def counts() -> dict:
@@ -196,6 +213,34 @@ def kernel_phase(dev: torch.device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# native phase
+# --------------------------------------------------------------------------
+
+def native_phase() -> None:
+    """The host codec against the numpy oracle at 4 sizes, on this
+    machine's CPU (its SIMD level may differ from a development host's)."""
+    t0 = time.perf_counter()
+    check(rs_native.available(), "native host codec built with g++")
+    say(f"  built in {time.perf_counter() - t0:.2f} s; simd_level "
+        f"{rs_native.simd_level()} (0 scalar, 2 AVX2, 3 GFNI+AVX512); "
+        f"DEVICE_MIN_S {rs_torch.DEVICE_MIN_S}")
+    rng = np.random.default_rng(SEED)
+    enc = rs_torch.Encoder(10, 4, device="cpu")
+    ref = rs_ref.ReferenceEncoder(10, 4)
+    present = [i for i in range(14) if i not in LOST_READ]
+    rows = enc.decode_matrix_rows(present, list(LOST_READ))
+    for s in (1, 4096, 128 * 1024 + 3, 4 * MIB):
+        x = rng.integers(0, 256, (10, s), dtype=np.uint8)
+        check(np.array_equal(rs_native.apply_gf_matrix(enc.parity_coefs, x),
+                             ref.encode_parity(x)),
+              f"native parity == rs_ref, S = {s}")
+        full = np.concatenate([x, ref.encode_parity(x)])
+        check(np.array_equal(rs_native.apply_gf_matrix(rows, full[present]),
+                             full[list(LOST_READ)]),
+              f"native decode rows rebuild shards {LOST_READ}, S = {s}")
+
+
+# --------------------------------------------------------------------------
 # path phase
 # --------------------------------------------------------------------------
 
@@ -244,6 +289,117 @@ def drive(what: str, fn, expect: dict, launches: dict):
               f"{what}: {name} kernel launched {got[name]} times")
         launches[name] += got[name]
     return out, wall
+
+
+def read_phase(dev, base: str, idx_entries, sealed: dict,
+               launches: dict) -> dict:
+    """Read every needle with shards 0, 5, 11, 13 lost, directly and from
+    8 threads through one aggregator, each against the original .dat;
+    then rebuild the lost shards."""
+    for i in LOST_READ:
+        os.remove(ec_files.shard_path(base, i))
+    dat = np.memmap(base + ".dat", dtype=np.uint8, mode="r")
+    result = {}
+
+    def check_records(got: dict, what: str) -> None:
+        bad = [e.key for e in idx_entries
+               if got[e.key] != dat[e.byte_offset:e.byte_offset
+                                    + needle_mod.record_size(e.size, 3)]
+               .tobytes()]
+        check(len(got) == len(idx_entries) and not bad,
+              f"{what}: all {len(got)} needles byte-equal to the original "
+              f".dat (differing: {bad[:5]})")
+
+    def timed_read(reader, key, lat, out):
+        t0 = time.perf_counter()
+        out[key] = reader.read_record(key)
+        lat.append(time.perf_counter() - t0)
+
+    def direct():
+        reader = read.EcVolumeReader(base, device=dev)
+        lat, out = [], {}
+        for e in idx_entries:
+            timed_read(reader, e.key, lat, out)
+        return reader, None, lat, out
+
+    def aggregated():
+        lat, out, errors = [], {}, []
+        with repair.IntervalRepairAggregator(device=dev) as agg:
+            reader = read.EcVolumeReader(base, aggregator=agg, device=dev)
+
+            def work(part):
+                try:
+                    for e in part:
+                        timed_read(reader, e.key, lat, out)
+                except Exception as exc:  # noqa: BLE001 — raised below
+                    errors.append(exc)
+
+            threads = [threading.Thread(target=work,
+                                        args=(idx_entries[t::READ_THREADS],))
+                       for t in range(READ_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if errors or any(t.is_alive() for t in threads):
+                raise SmokeError(f"aggregated read failed: {errors[:1]}")
+        return reader, agg, lat, out
+
+    for what, fn in (("read (direct)", direct),
+                     (f"read ({READ_THREADS} threads, aggregator)",
+                      aggregated)):
+        (reader, agg, lat, out), wall = drive(
+            what, fn, {"transpose": True, "swar": False}, launches)
+        native = rs_native.apply_gf_matrix.calls
+        check_records(out, what)
+        lat_ms = np.asarray(lat) * 1e3
+        stats = {
+            "needles_per_s": len(out) / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "intervals_repaired": reader.intervals_repaired,
+            "agg_batches": agg.batches if agg else None,
+            "agg_requests": agg.requests if agg else None,
+            "native_calls": native, "kernel_launches": counts(),
+            "wall_s": wall}
+        say(f"  {what}: {json.dumps(stats)}")
+        check(reader.intervals_repaired > 0 and native > 0,
+              f"{what}: {reader.intervals_repaired} intervals repaired, "
+              f"{native} of them on the host codec (below "
+              f"{rs_torch.DEVICE_MIN_S} bytes)")
+        result[what] = stats
+    del dat
+
+    got, wall = drive("rebuild_ec_files (after the read phase)",
+                      lambda: rebuild.rebuild_ec_files(base, device=dev),
+                      {"transpose": True, "swar": False}, launches)
+    check(got == list(LOST_READ) and sealed_digests(base) == sealed,
+          f"shards {got} rebuilt sha256-equal to the sealed ones")
+    return result
+
+
+def repair_phase(dev, workdir: str, shard_len: int, launches: dict) -> dict:
+    """BASELINE config 5 at this volume's shard size."""
+    os.makedirs(workdir)
+    res, wall = drive(
+        "repair_bench.run (config 5)",
+        lambda: repair_bench.run(
+            duration_s=8, qps=64, shard_len=shard_len, interval_size=4096,
+            lost=LOST_READ, bulk_chunk=4 * MIB, n_reader_threads=8,
+            verify=True, workdir=workdir, device=dev),
+        {"transpose": True, "swar": False}, launches)
+    native = rs_native.apply_gf_matrix.calls
+    res.update(native_calls=native, kernel_launches=counts(), wall_s=wall)
+    say(f"  config 5: {json.dumps(res)}")
+    # 4 KiB is below DEVICE_MIN_S: the repairs take the host codec, the
+    # 4 MiB bulk chunks the kernel
+    check(4096 < rs_torch.DEVICE_MIN_S <= 4 * MIB and native > 0,
+          f"config 5: 4 KiB repairs on the host codec ({native} calls), "
+          f"bulk decode on the kernel ({counts()['transpose']} launches)")
+    check(res["reads"] > 0 and res["achieved_qps"] > 32,
+          f"config 5: {res['reads']} checked repairs at "
+          f"{res['achieved_qps']:.1f} QPS, no mismatch")
+    return res
 
 
 def path_phase(dev, workdir: str, label: str) -> dict:
@@ -305,6 +461,7 @@ def path_phase(dev, workdir: str, label: str) -> dict:
         return rate
 
     result["rebuild_gibps"] = lose_and_rebuild("transpose")
+    result["read"] = read_phase(dev, base, idx_entries, sealed, launches)
 
     os.remove(base + ".dat")
     os.remove(base + ".idx")
@@ -363,10 +520,17 @@ def main() -> int:
     say("phase kernels:")
     kres = kernel_phase(dev)
 
+    say("phase native:")
+    native_phase()
+
     say("phase path:")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         pres = path_phase(dev, workdir, label)
+        say("phase repair under load (config 5):")
+        repair_phase(dev, os.path.join(workdir, "config5"),
+                     DEFAULT_SCHEME.shard_file_size(VOLUME_BYTES),
+                     pres["launches"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

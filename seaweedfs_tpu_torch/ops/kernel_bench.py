@@ -1,6 +1,7 @@
 """Time the GF(2^8) kernels on the card at the main path's two shapes.
 
     python3 seaweedfs_tpu_torch/ops/kernel_bench.py [--label NAME]
+    python3 -m seaweedfs_tpu_torch.ops.kernel_bench --crossover
 
 Times each kernel wrapper, with the harness of :func:`time_ms`, on
 RS(10,4) parity rows at the encode slab ``(25, 10, 1 MiB)`` and on the
@@ -10,18 +11,32 @@ prints one JSON line per kernel and shape (three timed windows each).
 It imports ``seaweedfs_tpu_torch`` from ``sys.path``, so run with
 ``PYTHONPATH`` set to a checkout to time that checkout's kernels: two
 checkouts timed in turns inside one call compare on one card.
+
+``--crossover`` measures the small-payload rule's threshold
+(``rs_torch.DEVICE_MIN_S``): for one lost shard's decode row (10 inputs,
+1 output) at B = 1 (one interval repair) and B = 128 (the repair
+aggregator's largest batch), and S = 1 KiB ... 4 MiB in powers of two, it
+times the native host codec against a round trip to the card through
+``apply_matrix_host`` (pageable H2D, kernel, D2H, ``np.asarray``), as the
+read path pays it, and prints one JSON line per (B, S), then the
+smallest S at which the card wins at each B, and the smallest S at which
+the card's round trip at B = 1 leaves its fixed-cost floor
+(:func:`floor_end_s`), which sets ``DEVICE_MIN_S`` (PERF.md §6).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops import rs_cuda, rs_torch
+from seaweedfs_tpu_torch.ops import rs_cuda, rs_native, rs_torch
 from seaweedfs_tpu_torch.pipeline import rebuild
 from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
 
@@ -70,10 +85,84 @@ def shapes(device) -> list:
              (1, 10, chunk))]
 
 
+def host_ms(fn, seconds: float = 0.2, min_reps: int = 5) -> list:
+    """Host wall milliseconds of each of at least ``min_reps`` calls of
+    ``fn`` (after two warm-up calls), repeated for about ``seconds``."""
+    fn()
+    fn()
+    times = []
+    t_end = time.perf_counter() + seconds
+    while len(times) < min_reps or time.perf_counter() < t_end:
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def crossover(device, card: str, batches=(1, 128),
+              sizes=tuple(1 << e for e in range(10, 23))) -> list:
+    """The native codec against the card's round trip for one decode
+    row over 10 survivors (module docstring); one dict per (B, S)."""
+    enc = rs_torch.Encoder(10, 4, device=device)
+    coefs = enc.decode_matrix_rows([i for i in range(14) if i not in LOST],
+                                   [LOST[0]])
+    block = np.random.default_rng(20261016).integers(
+        0, 256, 1 << 24, dtype=np.uint8)
+    saved = rs_torch.DEVICE_MIN_S
+    rows = []
+    try:
+        rs_torch.DEVICE_MIN_S = 0    # every timed host call goes to the card
+        for b in batches:
+            for s in sizes:
+                x = np.resize(block, (b, 10, s))   # pageable, as np.stack
+                want = rs_native.apply_gf_matrix(coefs, x)
+                got = np.asarray(rs_torch.apply_matrix_host(coefs, x,
+                                                            device))
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"card != native at B={b} S={s}")
+                native = host_ms(lambda: rs_native.apply_gf_matrix(coefs, x))
+                cardt = host_ms(lambda: np.asarray(
+                    rs_torch.apply_matrix_host(coefs, x, device)))
+                rows.append({
+                    "B": b, "S": s,
+                    "native_ms": statistics.median(native),
+                    "card_ms": statistics.median(cardt),
+                    "native_min_ms": min(native), "card_min_ms": min(cardt),
+                    "reps": [len(native), len(cardt)],
+                    "simd_level": rs_native.simd_level(), "card": card})
+                print(json.dumps(rows[-1]), flush=True)
+                del x
+    finally:
+        rs_torch.DEVICE_MIN_S = saved
+    return rows
+
+
+def crossover_s(rows, b: int = 1):
+    """The smallest S at which the card's median beats the native
+    codec's at batch ``b``, or None."""
+    wins = [r["S"] for r in rows
+            if r["B"] == b and r["card_ms"] < r["native_ms"]]
+    return min(wins) if wins else None
+
+
+def floor_end_s(rows, b: int = 1):
+    """The smallest S at which the card's round trip takes at least twice
+    its floor (its median over S <= 4 KiB) at batch ``b``: below it the
+    round trip is fixed cost, from it the time grows with the bytes
+    copied. None if it never does."""
+    mine = [r for r in rows if r["B"] == b]
+    floor = statistics.median(r["card_ms"] for r in mine if r["S"] <= 4096)
+    grown = [r["S"] for r in mine if r["card_ms"] >= 2 * floor]
+    return min(grown) if grown else None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="",
                     help="tag for the output lines (which checkout)")
+    ap.add_argument("--crossover", action="store_true",
+                    help="time the host codec against the card's round "
+                         "trip instead (rs_torch.DEVICE_MIN_S)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA card", file=sys.stderr)
@@ -82,6 +171,14 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+    if args.crossover:
+        rows = crossover(dev, card)
+        print(json.dumps({"crossover_S_B1": crossover_s(rows, 1),
+                          "crossover_S_B128": crossover_s(rows, 128),
+                          "floor_end_S_B1": floor_end_s(rows, 1),
+                          "DEVICE_MIN_S": rs_torch.DEVICE_MIN_S,
+                          "card": card}), flush=True)
+        return 0
     kernels = {"transpose": rs_cuda.apply_gf_matrix_transpose,
                "swar": rs_cuda.apply_gf_matrix_swar}
     gen = torch.Generator(device=dev)

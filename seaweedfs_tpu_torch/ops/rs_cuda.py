@@ -32,7 +32,9 @@ interface under ``csrc/build/`` (listed in .gitignore), and loaded with
 A wrapper takes its plain version only for a tensor on the CPU. For a
 CUDA tensor it launches its kernel or raises; nothing falls back. Each
 wrapper counts its launches in its ``launches`` attribute, a plain
-integer that a caller may reset to 0.
+integer that a caller may reset to 0; the count is taken under a lock
+(:func:`count_launch`), since the read path launches from several
+threads at once.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ BUILDS = 0
 BUILD_LOG = ""
 _lib = None
 _lib_lock = threading.Lock()
+_launches_lock = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -309,8 +312,15 @@ def _launch(kind: str, coefs: np.ndarray, x: torch.Tensor,
             if err:
                 raise RuntimeError(f"{kind} kernel launch failed: CUDA "
                                    f"error {err}")
-            counted.launches += 1
+            count_launch(counted)
     return y if sp == s else y[..., :s]
+
+
+def count_launch(counted) -> None:
+    """Add one to ``counted.launches``: a read-modify-write that threads
+    launching at once would otherwise lose."""
+    with _launches_lock:
+        counted.launches += 1
 
 
 def apply_gf_matrix_transpose(coefs: np.ndarray,

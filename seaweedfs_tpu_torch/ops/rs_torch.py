@@ -19,9 +19,22 @@ one stream. The copy that reads the pool buffer precedes that event on
 the same stream, so a caller that recycles the buffer after
 ``np.asarray`` can never overwrite bytes still being copied.
 
-Not ported in this slice: the native host codec and the small-payload
-hybrid rule (every slab goes through the kernel), and grouping several
-slabs into one dispatch (``*_multi`` launches per slab on one stream).
+The small-payload rule (the first half of the JAX package's hybrid
+rule): a product whose input is on the host and whose shard length S is
+below :data:`DEVICE_MIN_S` goes to the native host codec
+(``rs_native.apply_gf_matrix``) on every device, because below it a
+round trip to the card is its fixed cost, two to three times the host
+codec's time; the read path's interval repairs are its callers. On the CPU, S >= DEVICE_MIN_S takes
+the kernels' plain PyTorch versions. A tensor already on the card is
+never copied back for it. Where the native library cannot be built,
+every product goes to the kernels. The rule is fixed and measured: a
+kernel that fails to build or launch raises; nothing gives way to the
+host for it.
+
+Not ported yet: the link-bandwidth half of the hybrid rule (large host
+slabs stay on the host when the link is slower than the host codec),
+and grouping several slabs into one dispatch (``*_multi`` launches per
+slab on one stream).
 """
 
 from __future__ import annotations
@@ -32,8 +45,27 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import gf256, rs_cuda
+from . import gf256, rs_cuda, rs_native
 from .rs_ref import ShardSizeError, TooFewShardsError
+
+
+#: Shard length (bytes) from which a host product goes to the card.
+#: Measured for one interval repair (B = 1, 10 inputs, 1 output), round
+#: trip from pageable memory included, with ``python -m
+#: seaweedfs_tpu_torch.ops.kernel_bench --crossover`` on an NVIDIA H100
+#: 80GB HBM3 at 700 W whose host has GFNI (PERF.md §6): the card
+#: won at no S from 1 KiB to 4 MiB at B = 1 and at every S to 32 KiB at
+#: B = 128. Below 128 KiB the card's round trip is its fixed cost (twice
+#: the host codec's at B = 1); from 128 KiB it grows with the bytes
+#: copied, at about the host codec's rate, and the choice between the two
+#: becomes the link-bandwidth half of the hybrid rule (not ported).
+DEVICE_MIN_S = 128 * 1024
+
+
+def host_codec_takes(s: int) -> bool:
+    """The small-payload rule: whether a host product of shard length
+    ``s`` goes to the native host codec."""
+    return s < DEVICE_MIN_S and rs_native.available()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -85,6 +117,9 @@ def apply_matrix(coefs: np.ndarray, x, device=None) -> torch.Tensor:
         raise ValueError(f"expected (n_in, S) or (B, n_in, S), got "
                          f"{tuple(t.shape)}")
     squeeze = t.dim() == 2
+    if t.device.type == "cpu" and host_codec_takes(t.shape[-1]):
+        y = rs_native.apply_gf_matrix(coefs, t.numpy())
+        return torch.from_numpy(y).to(dev)
     t = t.to(device=dev, dtype=torch.uint8)
     y = rs_cuda.apply_gf_matrix(coefs, t[None] if squeeze else t)
     return y[0] if squeeze else y
@@ -92,11 +127,14 @@ def apply_matrix(coefs: np.ndarray, x, device=None) -> torch.Tensor:
 
 def apply_matrix_host(coefs: np.ndarray, batch: np.ndarray, device=None):
     """HOST (B, n_in, S) uint8 -> a result whose ``np.asarray`` is
-    (B, n_out, S) uint8: the numpy array itself on the CPU, an async
-    :class:`_HostResult` on the card (module docstring)."""
+    (B, n_out, S) uint8: a numpy array from the host codec (S below
+    :data:`DEVICE_MIN_S`) or on the CPU, an async :class:`_HostResult`
+    on the card (module docstring)."""
     dev = resolve_device(device)
     coefs = np.ascontiguousarray(coefs, dtype=np.uint8)
     batch = np.ascontiguousarray(batch, dtype=np.uint8)
+    if host_codec_takes(batch.shape[-1]):
+        return rs_native.apply_gf_matrix(coefs, batch)
     src = torch.from_numpy(batch)
     if dev.type == "cpu":
         # the plain version reads ``src`` (which shares the caller's

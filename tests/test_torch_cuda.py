@@ -13,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_torch
-from seaweedfs_tpu_torch.pipeline import pipe
+from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_native, rs_torch
+from seaweedfs_tpu_torch.pipeline import encode, pipe, read, repair
+from seaweedfs_tpu_torch.pipeline import repair_bench
+from seaweedfs_tpu_torch.pipeline.scheme import EcScheme
+from seaweedfs_tpu_torch.storage import ec_files, volume
 
 LOST = (2, 7, 11, 13)
 PRESENT = [i for i in range(14) if i not in LOST]
@@ -110,8 +113,9 @@ def test_kernel_takes_a_view_at_an_odd_offset(kernel):
 
 
 @pytest.mark.cuda
-def test_host_results_come_back_in_order_from_pinned_buffers():
+def test_host_results_come_back_in_order_from_pinned_buffers(monkeypatch):
     _need_card()
+    monkeypatch.setattr(rs_torch, "DEVICE_MIN_S", 0)   # every slab to the card
     enc = rs_torch.Encoder(10, 4)                       # device=None
     assert enc.device.type == "cuda"
     cpu = rs_torch.Encoder(10, 4, device="cpu")
@@ -130,3 +134,53 @@ def test_host_results_come_back_in_order_from_pinned_buffers():
         buf[:] = 0          # safe: the copy that read it has completed
         pool.release(buf)
     assert pool.in_flight() == 0
+
+
+#: the read path's small geometry (tests/test_torch_read.py), and a
+#: threshold that sends intervals of 2 KiB and more to the kernels
+READ_SCHEME = EcScheme(10, 4, large_block_size=64 * 1024,
+                       small_block_size=8 * 1024)
+READ_LOST = (0, 5, 11, 13)
+
+
+def _launches():
+    return (rs_cuda.apply_gf_matrix_transpose.launches
+            + rs_cuda.apply_gf_matrix_swar.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregated", [False, True],
+                         ids=["direct", "aggregator"])
+def test_reader_on_the_card_matches_the_cpu(tmp_path, monkeypatch,
+                                            aggregated):
+    _need_card()
+    monkeypatch.setattr(rs_torch, "DEVICE_MIN_S", 2048)
+    base = tmp_path / "v"
+    n = volume.write_synthetic_volume(base, 300_000, avg_size=3000, seed=7)
+    encode.encode_volume(base, READ_SCHEME, device="cpu")
+    for i in READ_LOST:
+        ec_files.shard_path(base, i).unlink()
+    launches0, calls0 = _launches(), rs_native.apply_gf_matrix.calls
+    cpu = read.EcVolumeReader(base, READ_SCHEME, device="cpu")
+    want = {k: cpu.read_record(k) for k in range(1, n + 1)}
+    if aggregated:
+        with repair.IntervalRepairAggregator(READ_SCHEME,
+                                             device="cuda") as agg:
+            card = read.EcVolumeReader(base, READ_SCHEME, aggregator=agg)
+            got = {k: card.read_record(k) for k in range(1, n + 1)}
+    else:
+        card = read.EcVolumeReader(base, READ_SCHEME)       # device=None
+        got = {k: card.read_record(k) for k in range(1, n + 1)}
+    assert got == want
+    assert card.intervals_repaired == cpu.intervals_repaired > 0
+    assert _launches() > launches0
+    assert rs_native.apply_gf_matrix.calls > calls0
+
+
+@pytest.mark.cuda
+def test_repair_bench_on_the_card(tmp_path):
+    _need_card()
+    res = repair_bench.run(duration_s=1.0, shard_len=8 << 20,
+                           bulk_chunk=4 << 20, scheme=READ_SCHEME,
+                           workdir=str(tmp_path))
+    assert res["reads"] > 10 and res["bulk_chunks"] >= 4
