@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -44,6 +45,7 @@ from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
 HBM_BYTES_PER_S = 3.35e12
 MIB = 1 << 20
 LOST = (2, 7, 11, 13)
+DISPATCH = "SEAWEEDFS_TORCH_HOST_DISPATCH"
 
 
 def time_ms(fn, inputs, reps: int) -> float:
@@ -108,10 +110,12 @@ def crossover(device, card: str, batches=(1, 128),
                                    [LOST[0]])
     block = np.random.default_rng(20261016).integers(
         0, 256, 1 << 24, dtype=np.uint8)
-    saved = rs_torch.DEVICE_MIN_S
+    saved = rs_torch.DEVICE_MIN_S, os.environ.get(DISPATCH)
     rows = []
     try:
-        rs_torch.DEVICE_MIN_S = 0    # every timed host call goes to the card
+        # every timed host call goes to the card, whatever the link rule
+        rs_torch.DEVICE_MIN_S = 0
+        os.environ[DISPATCH] = "device"
         for b in batches:
             for s in sizes:
                 x = np.resize(block, (b, 10, s))   # pageable, as np.stack
@@ -133,7 +137,11 @@ def crossover(device, card: str, batches=(1, 128),
                 print(json.dumps(rows[-1]), flush=True)
                 del x
     finally:
-        rs_torch.DEVICE_MIN_S = saved
+        rs_torch.DEVICE_MIN_S = saved[0]
+        if saved[1] is None:
+            os.environ.pop(DISPATCH, None)
+        else:
+            os.environ[DISPATCH] = saved[1]
     return rows
 
 

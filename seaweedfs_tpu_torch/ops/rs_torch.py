@@ -19,27 +19,37 @@ one stream. The copy that reads the pool buffer precedes that event on
 the same stream, so a caller that recycles the buffer after
 ``np.asarray`` can never overwrite bytes still being copied.
 
-The small-payload rule (the first half of the JAX package's hybrid
-rule): a product whose input is on the host and whose shard length S is
-below :data:`DEVICE_MIN_S` goes to the native host codec
-(``rs_native.apply_gf_matrix``) on every device, because below it a
-round trip to the card is its fixed cost, two to three times the host
-codec's time; the read path's interval repairs are its callers. On the CPU, S >= DEVICE_MIN_S takes
-the kernels' plain PyTorch versions. A tensor already on the card is
-never copied back for it. Where the native library cannot be built,
-every product goes to the kernels. The rule is fixed and measured: a
-kernel that fails to build or launch raises; nothing gives way to the
-host for it.
+The hybrid rule, in the order it is applied to a HOST product:
 
-Not ported yet: the link-bandwidth half of the hybrid rule (large host
-slabs stay on the host when the link is slower than the host codec),
-and grouping several slabs into one dispatch (``*_multi`` launches per
-slab on one stream).
+1. the small-payload rule: a product whose shard length S is below
+   :data:`DEVICE_MIN_S` goes to the native host codec
+   (``rs_native.apply_gf_matrix``) on every device, because below it a
+   round trip to the card is its fixed cost, two to three times the host
+   codec's time; the read path's interval repairs are its callers;
+2. the link-bandwidth half, on the card only: ``auto``
+   (``SEAWEEDFS_TORCH_HOST_DISPATCH``, the default) probes the link's
+   round-trip rate and the host codec's rate once per process
+   (:func:`_device_worth_it`) and keeps the product on the host codec
+   when the link is the slower; ``device`` and ``native`` pin the choice;
+3. else the card. On the CPU, products from ``DEVICE_MIN_S`` take the
+   kernels' plain PyTorch versions.
+
+A tensor already on the card is never copied back for either rule, and
+where the native library cannot be built every product goes to the
+kernels. A kernel that fails to build or launch raises; nothing gives
+way to the host for it.
+
+Each host slab is its own launch on the side stream (``*_host_multi``
+loops over the slabs): enqueueing several slabs together amortises
+nothing until one launch covers many slabs.
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -58,14 +68,109 @@ from .rs_ref import ShardSizeError, TooFewShardsError
 #: B = 128. Below 128 KiB the card's round trip is its fixed cost (twice
 #: the host codec's at B = 1); from 128 KiB it grows with the bytes
 #: copied, at about the host codec's rate, and the choice between the two
-#: becomes the link-bandwidth half of the hybrid rule (not ported).
+#: is the link-bandwidth half of the hybrid rule.
 DEVICE_MIN_S = 128 * 1024
+
+#: Probe results of the link-bandwidth half: GiB/s of the host<->card
+#: round trip and of the host codec, measured once per process.
+_link_gibps: Optional[float] = None
+_native_gibps: Optional[float] = None
+_calibrate_lock = threading.Lock()
 
 
 def host_codec_takes(s: int) -> bool:
     """The small-payload rule: whether a host product of shard length
     ``s`` goes to the native host codec."""
     return s < DEVICE_MIN_S and rs_native.available()
+
+
+def _dispatch_mode() -> str:
+    """``SEAWEEDFS_TORCH_HOST_DISPATCH``, read and validated at use time
+    so a typo surfaces from the codec call: ``auto`` (the default)
+    measures, ``device`` and ``native`` pin the choice for large host
+    slabs."""
+    mode = os.environ.get("SEAWEEDFS_TORCH_HOST_DISPATCH") or "auto"
+    if mode not in ("auto", "device", "native"):
+        raise ValueError(
+            f"SEAWEEDFS_TORCH_HOST_DISPATCH={mode!r}: expected "
+            f"'auto', 'device' or 'native'")
+    return mode
+
+
+def _measure_link_gibps(device=None, n_bytes: int = 8 * 1024 * 1024
+                        ) -> float:
+    """Host->card->host round-trip rate of a pageable buffer (GiB/s of
+    payload moved per second of wall time, both directions counted),
+    after one warm-up round trip of the same buffer, so that creating
+    the CUDA context and the copies' staging buffers is not timed as
+    link bandwidth."""
+    dev = resolve_device(device)
+    x = np.zeros(n_bytes, dtype=np.uint8)
+    torch.from_numpy(x).to(dev).cpu()
+    t0 = time.perf_counter()
+    torch.from_numpy(x).to(dev).cpu()
+    dt = time.perf_counter() - t0
+    return 2 * n_bytes / (1024 ** 3) / max(dt, 1e-9)
+
+
+def _measure_native_gibps(n_bytes: int = 16 * 1024 * 1024) -> float:
+    """Host codec rate (input GiB/s) on an encode-shaped (10 -> 4)
+    product, after a warm-up call that builds the library and tables."""
+    k = 10
+    coefs = gf256.build_code_matrix(k, k + 4)[k:]
+    x = np.zeros((k, n_bytes // k), dtype=np.uint8)
+    rs_native.apply_gf_matrix(coefs, x)
+    t0 = time.perf_counter()
+    rs_native.apply_gf_matrix(coefs, x)
+    dt = time.perf_counter() - t0
+    return x.size / (1024 ** 3) / max(dt, 1e-9)
+
+
+def _device_worth_it(device=None) -> bool:
+    """The link-bandwidth half of the hybrid rule: should a large HOST
+    slab cross to the card? ``auto`` probes both rates once per process
+    (under a lock, re-checked inside it, so concurrent callers neither
+    probe twice nor share the link with each other's probe); the card
+    wins only when the link outruns the host codec."""
+    mode = _dispatch_mode()
+    if mode == "device":
+        return True
+    if mode == "native":
+        return False
+    if not rs_native.available():
+        return True
+    global _link_gibps, _native_gibps
+    if _link_gibps is None:
+        with _calibrate_lock:
+            if _link_gibps is None:
+                link = _measure_link_gibps(device)
+                _native_gibps = _measure_native_gibps()
+                _link_gibps = link
+    return _link_gibps > _native_gibps
+
+
+def _stay_on_host(device=None) -> bool:
+    """Large host slabs stay on the host when the link can't outrun the
+    host codec (and the codec exists)."""
+    return not _device_worth_it(device) and rs_native.available()
+
+
+def calibration() -> Optional[tuple[float, float]]:
+    """The ``auto`` probe's (link GiB/s, host codec GiB/s), or None
+    before the first probe."""
+    if _link_gibps is None:
+        return None
+    return _link_gibps, _native_gibps
+
+
+def _host_takes(s: int, dev: torch.device) -> bool:
+    """The hybrid rule for a HOST product of shard length ``s`` bound
+    for ``dev``: True sends it to the native host codec (module
+    docstring, steps 1-2)."""
+    _dispatch_mode()
+    if host_codec_takes(s):
+        return True
+    return dev.type == "cuda" and _stay_on_host(dev)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -127,13 +232,13 @@ def apply_matrix(coefs: np.ndarray, x, device=None) -> torch.Tensor:
 
 def apply_matrix_host(coefs: np.ndarray, batch: np.ndarray, device=None):
     """HOST (B, n_in, S) uint8 -> a result whose ``np.asarray`` is
-    (B, n_out, S) uint8: a numpy array from the host codec (S below
-    :data:`DEVICE_MIN_S`) or on the CPU, an async :class:`_HostResult`
-    on the card (module docstring)."""
+    (B, n_out, S) uint8: a numpy array from the host codec (the hybrid
+    rule, module docstring) or on the CPU, an async :class:`_HostResult`
+    on the card."""
     dev = resolve_device(device)
     coefs = np.ascontiguousarray(coefs, dtype=np.uint8)
     batch = np.ascontiguousarray(batch, dtype=np.uint8)
-    if host_codec_takes(batch.shape[-1]):
+    if _host_takes(batch.shape[-1], dev):
         return rs_native.apply_gf_matrix(coefs, batch)
     src = torch.from_numpy(batch)
     if dev.type == "cpu":

@@ -35,6 +35,14 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
+@pytest.fixture(autouse=True)
+def _host_slabs_to_the_card(monkeypatch):
+    """Pin the link-bandwidth rule to the card, so that every host
+    product from DEVICE_MIN_S launches a kernel whatever the probe
+    would say on this machine."""
+    monkeypatch.setenv("SEAWEEDFS_TORCH_HOST_DISPATCH", "device")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [0, 1], ids=KINDS)
 @pytest.mark.parametrize("s", [65536, 65536 + 300, 65536 + 1003])
@@ -184,3 +192,45 @@ def test_repair_bench_on_the_card(tmp_path):
                            bulk_chunk=4 << 20, scheme=READ_SCHEME,
                            workdir=str(tmp_path))
     assert res["reads"] > 10 and res["bulk_chunks"] >= 4
+
+
+@pytest.mark.cuda
+def test_host_slabs_on_the_card_match_plain(monkeypatch):
+    """A list of host slabs of mixed shapes: one below the small-payload
+    threshold goes to the host codec, every other slab launches the
+    kernel; all byte-equal to the plain versions."""
+    _need_card()
+    monkeypatch.setattr(rs_torch, "DEVICE_MIN_S", 4096)
+    rng = np.random.default_rng(4)
+    enc = rs_torch.Encoder(10, 4)
+    cpu = rs_torch.Encoder(10, 4, device="cpu")
+    shapes = [(2, 10, 65536)] * 3 + [(1, 10, 2048), (3, 10, 65536 + 300),
+                                     (1, 10, 1 << 20)] + [(2, 10, 65536)] * 5
+    slabs = [rng.integers(0, 256, s, dtype=np.uint8) for s in shapes]
+    n = _launches()
+    outs = enc.encode_parity_host_multi(slabs)
+    assert _launches() == n + len(slabs) - 1      # one slab below 4 KiB
+    for x, out in zip(slabs, outs):
+        assert isinstance(out, np.ndarray) == (x.shape[-1] < 4096)
+        np.testing.assert_array_equal(np.asarray(out),
+                                      cpu.encode_parity_host(x))
+
+
+@pytest.mark.cuda
+def test_encode_many_on_the_card_matches_the_cpu(monkeypatch):
+    _need_card()
+    from seaweedfs_tpu_torch.pipeline import batch
+    monkeypatch.setattr(rs_torch, "DEVICE_MIN_S", 4096)
+    scheme = EcScheme(10, 4, large_block_size=64 * 1024,
+                      small_block_size=8 * 1024)
+    rng = np.random.default_rng(8)
+    payloads = [rng.integers(0, 256, int(rng.integers(1, 900 * 1024)),
+                             dtype=np.uint8) for _ in range(9)]
+    n = _launches()
+    _, got = batch.encode_many(payloads, scheme, 1 << 20, keep_output=True)
+    assert _launches() > n
+    _, want = batch.encode_many(payloads, scheme, 1 << 20, keep_output=True,
+                                device="cpu")
+    for mine, ref in zip(got, want):
+        for a, b in zip(mine, ref):
+            np.testing.assert_array_equal(a, b)

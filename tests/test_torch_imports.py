@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +27,9 @@ bad = sorted(m for m in sys.modules
              or m == "jax" and sys.modules[m] is not None
              or m.startswith("jax.") or m.startswith("jaxlib"))
 print(len(names), "modules;", "bad:", bad)
+new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe",
+       "seaweedfs_tpu_torch.ops.rs_torch"}
+print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
 
@@ -36,20 +40,24 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "bad: []" in out.stdout
-    # every module of the slice was imported
-    assert int(out.stdout.split()[0]) >= 19
+    # every module of the slices so far was imported, the batcher among
+    # them
+    assert int(out.stdout.split()[0]) >= 34
+    assert "missing: []" in out.stdout
 
 
 def test_entry_points_refuse_the_cpu_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None means the card")
-    from seaweedfs_tpu_torch.pipeline import decode, encode, rebuild
+    from seaweedfs_tpu_torch.pipeline import batch, decode, encode, rebuild
     from seaweedfs_tpu_torch.storage import volume
     base = tmp_path / "v"
     volume.write_synthetic_volume(base, 4096, avg_size=512)
     for call in (lambda: encode.encode_volume(base),
                  lambda: rebuild.rebuild_ec_files(base),
-                 lambda: decode.decode_volume(base)):
+                 lambda: decode.decode_volume(base),
+                 lambda: batch.encode_volumes([base]),
+                 lambda: batch.encode_many([np.zeros(100, np.uint8)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # nothing was written on the CPU instead
