@@ -33,13 +33,26 @@ of which fails the run on any mismatch:
    losing shards 0 and 5, and encode + rebuild again with
    ``SEAWEEDFS_TORCH_KERNEL=swar``; launch counters prove each kernel ran,
    and the host codec's call counter which reads it served;
-6. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
+6. shell (config 1 through the admin shell): the path phase's needles
+   written through ``Store.write_needle`` into a store of two disk
+   locations (.dat and .idx sha256-equal to the path phase's; the
+   ingest rate of the write_needle calls alone printed, with
+   ``Needle.to_bytes`` timed apart on the same needles), then ``shell.cli.main`` in this process with
+   ``ec.encode; ec.balance; volume.list`` (shards, .ecx and .vif held
+   against the path phase's, spread over both locations, one launch per
+   batch), ``ec.rebuild`` after losing 2 shards in each location, and
+   ``ec.decode`` after losing data shards 0 and 5 (.dat, .idx and every
+   needle read back through ``Store.read_needle``); then ``python -m
+   seaweedfs_tpu_torch shell`` in its own process on a 16 MiB volume,
+   held against an in-process encode; each command's wall seconds and
+   GiB/s beside the direct call's;
+7. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
    a bulk decode of 4 lost shards through the kernels while 8 reader
    threads send 64 QPS of 4 KiB interval repairs, all checked;
-7. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
+8. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
    shards rebuilt, and the volume decoded after losing data shards 0 and
    3, all sha256-checked, parity against ``rs_ref`` on sampled rows;
-8. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+9. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
    ``batch.encode_packed`` over the same with every parity span checked
    whole against ``rs_ref`` and the batch census printed, 200 volumes on the
@@ -58,7 +71,9 @@ The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
+import io
 import json
 import multiprocessing
 import os
@@ -81,12 +96,17 @@ from seaweedfs_tpu_torch.pipeline import (batch, decode, encode, pipe, read,
                                           rebuild, repair, repair_bench,
                                           stripe)
 from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME, EcScheme
+from seaweedfs_tpu_torch.shell import cli
+from seaweedfs_tpu_torch.shell import commands as shell_commands
 from seaweedfs_tpu_torch.storage import ec_files, idx as idx_mod
 from seaweedfs_tpu_torch.storage import needle as needle_mod
+from seaweedfs_tpu_torch.storage import store as store_mod
 from seaweedfs_tpu_torch.storage import volume as volume_mod
 
 SEED = 20261016
 MIB = 1 << 20
+#: the checkout's root: ``python -m seaweedfs_tpu_torch`` runs from here
+REPO = os.path.dirname(os.path.abspath(__file__))
 #: The deployment's volume: a 1 GiB .dat, RS(10,4), 1 GiB / 1 MiB blocks.
 VOLUME_BYTES = 1 << 30
 LOST_REBUILD = (2, 7, 11, 13)
@@ -452,6 +472,7 @@ def path_phase(dev, workdir: str, label: str) -> dict:
                                           avg_size=MIB, seed=SEED)
     dat_size = os.path.getsize(base + ".dat")
     dat_sha = sha256_file(base + ".dat")
+    idx_sha = sha256_file(base + ".idx")
     idx_entries = list(idx_mod.walk_index_file(base + ".idx"))
     say(f"  volume: {n} needles, .dat {dat_size} bytes, "
         f"{DEFAULT_SCHEME.shard_file_size(dat_size)} bytes per shard "
@@ -514,6 +535,7 @@ def path_phase(dev, workdir: str, label: str) -> dict:
                        {"transpose": True, "swar": False}, launches)
     say(f"  decode: {gib / wall:.3f} GiB/s of .dat in {wall:.3f} s on "
         f"{label}")
+    result["decode_gibps"] = gib / wall
     check(size == dat_size and sha256_file(base + ".dat") == dat_sha,
           "decoded .dat sha256-equal to the original")
     check(list(idx_mod.walk_index_file(base + ".idx")) == idx_entries,
@@ -535,8 +557,282 @@ def path_phase(dev, workdir: str, label: str) -> dict:
     finally:
         os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
     result.update(launches=launches, base=base, dat_sha=dat_sha,
-                  idx_entries=idx_entries)
+                  idx_sha=idx_sha, idx_entries=idx_entries, sealed=sealed,
+                  n_needles=n)
     say(f"  launches on the path phase: {json.dumps(launches)}")
+    return result
+
+
+# --------------------------------------------------------------------------
+# shell phase: config 1 through the admin shell
+# --------------------------------------------------------------------------
+
+#: the pipeline calls the shell's ec.* commands make
+SHELL_PIPELINE = ((encode, "encode_volume"), (rebuild, "rebuild_ec_files"),
+                  (decode, "decode_volume"))
+
+
+@contextlib.contextmanager
+def _timed_commands(log: list):
+    """Wrap every registered shell command so that each run appends
+    (name, wall seconds, launches during it, seconds inside its pipeline
+    calls) to ``log``."""
+    saved = dict(shell_commands.COMMANDS)
+    saved_calls = [getattr(mod, fn) for mod, fn in SHELL_PIPELINE]
+    inner = [0.0]
+    depth = [0]
+
+    def timed_call(fn):
+        def call(*args, **kwargs):   # outermost pipeline call only
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    inner[0] += time.perf_counter() - t0
+        return call
+
+    def wrap(name, fn):
+        def run(env, argv):
+            before = counts()
+            inner[0] = 0.0
+            t0 = time.perf_counter()
+            fn(env, argv)
+            wall = time.perf_counter() - t0
+            log.append((name, wall, {k: v - before[k]
+                                     for k, v in counts().items()},
+                        inner[0]))
+        return run
+
+    shell_commands.COMMANDS.update(
+        {name: wrap(name, fn) for name, fn in saved.items()})
+    for (mod, fn), orig in zip(SHELL_PIPELINE, saved_calls):
+        setattr(mod, fn, timed_call(orig))
+    try:
+        yield
+    finally:
+        shell_commands.COMMANDS.update(saved)
+        for (mod, fn), orig in zip(SHELL_PIPELINE, saved_calls):
+            setattr(mod, fn, orig)
+
+
+def shell_main(args: list, log: list, launches: dict, what: str) -> list:
+    """``shell.cli.main`` in this process with every launch count set to
+    0 just before it; returns its printed lines."""
+    out = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(out):
+            return cli.main(args)
+
+    with _timed_commands(log):
+        rc, _ = drive(what, run, {"transpose": True, "swar": False},
+                      launches)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        say(f"  > {line}")
+    check(rc == 0, f"{what}: exit {rc}")
+    return lines
+
+
+def shell_phase(dev, workdir: str, pres: dict, label: str,
+                launches: dict) -> dict:
+    """Config 1 through the port's admin shell: the path phase's needles
+    written through ``Store.write_needle`` into a store of two disk
+    locations, then ``ec.encode; ec.balance; volume.list``, a rebuild of
+    4 lost shards, and a decode after losing 2 data shards, each held
+    against the path phase's files; then one ``python -m
+    seaweedfs_tpu_torch shell`` subprocess on a 16 MiB volume."""
+    t_phase = time.perf_counter()
+    scheme = DEFAULT_SCHEME
+    a, b = os.path.join(workdir, "A"), os.path.join(workdir, "B")
+    os.makedirs(a)
+    os.makedirs(b)
+    vid = 1
+    dat_size = os.path.getsize(pres["base"] + ".dat")
+    gib = dat_size / GIB
+    shard_size = scheme.shard_file_size(dat_size)
+    result = {}
+
+    # 1-4: the path phase's needles through the Store, every write
+    # acknowledged under the commit policy (2 fsyncs each). Only the
+    # write_needle calls are timed; making each needle and hashing it
+    # for the check are not. Needle.to_bytes (the CRC32-C and the
+    # record's assembly, which write_needle runs too) is timed on its
+    # own on the same needles, outside the write_needle window.
+    store = store_mod.Store([a, b])
+    vol = store.create_volume(vid)
+    version = vol.super_block.version
+    needles = volume_mod.synthetic_needles(avg_size=MIB, seed=SEED)
+    written = {}
+    write_s = to_bytes_s = 0.0
+    while vol.dat_size < VOLUME_BYTES:
+        n = next(needles)
+        t0 = time.perf_counter()
+        n.to_bytes(version)
+        t1 = time.perf_counter()
+        store.write_needle(vid, n)
+        t2 = time.perf_counter()
+        to_bytes_s += t1 - t0
+        write_s += t2 - t1
+        written[n.id] = (n.cookie, hashlib.sha256(n.data).digest())
+    store.close()
+    vbase = os.path.join(os.path.dirname(vol.base), str(vid))
+    result["ingest"] = {
+        "needles": len(written), "write_needle_s": write_s,
+        "needles_per_s": len(written) / write_s,
+        "mib_per_s": dat_size / MIB / write_s,
+        "to_bytes_s": to_bytes_s,
+        "ms_per_needle": 1e3 * write_s / len(written),
+        "to_bytes_ms_per_needle": 1e3 * to_bytes_s / len(written),
+        "fsyncs": 2 * len(written)}
+    say(f"  ingest through Store.write_needle on {label}: "
+        f"{json.dumps(result['ingest'])}")
+    check(len(written) == pres["n_needles"]
+          and sha256_file(vbase + ".dat") == pres["dat_sha"],
+          f"{len(written)} needles written through Store.write_needle: "
+          f".dat sha256-equal to the path phase's volume, superblock "
+          f"included")
+    check(sha256_file(vbase + ".idx") == pres["idx_sha"],
+          ".idx sha256-equal to the path phase's volume")
+
+    # 5: seal, spread, list in one session
+    log: list = []
+    lines = shell_main(["-dir", a, "-dir", b, "-c",
+                        f"ec.encode -volumeId {vid}; ec.balance; "
+                        f"volume.list"], log, launches,
+                       "shell ec.encode; ec.balance; volume.list")
+    sealed = pres["sealed"]
+    sealed_shards = {ec_files.shard_ext(i): sealed[ec_files.shard_ext(i)]
+                     for i in range(scheme.total_shards)}
+
+    def shard_paths() -> dict:
+        st = store_mod.Store([a, b])
+        return st.ec_shard_paths(vid)
+
+    def digests(ids) -> dict:
+        paths = shard_paths()
+        return {ec_files.shard_ext(i): sha256_file(paths[i]) for i in ids}
+
+    in_a = ec_files.present_shards(os.path.join(a, str(vid)))
+    in_b = ec_files.present_shards(os.path.join(b, str(vid)))
+    check(digests(range(scheme.total_shards)) == sealed_shards
+          and sha256_file(vbase + ".ecx") == sealed[".ecx"],
+          "shell ec.encode: 14 shards and .ecx sha256-equal to the path "
+          "phase's")
+    # the shell seals a registered volume, so its .vif carries the
+    # volume's replica placement (000); the path phase's direct call
+    # passed none. Same file otherwise:
+    vi = ec_files.VolumeInfo.load(pres["base"])
+    vi.replication = "000"
+    ref = os.path.join(workdir, "vif_ref")
+    vi.save(ref)
+    check(sha256_file(vbase + ".vif") == sha256_file(ref + ".vif"),
+          "shell ec.encode: .vif sha256-equal to the path phase's with "
+          "replication 000 from the volume's superblock")
+    check(len(in_a) == len(in_b) == 7
+          and sorted(in_a + in_b) == list(range(scheme.total_shards)),
+          f"ec.balance: shards {in_a} in A, {in_b} in B")
+    check(any(line.startswith(f"ec volume {vid} ") and
+              f"shards={list(range(scheme.total_shards))}" in line
+              for line in lines), "volume.list lists all 14 shards")
+    batches = len(list(encode.plan_batches(dat_size, scheme,
+                                           pipe.BATCH_BYTES)))
+    enc_log = [e for e in log if e[0] == "ec.encode"][0]
+    check(enc_log[2]["transpose"] == batches and enc_log[2]["swar"] == 0,
+          f"shell ec.encode: transpose kernel launched "
+          f"{enc_log[2]['transpose']} times, one per batch ({batches})")
+    result["encode"] = enc_log
+
+    # 6: lose 2 shards in each location, rebuild
+    lost = sorted([in_a[1], in_a[-1], in_b[3], in_b[-1]])
+    for i in lost:
+        os.remove(shard_paths()[i])
+    check(len(shard_paths()) == scheme.total_shards - len(lost),
+          f"shards {lost} removed, 2 from each location")
+    log.clear()
+    lines = shell_main(["-dir", a, "-dir", b, "-c",
+                        f"ec.rebuild -volumeId {vid}"], log, launches,
+                       "shell ec.rebuild")
+    check(lines == [f"ec.rebuild volume {vid}: rebuilt {lost}"]
+          and digests(range(scheme.total_shards)) == sealed_shards,
+          f"shell ec.rebuild: shards {lost} rebuilt sha256-equal to the "
+          f"sealed ones")
+    result["rebuild"] = log[0]
+
+    # 7: lose data shards 0 and 5, decode, read every needle back
+    for i in LOST_DECODE:
+        os.remove(os.path.realpath(shard_paths()[i]))
+    log.clear()
+    shell_main(["-dir", a, "-dir", b, "-c", f"ec.decode -volumeId {vid}"],
+               log, launches, "shell ec.decode")
+    result["decode"] = log[0]
+    check(sha256_file(vbase + ".dat") == pres["dat_sha"]
+          and sha256_file(vbase + ".idx") == pres["idx_sha"],
+          "shell ec.decode: .dat and .idx sha256-equal to the originals")
+    store = store_mod.Store([a, b])
+    store.load_existing()
+    try:
+        bad = [k for k, (cookie, h) in written.items()
+               if hashlib.sha256(store.read_needle(vid, k, cookie=cookie)
+                                 .data).digest() != h]
+    finally:
+        store.close()
+    check(not bad and not [p for d in (a, b) for p in os.listdir(d)
+                           if ".ec" in p or p.endswith(".vif")],
+          f"all {len(written)} needles read back through "
+          f"Store.read_needle equal to the ones written; no EC file left")
+
+    # 8: the CLI as an operator runs it, in its own process
+    c, d = os.path.join(workdir, "C"), os.path.join(workdir, "D")
+    os.makedirs(c)
+    os.makedirs(d)
+    volume_mod.write_synthetic_volume(os.path.join(c, "2"), 16 * MIB,
+                                      avg_size=64 * 1024, seed=SEED + 2)
+    for ext in (".dat", ".idx"):
+        os.link(os.path.join(c, "2" + ext), os.path.join(d, "2" + ext))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "shell", "-dir", c,
+         "-c", "ec.encode -volumeId 2"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    sub_wall = time.perf_counter() - t0
+    for line in (r.stdout + r.stderr).splitlines():
+        say(f"  $ {line}")
+    check(r.returncode == 0,
+          f"python -m seaweedfs_tpu_torch shell -dir C -c 'ec.encode "
+          f"-volumeId 2' (16 MiB, own process, {sub_wall:.1f} s): exit 0")
+    encode.encode_volume(os.path.join(d, "2"), replication="000",
+                         device=dev)
+    same = all(sha256_file(os.path.join(c, "2" + ext))
+               == sha256_file(os.path.join(d, "2" + ext))
+               for ext in [ec_files.shard_ext(i)
+                           for i in range(scheme.total_shards)]
+               + [".ecx", ".vif"])
+    check(same, "the subprocess's 14 shards, .ecx and .vif sha256-equal "
+          "to an in-process encode_volume")
+    result["subprocess_s"] = sub_wall
+
+    # 9: each command's rate beside the direct call's in this run
+    for key, moved, direct in (
+            ("encode", gib, pres["encode_overlapped_gibps"]),
+            ("rebuild", len(lost) * shard_size / GIB, pres["rebuild_gibps"]),
+            ("decode", gib, pres["decode_gibps"])):
+        _, wall, _, inner = result[key]
+        result[f"{key}_gibps"] = moved / wall
+        say(f"  ec.{key}: {wall:.3f} s ({inner:.3f} s in the pipeline "
+            f"call, {wall - inner:.3f} s of registry and file work), "
+            f"{moved / wall:.3f} GiB/s through the shell vs "
+            f"{direct:.3f} GiB/s direct ({moved / wall / direct:.2f}x) "
+            f"on {label}")
+    shutil.rmtree(a)
+    shutil.rmtree(b)
+    say(f"  shell phase: {time.perf_counter() - t_phase:.1f} s")
     return result
 
 
@@ -778,6 +1074,7 @@ def config3_files_phase(dev, workdir: str, label: str,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; "
               "this script needs a CUDA card", file=sys.stderr)
@@ -811,6 +1108,9 @@ def main() -> int:
     try:
         pres = path_phase(dev, workdir, label)
         launches = pres["launches"]
+        say("phase shell (config 1 through the admin shell):")
+        shell_phase(dev, os.path.join(workdir, "shell"), pres, label,
+                    launches)
         say("phase repair under load (config 5):")
         repair_phase(dev, os.path.join(workdir, "config5"),
                      DEFAULT_SCHEME.shard_file_size(VOLUME_BYTES), launches)
@@ -824,6 +1124,8 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"  launches on the main path: {json.dumps(launches)}")
+    say(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+        f"builds included")
 
     rows = []
     for name, k in KERNELS.items():

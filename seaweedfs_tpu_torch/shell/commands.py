@@ -1,0 +1,314 @@
+"""Shell command registry: ec.encode / ec.decode / ec.rebuild / ec.balance
+plus volume housekeeping.
+
+The port of the offline part of ``seaweedfs_tpu/shell/commands.py``
+(weed/shell/command_ec_encode.go, command_ec_decode.go,
+command_ec_rebuild.go, command_ec_balance.go, command_volume_*.go): the
+commands run against a CommandEnv that wraps local disk locations (a
+Store) and the device the EC pipelines run on. Command syntax and
+semantics stay the reference's:
+
+    ec.encode  -volumeId 3 [-collection c]   seal volume into shards+.ecx
+    ec.decode  -volumeId 3                   shards back to .dat/.idx
+    ec.rebuild [-volumeId 3]                 regenerate missing shards
+    ec.balance                               spread shards over locations
+    volume.list                              registry snapshot
+    volume.delete -volumeId 3                drop a volume's files
+
+Not ported yet: the ``-mesh`` flag (the multi-GPU slice), the trace root
+around each command, and the other command families (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import shlex
+import shutil
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Optional
+
+from ..ops import rs_torch
+from ..pipeline import decode as decode_mod
+from ..pipeline import encode as encode_mod
+from ..pipeline import rebuild as rebuild_mod
+from ..pipeline.scheme import DEFAULT_SCHEME, EcScheme
+from ..storage import ec_files
+from ..storage.store import Store, StoreError, volume_base_name
+from ..storage.volume import Volume
+
+
+class ShellError(RuntimeError):
+    pass
+
+
+@dataclass
+class CommandEnv:
+    """What a command needs to run: a Store over directories, where to
+    print, the default EC scheme, and the device of the EC pipelines
+    (None = the card; "cpu" runs the plain PyTorch codec)."""
+
+    store: Store
+    out: io.TextIOBase = None  # type: ignore[assignment]
+    scheme: EcScheme = DEFAULT_SCHEME
+    device: object = None
+
+    def __post_init__(self):
+        if self.out is None:
+            import sys
+            self.out = sys.stdout
+
+    def println(self, *args) -> None:
+        print(*args, file=self.out)
+
+
+COMMANDS: dict[str, Callable[[CommandEnv, list[str]], None]] = {}
+
+
+def command(name: str):
+    def register(fn):
+        COMMANDS[name] = fn
+        return fn
+    return register
+
+
+def _parser(name: str) -> argparse.ArgumentParser:
+    # exit_on_error=False so bad flags raise instead of sys.exit()ing the
+    # REPL; prefix matching off to keep flag names exact like Go's flag.
+    return argparse.ArgumentParser(prog=name, exit_on_error=False,
+                                   allow_abbrev=False)
+
+
+def _scheme_arg(s: Optional[str], default: EcScheme) -> EcScheme:
+    if not s:
+        return default
+    try:
+        k, m = (int(x) for x in s.split(","))
+    except ValueError:
+        raise ShellError(f"bad -scheme {s!r}, want k,m") from None
+    return EcScheme(data_shards=k, parity_shards=m,
+                    large_block_size=default.large_block_size,
+                    small_block_size=default.small_block_size)
+
+
+def _device(env: CommandEnv):
+    """The pipelines' device, resolved before a command touches any
+    file: without a card, a command that needs one fails here (the
+    RuntimeError becomes a ShellError) and never carries on on the
+    CPU."""
+    return rs_torch.resolve_device(env.device)
+
+
+def _ec_bases(env: CommandEnv) -> list[tuple[str, int, Path]]:
+    """Every (collection, vid, base) with EC artifacts in any location."""
+    out = []
+    for loc in env.store.locations:
+        for col, vid, base, _ids in loc.scan_ec_shards():
+            out.append((col, vid, base))
+    return out
+
+
+@command("ec.encode")
+def cmd_ec_encode(env: CommandEnv, argv: list[str]) -> None:
+    """Seal a volume: stripe + encode on the env's device into k+m
+    shard files, write the sorted .ecx and .vif, delete the source
+    .dat/.idx — the single-node form of command_ec_encode.go's
+    choreography (mark readonly -> VolumeEcShardsGenerate -> spread ->
+    delete source)."""
+    p = _parser("ec.encode")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-scheme", default="")
+    p.add_argument("-keepSource", action="store_true")
+    args = p.parse_args(argv)
+    scheme = _scheme_arg(args.scheme, env.scheme)
+    device = _device(env)
+    store = env.store
+    vol = store.volumes.get((args.collection, args.volumeId))
+    if vol is not None:
+        vol.sync()
+        base = vol.base
+        replication = str(vol.super_block.replica_placement)
+    else:
+        base = next(
+            (loc.base_for(args.volumeId, args.collection)
+             for loc in store.locations
+             if loc.base_for(args.volumeId,
+                             args.collection).with_suffix(".dat").exists()),
+            None)
+        if base is None:
+            raise ShellError(f"volume {args.volumeId} not found")
+        replication = ""
+    # the encode reads the .dat through its own descriptor, closed when
+    # it returns; the Volume's handles close in delete_volume below
+    vi = encode_mod.encode_volume(base, scheme, replication=replication,
+                                  remove_source=False, device=device)
+    if not args.keepSource:
+        if vol is not None:
+            store.delete_volume(args.volumeId, args.collection)
+        else:
+            for ext in (".dat", ".idx"):
+                q = Path(str(base) + ext)
+                if q.exists():
+                    q.unlink()
+    store.mount_ec_shards(args.volumeId,
+                          list(range(scheme.total_shards)),
+                          args.collection)
+    env.println(f"ec.encode volume {args.volumeId}: "
+                f"{scheme.total_shards} shards, version {vi.version}")
+
+
+@command("ec.decode")
+def cmd_ec_decode(env: CommandEnv, argv: list[str]) -> None:
+    """Shards -> normal volume again (command_ec_decode.go /
+    VolumeEcShardsToVolume): restore .dat+.idx, drop EC artifacts,
+    register the volume."""
+    p = _parser("ec.decode")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-scheme", default="")
+    args = p.parse_args(argv)
+    scheme = _scheme_arg(args.scheme, env.scheme)
+    device = _device(env)
+    store = env.store
+    base = store.gather_ec_volume(args.volumeId, args.collection)
+    size = decode_mod.decode_volume(base, scheme, device=device)
+    store.unmount_ec_shards(args.volumeId,
+                            list(range(scheme.total_shards)),
+                            args.collection)
+    store.remove_ec_volume_files(args.volumeId, args.collection)
+    old = store.volumes.pop((args.collection, args.volumeId), None)
+    if old is not None:
+        old.close()
+    # load() runs the tail-integrity check, which may truncate a torn
+    # tail and then reopens its .dat
+    store.volumes[(args.collection, args.volumeId)] = \
+        Volume(base, args.volumeId).load()
+    env.println(f"ec.decode volume {args.volumeId}: {size} bytes restored")
+
+
+@command("ec.rebuild")
+def cmd_ec_rebuild(env: CommandEnv, argv: list[str]) -> None:
+    """Regenerate missing shard files for one or all EC volumes
+    (command_ec_rebuild.go -> VolumeEcShardsRebuild)."""
+    p = _parser("ec.rebuild")
+    p.add_argument("-volumeId", type=int, default=0)
+    p.add_argument("-collection", default="")
+    p.add_argument("-scheme", default="")
+    args = p.parse_args(argv)
+    scheme = _scheme_arg(args.scheme, env.scheme)
+    device = _device(env)
+    store = env.store
+    targets: list[tuple[str, int]] = []
+    if args.volumeId:
+        targets.append((args.collection, args.volumeId))
+    else:
+        targets = sorted({(col, vid) for col, vid, _ in _ec_bases(env)})
+    for col, vid in targets:
+        base = store.gather_ec_volume(vid, col)
+        rebuilt = rebuild_mod.rebuild_ec_files(base, scheme, device=device)
+        if rebuilt:
+            store.mount_ec_shards(vid, rebuilt, col)
+        env.println(f"ec.rebuild volume {vid}: "
+                    f"rebuilt {rebuilt if rebuilt else 'nothing'}")
+
+
+@command("ec.balance")
+def cmd_ec_balance(env: CommandEnv, argv: list[str]) -> None:
+    """Spread each EC volume's shard files evenly across disk locations
+    (command_ec_balance.go's rack-aware spreading, with locations standing
+    in for servers in local mode)."""
+    p = _parser("ec.balance")
+    p.parse_args(argv)
+    store = env.store
+    locs = [l.directory for l in store.locations]
+    if len(locs) < 2:
+        env.println("ec.balance: single location, nothing to do")
+        return
+    moved = 0
+    for col, vid in sorted({(c, v) for c, v, _ in _ec_bases(env)}):
+        name = volume_base_name(vid, col)
+        # Drop gather-created symlink caches first: balancing must move
+        # only real files (renaming a symlink over its own target would
+        # destroy the shard).
+        real: dict[int, Path] = {}
+        for d in locs:
+            base = d / name
+            for sid in range(100):
+                p_ = ec_files.shard_path(base, sid)
+                if p_.is_symlink():
+                    p_.unlink()
+                elif p_.exists():
+                    real.setdefault(sid, p_)
+        for rank, sid in enumerate(sorted(real)):
+            src = real[sid]
+            dst = ec_files.shard_path(locs[rank % len(locs)] / name, sid)
+            if src == dst:
+                continue
+            # shutil.move: disk locations are usually separate
+            # filesystems, where rename() fails with EXDEV
+            shutil.move(str(src), str(dst))
+            moved += 1
+        # every location serving shards needs the index + volume info
+        src_base = next((d / name for d in locs
+                         if ec_files.ecx_path(d / name).exists()), None)
+        if src_base is not None:
+            for d in locs:
+                for pathfn in (ec_files.ecx_path, ec_files.vif_path):
+                    s, t = pathfn(src_base), pathfn(d / name)
+                    if s.exists() and s != t and not t.exists():
+                        t.write_bytes(s.read_bytes())
+    env.println(f"ec.balance: moved {moved} shards over {len(locs)} "
+                f"locations")
+
+
+@command("volume.list")
+def cmd_volume_list(env: CommandEnv, argv: list[str]) -> None:
+    p = _parser("volume.list")
+    p.parse_args(argv)
+    st = env.store.status()
+    for v in st["volumes"]:
+        env.println(f"volume {v['id']} collection={v['collection'] or '-'} "
+                    f"size={v['size']} files={v['file_count']} "
+                    f"deleted={v['deleted_count']}")
+    for e in st["ec_shards"]:
+        bits = ec_files.ShardBits(e["ec_index_bits"])
+        env.println(f"ec volume {e['id']} "
+                    f"collection={e['collection'] or '-'} "
+                    f"shards={bits.ids()}")
+    if not st["volumes"] and not st["ec_shards"]:
+        env.println("no volumes")
+
+
+@command("volume.delete")
+def cmd_volume_delete(env: CommandEnv, argv: list[str]) -> None:
+    p = _parser("volume.delete")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    args = p.parse_args(argv)
+    env.store.delete_volume(args.volumeId, args.collection)
+    env.println(f"volume.delete {args.volumeId}: done")
+
+
+def run_command(env: CommandEnv, line: str) -> None:
+    """Parse and run one shell line."""
+    parts = shlex.split(line)
+    if not parts:
+        return
+    name, argv = parts[0], parts[1:]
+    if name in ("help", "?"):
+        for c in sorted(COMMANDS):
+            env.println(c)
+        return
+    fn = COMMANDS.get(name)
+    if fn is None:
+        raise ShellError(f"unknown command {name!r} (try 'help')")
+    try:
+        fn(env, argv)
+    except ShellError:
+        raise
+    except (argparse.ArgumentError, SystemExit) as e:
+        raise ShellError(f"{name}: bad arguments ({e})") from None
+    except (StoreError, OSError, RuntimeError) as e:
+        raise ShellError(f"{name}: {e}") from None

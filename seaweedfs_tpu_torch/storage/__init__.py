@@ -1,5 +1,7 @@
-"""On-disk formats: needles, indexes, superblocks, EC shard files.
+"""On-disk formats, the append-only ``Volume`` engine and the ``Store``
+registry.
 
-Copies of the numpy-only modules of ``seaweedfs_tpu/storage`` (the port
-imports nothing of the JAX package), bit-compatible with them.
+Ports of ``seaweedfs_tpu/storage`` (the port imports nothing of the JAX
+package), bit-compatible with them: each package reads what the other
+writes.
 """

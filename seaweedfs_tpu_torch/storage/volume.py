@@ -1,23 +1,47 @@
-"""Volume file paths and a synthetic volume writer.
+"""Append-only volume files: .dat + .idx lifecycle.
 
-The port needs only two things of ``seaweedfs_tpu/storage/volume.py``:
-the ``.dat``/``.idx`` path helpers the EC pipelines use, and a way to
-lay down a real volume of needles (superblock, 8-byte aligned needle
-records, a ``.idx`` journal entry per needle) for tests and
-``chip_smoke.py``. The append-only ``Volume`` engine comes with a later
-slice.
+The port of ``seaweedfs_tpu/storage/volume.py`` (weed/storage/
+volume.go, volume_read_write.go, volume_loading.go): a volume is an
+append-only .dat file opened with an 8-byte superblock, needle records
+appended 8-byte aligned, and a parallel .idx journal recording (key,
+offset, size) per write plus tombstones per delete. Loading replays the
+.idx into a CompactMap; reads seek straight to the needle (the Haystack
+O(1)-seek property).
+
+The needle map is the in-RAM ``memory`` map only: the ``native`` and
+``sqlite`` maps, the S3 cold tier and compaction (vacuum) are not ported
+yet (ROADMAP Queue 1 item 5), and asking for any of them raises rather
+than falling back to something else.
+
+Also hosts the synthetic volume writers used by tests and
+``chip_smoke.py`` (the reference's ec_test.go builds its fixture volume
+the same way).
 """
 
 from __future__ import annotations
 
+import os
+import struct
+import threading
 from pathlib import Path
+from typing import Iterator, Optional
 
 import numpy as np
 
+from ..util import durability, faults
+from .backend import DiskFile
 from . import needle as needle_mod
-from .idx import IndexEntry
-from .superblock import SuperBlock
-from .types import to_offset_units
+from .idx import CompactMap, IndexEntry, walk_index_blob
+from .superblock import ReplicaPlacement, SuperBlock
+from .types import (NEEDLE_MAP_ENTRY_SIZE, NEEDLE_PADDING_SIZE,
+                    TOMBSTONE_FILE_SIZE, to_offset_units)
+
+#: The only needle map kind the port has.
+NEEDLE_MAPS = ("memory",)
+
+
+class VolumeError(RuntimeError):
+    pass
 
 
 def dat_path(base: str | Path) -> Path:
@@ -28,30 +52,395 @@ def idx_path(base: str | Path) -> Path:
     return Path(str(base) + ".idx")
 
 
+def tier_path(base: str | Path) -> Path:
+    """The JAX package's S3-tier sidecar: its presence means the durable
+    copy of the .dat lives on the tier."""
+    return Path(str(base) + ".tier")
+
+
+class Volume:
+    """A single writable/readable volume addressed by its base path
+    (``<dir>/<collection_>?<vid>`` without extension).
+
+    The .dat is a local file (storage/backend.py ``DiskFile``);
+    ``needle_map`` must be "memory" (CompactMap)."""
+
+    def __init__(self, base: str | Path, volume_id: int = 0,
+                 super_block: Optional[SuperBlock] = None,
+                 needle_map: str = "memory"):
+        if needle_map not in NEEDLE_MAPS:
+            raise VolumeError(
+                f"needle map {needle_map!r} is not ported yet (ROADMAP "
+                f"Queue 1 item 5); have {', '.join(NEEDLE_MAPS)}")
+        self.base = Path(base)
+        self.volume_id = volume_id
+        self.super_block = super_block or SuperBlock()
+        self.needle_map_kind = needle_map
+        self.nm = CompactMap()
+        self._dat: Optional[DiskFile] = None
+        self._idx = None
+        # Appends mutate shared file-handle state; reads use os.pread on
+        # the raw fd, so only writers serialize. Readers register under
+        # the lock (consistent needle-map + fd snapshot) and pread
+        # outside it; close() drains them via _no_readers before closing
+        # the fd, so a read never hits a closed (or kernel-reused)
+        # descriptor.
+        self._lock = threading.RLock()
+        self._readers = 0
+        #: True while close() drains readers (the JAX engine's fd-swap
+        #: drain); new readers block on _no_readers until it clears, so
+        #: a stream of overlapping reads cannot starve it.
+        self._closing = False
+        self._no_readers = threading.Condition(self._lock)
+
+    # -- lifecycle --------------------------------------------------------
+
+    def create(self) -> "Volume":
+        if dat_path(self.base).exists():
+            raise VolumeError(f"{dat_path(self.base)} already exists")
+        self._dat = DiskFile(dat_path(self.base), create=True)
+        self._dat.append(self.super_block.to_bytes())
+        self._idx = open(idx_path(self.base), "w+b")
+        self.nm = CompactMap()
+        return self
+
+    def load(self) -> "Volume":
+        p = dat_path(self.base)
+        if tier_path(self.base).exists():
+            raise VolumeError(
+                f"volume {self.base} has a tier sidecar "
+                f"{tier_path(self.base).name}: the S3 tier is not ported "
+                f"yet (ROADMAP Queue 1 item 5), and a local .dat would be "
+                f"a cache of the tiered copy")
+        if not p.exists():
+            raise VolumeError(f"{p} does not exist")
+        # Compaction crash recovery. States (commit renames .cpd over
+        # .dat FIRST, then .cpx over .idx):
+        #   .cpd + .cpx  -> crash before commit: live volume untouched,
+        #                   drop both.
+        #   .cpx only    -> crash BETWEEN the renames: the .dat is
+        #                   already the compacted one and the old .idx
+        #                   points at stale offsets — the .cpx is the
+        #                   only correct index, so FINISH the commit.
+        #   .cpd only    -> crash mid-compact before .cpx existed: drop.
+        cpd = Path(str(self.base) + ".cpd")
+        cpx = Path(str(self.base) + ".cpx")
+        if cpx.exists() and not cpd.exists():
+            durability.durable_replace(cpx, idx_path(self.base))
+        else:
+            for leftover in (cpd, cpx):
+                if leftover.exists():
+                    leftover.unlink()
+        self._dat = DiskFile(p)
+        head = self._dat.read_at(8, 0)
+        if len(head) < 8:
+            raise VolumeError(f"{p} shorter than a superblock")
+        extra_len = struct.unpack_from(">H", head, 6)[0]
+        self.super_block = SuperBlock.parse(
+            head + self._dat.read_at(extra_len, 8))
+        repairs = check_volume_data_integrity(self.base, self.super_block)
+        if repairs.get("dat_truncated_bytes"):
+            # the check truncated the file underneath the open file
+            self._dat.close()
+            self._dat = DiskFile(p)
+        ip = idx_path(self.base)
+        self._idx = open(ip, "a+b") if ip.exists() else open(ip, "w+b")
+        self.nm = CompactMap.load_from_idx(ip)
+        return self
+
+    def close(self) -> None:
+        with self._lock:
+            self._closing = True
+            try:
+                while self._readers:
+                    self._no_readers.wait()
+                for f in (self._dat, self._idx):
+                    if f is not None:
+                        f.close()
+                self._dat = self._idx = None
+            finally:
+                self._closing = False
+                self._no_readers.notify_all()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- data plane -------------------------------------------------------
+
+    def _append(self, rec: bytes, key: int, body_size: int) -> int:
+        """Append one record under the lock: pad to 8 bytes, write the
+        .dat, barrier, journal to .idx, barrier, then publish in the map
+        (Volume.writeNeedle's order)."""
+        with self._lock:
+            if self._dat is None:
+                raise VolumeError("volume not open")
+            offset = self._dat.size()
+            if offset % NEEDLE_PADDING_SIZE:
+                pad = (-offset) % NEEDLE_PADDING_SIZE
+                self._dat.write_at(b"\x00" * pad, offset)
+                offset += pad
+            self._dat.write_at(rec, offset)
+            faults.check("crash.append.dat")
+            # The barrier flushes (concurrent reads see the record the
+            # moment the index entry is visible) and fsyncs: the offset
+            # this returns means the needle survives power loss.
+            durability.barrier(self._dat)
+            units = to_offset_units(offset)
+            self._idx.write(IndexEntry(key, units, body_size).to_bytes())
+            faults.check("crash.append.idx")
+            durability.barrier(self._idx)
+            self.nm.set(key, units, body_size)
+        return offset
+
+    def write_needle(self, n: needle_mod.Needle) -> int:
+        """Append; returns the byte offset of the record. Mirrors
+        Volume.writeNeedle: append to .dat, then journal to .idx."""
+        rec = n.to_bytes(self.super_block.version)
+        return self._append(rec, n.id, needle_mod.parse_header(rec)[2])
+
+    def _read_at(self, key: int) -> tuple[bytes, int]:
+        """The raw record of a live needle and its byte offset, read
+        outside the lock by a registered reader."""
+        with self._lock:
+            while self._closing:
+                self._no_readers.wait()
+            entry = self.nm.get(key)
+            if entry is None:
+                raise KeyError(f"needle {key} not found")
+            if self._dat is None:
+                raise VolumeError("volume not open")
+            dat = self._dat
+            self._readers += 1
+        try:
+            rec = dat.read_at(
+                needle_mod.record_size(entry.size,
+                                       self.super_block.version),
+                entry.byte_offset)
+        finally:
+            with self._lock:
+                self._readers -= 1
+                if not self._readers:
+                    self._no_readers.notify_all()
+        return rec, entry.byte_offset
+
+    def read_needle(self, key: int, cookie: Optional[int] = None
+                    ) -> needle_mod.Needle:
+        rec, _ = self._read_at(key)
+        n = needle_mod.Needle.parse(rec, self.super_block.version)
+        if n.id != key:
+            raise VolumeError(
+                f"index/offset mismatch: wanted {key}, found {n.id}")
+        if cookie is not None and n.cookie != cookie:
+            raise VolumeError("cookie mismatch")
+        return n
+
+    def read_record(self, key: int) -> tuple[bytes, int]:
+        """Raw on-disk record bytes for a live needle plus its byte
+        offset — the replica-sync read (reference: ReadNeedleBlob, which
+        also hands back the undecoded record)."""
+        return self._read_at(key)
+
+    def write_raw_record(self, rec: bytes) -> int:
+        """Append a raw record produced by :meth:`read_record` on a
+        sibling replica (WriteNeedleBlob): same append discipline as
+        write_needle, but the bytes are trusted verbatim so CRC and
+        timestamps survive the copy bit-for-bit."""
+        _cookie, key, body_size = needle_mod.parse_header(rec)
+        want = needle_mod.record_size(body_size,
+                                      self.super_block.version)
+        if len(rec) != want:
+            raise VolumeError(
+                f"raw record length {len(rec)} != expected {want} "
+                f"for size {body_size}")
+        return self._append(rec, key, body_size)
+
+    def delete_needle(self, key: int) -> bool:
+        with self._lock:
+            if self._idx is None:
+                raise VolumeError("volume not open")
+            if not self.nm.delete(key):
+                return False
+            self._idx.write(
+                IndexEntry(key, 0, TOMBSTONE_FILE_SIZE).to_bytes())
+            durability.barrier(self._idx)
+        return True
+
+    def configure_replication(self, replication: str) -> None:
+        """Rewrite the superblock's replica-placement byte in place
+        (reference: VolumeConfigure — the setting lives only in the
+        superblock, so no data moves)."""
+        rp = ReplicaPlacement.parse(replication)
+        with self._lock:
+            if self._dat is None:
+                raise VolumeError("volume not open")
+            self.super_block.replica_placement = rp
+            self._dat.write_at(self.super_block.to_bytes(), 0)
+            durability.barrier(self._dat)
+
+    def sync(self) -> None:
+        with self._lock:
+            if self._dat is not None:
+                self._dat.sync()
+            if self._idx is not None:
+                self._idx.flush()
+                os.fsync(self._idx.fileno())
+
+    @property
+    def dat_size(self) -> int:
+        with self._lock:
+            return self._dat.size()
+
+    def content_size(self) -> int:
+        return self.dat_size
+
+
+def check_volume_data_integrity(base: str | Path,
+                                super_block: SuperBlock) -> dict:
+    """Crash-recovery tail verification, run on every load.
+
+    The reference's volume_checking.go verifies the LAST index entry's
+    needle and refuses the volume on mismatch; here torn tails are
+    REPAIRED instead (the write order is dat-then-idx-then-ack, with a
+    durability barrier between each, so only un-acknowledged tail
+    records can be casualties): a partial trailing .idx entry is truncated, a trailing .idx entry
+    whose record is missing/short/mismatched/CRC-torn in the .dat is
+    dropped, and .dat bytes past the last journaled record (a torn
+    append that never reached the index) are truncated. Trailing
+    records are validated by full checksum walk-back — a crash can
+    persist a record's header sectors without its body, so header-only
+    validation would let a torn needle back into the map. Returns a
+    dict of repairs performed (empty = clean)."""
+    repairs: dict[str, int] = {}
+    ip, dp = idx_path(base), dat_path(base)
+    dat_size = dp.stat().st_size
+    version = super_block.version
+    if not ip.exists():
+        return repairs
+    blob = ip.read_bytes()  # one read serves every pass below
+    idx_size = len(blob)
+    if idx_size % NEEDLE_MAP_ENTRY_SIZE:
+        idx_size -= idx_size % NEEDLE_MAP_ENTRY_SIZE
+        repairs["idx_partial_entry"] = 1
+    # Back-walk the trailing entries. Tombstones reference no .dat bytes
+    # so they can't be validated — step over them and keep checking the
+    # entries beneath (a torn record under a trailing delete must still
+    # be caught). If any entry proves invalid, truncate at that entry:
+    # everything journaled after it belongs to the same un-acknowledged
+    # crash window.
+    dat_fd = os.open(dp, os.O_RDONLY)
+    try:
+        truncate_to = idx_size
+        pos = idx_size
+        while pos >= NEEDLE_MAP_ENTRY_SIZE:
+            e = IndexEntry.from_bytes(blob, pos - NEEDLE_MAP_ENTRY_SIZE)
+            if e.is_deleted:
+                pos -= NEEDLE_MAP_ENTRY_SIZE
+                continue
+            rec_len = needle_mod.record_size(e.size, version)
+            end = e.byte_offset + rec_len
+            ok = False
+            if end <= dat_size:
+                rec = os.pread(dat_fd, rec_len, e.byte_offset)
+                try:
+                    _, nid, nsize = needle_mod.parse_header(rec)
+                    # full parse = checksum verification of the body
+                    needle_mod.Needle.parse(rec, version)
+                    ok = nid == e.key and nsize == e.size
+                except needle_mod.NeedleError:
+                    ok = False
+            if ok:
+                break
+            pos -= NEEDLE_MAP_ENTRY_SIZE
+            truncate_to = pos
+    finally:
+        os.close(dat_fd)
+    if truncate_to < idx_size:
+        repairs["idx_dropped_entries"] = \
+            (idx_size - truncate_to) // NEEDLE_MAP_ENTRY_SIZE
+        idx_size = truncate_to
+    if idx_size < len(blob):
+        blob = blob[:idx_size]
+        with open(ip, "r+b") as f:
+            f.truncate(idx_size)
+            os.fsync(f.fileno())  # a repair is itself a commit point
+    # The true append frontier is the max record end over every
+    # journaled (non-tombstone) entry — deleted needles' bytes are still
+    # in the file; anything beyond is a torn append.
+    frontier = super_block.block_size
+    for e in walk_index_blob(blob):
+        if e.is_deleted:
+            continue
+        frontier = max(
+            frontier,
+            e.byte_offset + needle_mod.record_size(e.size, version))
+    if dat_size > frontier:
+        with open(dp, "r+b") as df:
+            df.truncate(frontier)
+            os.fsync(df.fileno())
+        repairs["dat_truncated_bytes"] = dat_size - frontier
+    return repairs
+
+
+def generate_synthetic_volume(base: str | Path, volume_id: int,
+                              n_needles: int, avg_size: int = 1024,
+                              seed: int = 0,
+                              version: int = 3) -> Volume:
+    """Create a .dat/.idx pair full of random needles through the
+    ``Volume`` engine (the ec_test.go fixture pattern). Needle sizes
+    jitter around ``avg_size``; ids are 1..n; cookies are random.
+    Returns the still-open Volume."""
+    rng = np.random.default_rng(seed)
+    sb = SuperBlock(version=version)
+    vol = Volume(base, volume_id, sb).create()
+    for i in range(1, n_needles + 1):
+        size = max(1, int(rng.integers(avg_size // 2, avg_size * 3 // 2)))
+        data = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+        n = needle_mod.Needle(
+            cookie=int(rng.integers(0, 2**32)), id=i, data=data,
+            append_at_ns=int(1_700_000_000_000_000_000 + i))
+        vol.write_needle(n)
+    vol.sync()
+    return vol
+
+
+def synthetic_needles(avg_size: int = 1024, seed: int = 0
+                      ) -> Iterator[needle_mod.Needle]:
+    """The endless needle stream of :func:`write_synthetic_volume`:
+    ids 1, 2, ...; sizes jitter around ``avg_size``; cookies, data and
+    timestamps come from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n = 0
+    while True:
+        n += 1
+        size = max(1, int(rng.integers(avg_size // 2, avg_size * 3 // 2)))
+        yield needle_mod.Needle(
+            cookie=int(rng.integers(0, 2**32)), id=n,
+            data=rng.integers(0, 256, size, dtype=np.uint8).tobytes(),
+            append_at_ns=1_700_000_000_000_000_000 + n)
+
+
 def write_synthetic_volume(base: str | Path, dat_bytes: int,
                            avg_size: int = 1024, seed: int = 0,
                            version: int = 3) -> int:
-    """Write ``<base>.dat`` and ``<base>.idx`` holding random needles
-    until the .dat reaches ``dat_bytes`` (the last needle may end past
-    it). Needle sizes jitter around ``avg_size``; ids are 1..n; cookies
-    and timestamps come from ``seed``. Returns the number of needles."""
-    rng = np.random.default_rng(seed)
+    """Write ``<base>.dat`` and ``<base>.idx`` holding the needles of
+    :func:`synthetic_needles` until the .dat reaches ``dat_bytes`` (the
+    last needle may end past it), with plain buffered writes and no
+    fsync. Returns the number of needles."""
     sb = SuperBlock(version=version).to_bytes()
     offset = len(sb)
     n = 0
+    needles = synthetic_needles(avg_size, seed)
     with open(dat_path(base), "wb") as dat, open(idx_path(base), "wb") as idx:
         dat.write(sb)
         while offset < dat_bytes:
+            ndl = next(needles)
             n += 1
-            size = max(1, int(rng.integers(avg_size // 2,
-                                           avg_size * 3 // 2)))
-            ndl = needle_mod.Needle(
-                cookie=int(rng.integers(0, 2**32)), id=n,
-                data=rng.integers(0, 256, size, dtype=np.uint8).tobytes(),
-                append_at_ns=1_700_000_000_000_000_000 + n)
             rec = ndl.to_bytes(version)
             dat.write(rec)
-            idx.write(IndexEntry(n, to_offset_units(offset),
+            idx.write(IndexEntry(ndl.id, to_offset_units(offset),
                                  needle_mod.parse_header(rec)[2]).to_bytes())
             offset += len(rec)
     return n

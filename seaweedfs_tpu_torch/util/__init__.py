@@ -1,2 +1,2 @@
-"""Process-wide helpers the pipelines share: fault points and the
-degraded-read counts."""
+"""Process-wide helpers the pipelines and the storage engine share: fault
+points, the degraded-read counts and the durability (fsync) barriers."""

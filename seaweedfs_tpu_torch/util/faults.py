@@ -38,10 +38,14 @@ import threading
 import time
 from typing import Optional
 
-#: Fault points on the port's paths. Arming an unknown name still works
-#: (points are matched by string).
+#: Fault points on the port's paths, named as in the JAX catalog. Arming
+#: an unknown name still works (points are matched by string).
 CATALOG = (
     "ec.shard_read",   # one shard-interval read (pipeline/read.py)
+    # Crashpoints: named commit-path instants where a `crash` spec kills
+    # the process (or calls the handler set by set_crash_handler).
+    "crash.append.dat",      # needle appended to .dat, .idx not yet
+    "crash.append.idx",      # .idx journaled, ack not yet returned
 )
 
 

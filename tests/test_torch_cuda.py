@@ -234,3 +234,41 @@ def test_encode_many_on_the_card_matches_the_cpu(monkeypatch):
     for mine, ref in zip(got, want):
         for a, b in zip(mine, ref):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_shell_encode_on_the_card_matches_the_cpu(tmp_path):
+    """``ec.encode`` through the admin shell on the card (device=None):
+    every shard, .ecx and .vif sha256-equal to the ``-device cpu`` run,
+    and the kernel launched."""
+    _need_card()
+    import hashlib
+    import io
+
+    from seaweedfs_tpu_torch.shell import cli, commands
+    dirs = {}
+    for name in ("card", "cpu"):
+        dirs[name] = tmp_path / name
+        dirs[name].mkdir()
+        # 2 small rows of 1 MiB: one (2, 10, 1 MiB) slab, above
+        # DEVICE_MIN_S, so the card serves it
+        volume.write_synthetic_volume(dirs[name] / "3", 16 << 20,
+                                      avg_size=64 * 1024, seed=3)
+    n = _launches()
+    env = cli.build_env([str(dirs["card"])])
+    env.out = io.StringIO()
+    try:
+        commands.run_command(env, "ec.encode -volumeId 3")
+    finally:
+        env.store.close()
+    assert _launches() > n
+    assert cli.main(["-dir", str(dirs["cpu"]), "-device", "cpu",
+                     "-c", "ec.encode -volumeId 3"]) == 0
+
+    def digests(d):
+        return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+                for p in sorted(d.iterdir())}
+
+    got = digests(dirs["card"])
+    assert "3.ec13" in got and "3.dat" not in got
+    assert got == digests(dirs["cpu"])

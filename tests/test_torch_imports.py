@@ -28,7 +28,13 @@ bad = sorted(m for m in sys.modules
              or m.startswith("jax.") or m.startswith("jaxlib"))
 print(len(names), "modules;", "bad:", bad)
 new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe",
-       "seaweedfs_tpu_torch.ops.rs_torch"}
+       "seaweedfs_tpu_torch.ops.rs_torch", "seaweedfs_tpu_torch.__main__",
+       "seaweedfs_tpu_torch.shell", "seaweedfs_tpu_torch.shell.cli",
+       "seaweedfs_tpu_torch.shell.commands",
+       "seaweedfs_tpu_torch.storage.backend",
+       "seaweedfs_tpu_torch.storage.store",
+       "seaweedfs_tpu_torch.storage.volume",
+       "seaweedfs_tpu_torch.util.durability"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -40,9 +46,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "bad: []" in out.stdout
-    # every module of the slices so far was imported, the batcher among
-    # them
-    assert int(out.stdout.split()[0]) >= 34
+    # every module of the slices so far was imported, the shell, Store
+    # and Volume engine among them
+    assert int(out.stdout.split()[0]) >= 41
     assert "missing: []" in out.stdout
 
 

@@ -1,0 +1,326 @@
+"""The port's offline admin shell (seaweedfs_tpu_torch/shell) against the
+JAX package's, on the CPU.
+
+Ports the ten cases of tests/test_shell.py. Each case makes one volume
+directory from a seed, copies it for each package, runs the same command
+lines in both (the port with ``CommandEnv(device="cpu")``), and then
+compares every file byte for byte (a symlink by its target) and every
+printed line. GF(2^8) coding is exact: tolerance 0."""
+
+import io
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from seaweedfs_tpu.shell import commands as jax_commands
+from seaweedfs_tpu.storage import store as jax_store
+from seaweedfs_tpu.storage.volume import generate_synthetic_volume
+from seaweedfs_tpu_torch.ops import rs_native, rs_torch
+from seaweedfs_tpu_torch.shell import commands
+from seaweedfs_tpu_torch.storage import ec_files
+from seaweedfs_tpu_torch.storage import store as port_store
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _files(d) -> dict:
+    out = {}
+    for root, _dirs, names in os.walk(d):
+        for name in names:
+            p = os.path.join(root, name)
+            rel = os.path.relpath(p, d)
+            out[rel] = ("link", os.path.relpath(os.path.realpath(p), d)) \
+                if os.path.islink(p) else Path(p).read_bytes()
+    return out
+
+
+def _env(pkg, locs):
+    if pkg == "port":
+        st = port_store.Store([str(d) for d in locs])
+        st.load_existing()
+        return commands.CommandEnv(store=st, out=io.StringIO(),
+                                   device="cpu")
+    st = jax_store.Store([str(d) for d in locs])
+    st.load_existing()
+    return jax_commands.CommandEnv(store=st, out=io.StringIO())
+
+
+def _volume(vid, n_needles, avg_size, seed=0, where="a"):
+    def make(root):
+        generate_synthetic_volume(root / where / str(vid), vid,
+                                  n_needles=n_needles, avg_size=avg_size,
+                                  seed=seed).close()
+    return make
+
+
+def drive(tmp_path, make, steps, dirs=("a",), relative=False):
+    """Run ``steps`` (shell lines, or callables ``(root, env)`` whose
+    results are kept) in both packages on copies of the directory
+    ``make`` writes; assert the two logs and file trees are equal and
+    return the port's (log, files)."""
+    seed = tmp_path / "seed"
+    for d in dirs:
+        (seed / d).mkdir(parents=True)
+    make(seed)
+    results = {}
+    for pkg in ("jax", "port"):
+        root = tmp_path / pkg
+        shutil.copytree(seed, root, symlinks=True)
+        cwd = os.getcwd()
+        if relative:
+            os.chdir(root)
+        try:
+            env = _env(pkg, dirs if relative else [root / d for d in dirs])
+            run = commands.run_command if pkg == "port" \
+                else jax_commands.run_command
+            error = commands.ShellError if pkg == "port" \
+                else jax_commands.ShellError
+            log = []
+            try:
+                for step in steps:
+                    if callable(step):
+                        log.append(step(root, env))
+                        continue
+                    try:
+                        run(env, step)
+                        log.append(env.out.getvalue().splitlines())
+                    except error as e:
+                        log.append(("error", str(e)))
+                    env.out.seek(0)
+                    env.out.truncate()
+            finally:
+                env.store.close()
+        finally:
+            os.chdir(cwd)
+        results[pkg] = (log, _files(root))
+    assert results["port"][0] == results["jax"][0]
+    assert results["port"][1].keys() == results["jax"][1].keys()
+    assert results["port"][1] == results["jax"][1]
+    return results["port"]
+
+
+def _read_all(base):
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    with Volume(base).load() as v:
+        return {e.key: v.read_needle(e.key).data
+                for e in v.nm.live_entries()}
+
+
+@pytest.mark.parametrize("codec", ["host", "plain"])
+def test_ec_encode_then_decode_roundtrip(tmp_path, monkeypatch, codec):
+    """``plain``: DEVICE_MIN_S = 0, so the plain PyTorch codec serves the
+    shell; ``host``: every slab is below DEVICE_MIN_S and takes the
+    native host codec, as short slabs do on the card."""
+    monkeypatch.setattr(rs_torch, "DEVICE_MIN_S",
+                        1 << 30 if codec == "host" else 0)
+    calls = rs_native.apply_gf_matrix.calls
+    log, files = drive(tmp_path, _volume(3, 20, 256, seed=5), [
+        "ec.encode -volumeId 3",
+        lambda root, env: sorted(os.listdir(root / "a")),
+        "ec.decode -volumeId 3",
+        lambda root, env: env.store.get_volume(3).read_needle(7).data,
+    ])
+    assert (rs_native.apply_gf_matrix.calls > calls) == (codec == "host")
+    assert log[0] == ["ec.encode volume 3: 14 shards, version 3"]
+    assert "3.dat" not in log[1] and "3.ec13" in log[1]
+    assert log[2] == ["ec.decode volume 3: 5408 bytes restored"]
+    assert log[3] == _read_all(tmp_path / "seed" / "a" / "3")[7]
+    assert sorted(files) == ["a/3.dat", "a/3.idx"]
+    assert files["a/3.dat"] == (tmp_path / "seed" / "a" / "3.dat").read_bytes()
+
+
+def test_ec_rebuild_after_shard_loss(tmp_path):
+    lost = [0, 5, 10, 13]
+
+    def lose(root, env):
+        for i in lost:
+            (root / "a" / f"3.ec{i:02d}").unlink()
+        env.store.unmount_ec_shards(3, lost)
+
+    sealed = {}
+
+    def keep(root, _env):
+        sealed[root.name] = {i: (root / "a" / f"3.ec{i:02d}").read_bytes()
+                             for i in lost}
+
+    log, files = drive(tmp_path, _volume(3, 20, 256, seed=5), [
+        "ec.encode -volumeId 3", keep, lose, "ec.rebuild",
+        lambda root, env: env.store.ec_mounts[("", 3)].shard_bits.count(),
+    ])
+    assert log[3] == [f"ec.rebuild volume 3: rebuilt {lost}"]
+    assert log[4] == 14
+    for i in lost:
+        assert files[f"a/3.ec{i:02d}"] == sealed["port"][i]
+
+
+def test_ec_encode_keep_source_and_custom_scheme(tmp_path):
+    log, files = drive(tmp_path, _volume(7, 5, 128), [
+        "ec.encode -volumeId 7 -keepSource -scheme 6,3"])
+    assert "a/7.dat" in files and "a/7.ec08" in files
+    assert "a/7.ec09" not in files      # only 9 shards for (6,3)
+    assert log[0] == ["ec.encode volume 7: 9 shards, version 3"]
+
+
+def test_ec_balance_spreads_shards(tmp_path):
+    log, files = drive(tmp_path, _volume(4, 6, 64), [
+        "ec.encode -volumeId 4", "ec.balance",
+        lambda root, env: (ec_files.present_shards(root / "a" / "4"),
+                           ec_files.present_shards(root / "b" / "4"))],
+        dirs=("a", "b"))
+    in_a, in_b = log[2]
+    assert len(in_a) == len(in_b) == 7
+    assert sorted(in_a + in_b) == list(range(14))
+    assert "b/4.ecx" in files            # index copied beside moved shards
+    assert log[1] == ["ec.balance: moved 7 shards over 2 locations"]
+
+
+def test_balance_then_rebuild_and_decode_across_locations(tmp_path):
+    def lose_one_per_location(root, _env):
+        lost = [ec_files.present_shards(root / d / "6")[0] for d in "ab"]
+        for d, sid in zip("ab", lost):
+            (root / d / f"6.ec{sid:02d}").unlink()
+        return lost
+
+    log, files = drive(tmp_path, _volume(6, 12, 200, seed=9), [
+        "ec.encode -volumeId 6", "ec.balance", lose_one_per_location,
+        "ec.rebuild -volumeId 6",
+        lambda root, env: sorted(env.store.ec_shard_paths(6)),
+        "ec.decode -volumeId 6",
+        lambda root, env: env.store.get_volume(6).read_needle(12).data,
+    ], dirs=("a", "b"))
+    assert log[4] == list(range(14))
+    assert files["a/6.dat"] == (tmp_path / "seed" / "a" / "6.dat").read_bytes()
+    # no EC artifacts (files or symlinks) left anywhere
+    assert sorted(files) == ["a/6.dat", "a/6.idx"]
+
+
+def test_balance_after_gather_preserves_shards(tmp_path):
+    def real_shards(root, env):
+        real = env.store.ec_shard_paths(2)
+        assert all(p.exists() and not p.is_symlink() and p.stat().st_size
+                   for p in real.values())
+        return sorted(real)
+
+    log, files = drive(tmp_path, _volume(2, 10, 128, seed=4), [
+        "ec.encode -volumeId 2", "ec.balance",
+        "ec.rebuild",          # creates symlink caches via gather
+        "ec.balance",          # must not destroy real shards
+        real_shards, "ec.decode -volumeId 2"], dirs=("a", "b"))
+    assert log[4] == list(range(14))
+    needles = _read_all(tmp_path / "seed" / "a" / "2")
+    assert _read_all(tmp_path / "port" / "a" / "2") == needles
+
+
+def test_decode_after_keep_source_closes_old_handle(tmp_path):
+    held = {}
+
+    def hold(root, env):
+        held[root.name] = env.store.volumes[("", 5)]
+
+    def check(root, env):
+        old = held[root.name]
+        return old._dat is None, env.store.volumes[("", 5)] is not old
+
+    log, _ = drive(tmp_path, _volume(5, 6, 64), [
+        "ec.encode -volumeId 5 -keepSource", hold,
+        "ec.decode -volumeId 5", check])
+    assert log[3] == (True, True)      # closed, not leaked
+
+
+def test_gather_with_relative_dirs(tmp_path):
+    log, files = drive(tmp_path, _volume(12, 5, 64), [
+        "ec.encode -volumeId 12", "ec.balance",
+        "ec.rebuild",                  # must not TooFewShards
+        "ec.decode -volumeId 12"], dirs=("a", "b"), relative=True)
+    assert "a/12.dat" in files
+    assert log[2] == ["ec.rebuild volume 12: rebuilt nothing"]
+
+
+def test_volume_list_and_errors(tmp_path):
+    log, _ = drive(tmp_path, _volume(3, 20, 256, seed=5), [
+        "volume.list", "ec.encode -volumeId 99", "nonsense.command",
+        "ec.encode", "volume.delete -volumeId 3", "volume.list"])
+    assert log[0][0].startswith("volume 3 collection=- size=")
+    assert log[1] == ("error", "volume 99 not found")
+    assert log[2][0] == "error" and "unknown command" in log[2][1]
+    assert log[3][0] == "error" and "-volumeId" in log[3][1]
+    assert log[5] == ["no volumes"]
+    env = _env("port", [tmp_path / "port" / "a"])
+    try:
+        # help lists the ported commands, a subset of the JAX shell's
+        commands.run_command(env, "help")
+        listed = env.out.getvalue().splitlines()
+        assert listed == sorted(commands.COMMANDS) == [
+            "ec.balance", "ec.decode", "ec.encode", "ec.rebuild",
+            "volume.delete", "volume.list"]
+        assert set(listed) <= set(jax_commands.COMMANDS)
+        # the port leaves the -mesh flag to the multi-GPU slice: an
+        # unknown argument, reported as a ShellError
+        with pytest.raises(commands.ShellError, match="-mesh"):
+            commands.run_command(env, "ec.rebuild -mesh 1,1")
+    finally:
+        env.store.close()
+
+
+def _cli(pkg, *args, timeout=300):
+    mod = "seaweedfs_tpu_torch" if pkg == "port" else "seaweedfs_tpu"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, "-m", mod, "shell", *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=REPO, env=env)
+
+
+def test_cli_oneshot_subprocess(tmp_path):
+    def cli(root, _env):
+        out = []
+        for pkg_args, line in ((["-device", "cpu"], "ec.encode -volumeId 8"),
+                               ([], "volume.list")):
+            pkg = root.name
+            r = _cli(pkg, "-dir", str(root / "a"), "-c", line,
+                     *(pkg_args if pkg == "port" else []))
+            assert r.returncode == 0, r.stderr
+            out.append(r.stdout.splitlines())
+        return out
+
+    # the envs hold nothing open: each subprocess loads the directory
+    log, files = drive(tmp_path, _volume(8, 4, 64), [cli])
+    assert log[0][0] == ["ec.encode volume 8: 14 shards, version 3"]
+    assert "ec volume 8" in log[0][1][0]
+    assert "a/8.ec13" in files
+
+
+def test_cli_without_a_card_fails_and_writes_no_shard(tmp_path):
+    """No card and no ``-device cpu``: every ec.* command fails before it
+    touches a file, in process and through the CLI, and nothing carries
+    on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: -device cuda means the card")
+    d = tmp_path / "a"
+    d.mkdir()
+    (tmp_path / "b").mkdir()
+    generate_synthetic_volume(d / "8", 8, n_needles=4, avg_size=64).close()
+    before = _files(tmp_path)
+    r = _cli("port", "-dir", str(d), "-c", "ec.encode -volumeId 8")
+    assert r.returncode == 1
+    assert "no CUDA device: torch.cuda.is_available() is false" in r.stderr
+    assert _files(tmp_path) == before
+    # sealed and split over two locations on the CPU, then no device
+    env = _env("port", [d, tmp_path / "b"])
+    try:
+        commands.run_command(env, "ec.encode -volumeId 8")
+        commands.run_command(env, "ec.balance")
+        (d / "8.ec00").unlink()
+        sealed = _files(tmp_path)
+        env.device = None
+        for line in ("ec.rebuild", "ec.decode -volumeId 8",
+                     "ec.encode -volumeId 8"):
+            with pytest.raises(commands.ShellError, match="no CUDA device"):
+                commands.run_command(env, line)
+        assert _files(tmp_path) == sealed   # no link, shard or .dat made
+    finally:
+        env.store.close()
