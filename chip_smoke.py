@@ -52,7 +52,18 @@ of which fails the run on any mismatch:
 8. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
    shards rebuilt, and the volume decoded after losing data shards 0 and
    3, all sha256-checked, parity against ``rs_ref`` on sampled rows;
-9. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+9. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
+   normal routing, the shell's ``ec.encode -mesh 1,1`` in turns with the
+   unsplit ``ec.encode`` (a warm-up, then A, B, B, A twice) on config 1's
+   volume, shards and .ecx sha256-equal and launches equal (one per
+   batch), then ``ec.rebuild -mesh 1,1`` after losing 4 shards (one
+   launch per chunk); (b) the dry-run twin (``parallel/dryrun.run``)
+   over four ``cuda:0`` entries as a 2 x 2 grid, and
+   ``encode_parity_host_sharded`` on a (25, 10, 1 MiB) slab over that
+   grid (B pads to 26, S splits in two: 4 launches), byte-equal to the
+   unsplit path and to ``rs_ref`` on sampled rows; (c) ``-mesh 2,2``
+   refused on one card with no file changed;
+10. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
    ``batch.encode_packed`` over the same with every parity span checked
    whole against ``rs_ref`` and the batch census printed, 200 volumes on the
@@ -92,6 +103,7 @@ from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_native, rs_ref
 from seaweedfs_tpu_torch.ops import rs_torch
 from seaweedfs_tpu_torch.ops.kernel_bench import (HBM_BYTES_PER_S, shapes,
                                                   time_ms)
+from seaweedfs_tpu_torch.parallel import dryrun, mesh
 from seaweedfs_tpu_torch.pipeline import (batch, decode, encode, pipe, read,
                                           rebuild, repair, repair_bench,
                                           stripe)
@@ -896,6 +908,177 @@ def config4_phase(dev, pres: dict, label: str, launches: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# mesh: the multi-device split
+# --------------------------------------------------------------------------
+
+def mesh_phase(dev, workdir: str, pres: dict, label: str,
+               launches: dict) -> dict:
+    """(a) ``ec.encode -mesh 1,1`` through the shell in turns with the
+    unsplit command, then ``ec.rebuild -mesh 1,1``; (b) the dry-run twin
+    and a (25, 10, 1 MiB) slab over a 2 x 2 grid of cuda:0 cells; (c)
+    ``-mesh 2,2`` refused on one card."""
+    t_phase = time.perf_counter()
+    scheme = DEFAULT_SCHEME
+    vid = 1
+    dat_size = os.path.getsize(pres["base"] + ".dat")
+    shard_size = scheme.shard_file_size(dat_size)
+    batches = len(list(encode.plan_batches(dat_size, scheme,
+                                           pipe.BATCH_BYTES)))
+    chunks = -(-shard_size // rebuild.chunk_length(shard_size,
+                                                   scheme.data_shards))
+    dirs = {"unsplit": os.path.join(workdir, "unsplit"),
+            "mesh 1,1": os.path.join(workdir, "mesh")}
+    for d in dirs.values():
+        os.makedirs(d)
+        for ext in (".dat", ".idx"):
+            os.link(pres["base"] + ext, os.path.join(d, f"{vid}{ext}"))
+    result = {"encode_s": {name: [] for name in dirs}}
+
+    # (a) a warm-up, then A, B, B, A twice: each run seals the same
+    # volume into a directory with no shards (the previous run's removed
+    # untimed). The host allocator caches the pinned pool buffers a run
+    # frees, so only the first run pays for pinning them.
+    for name in ("unsplit",) + ("unsplit", "mesh 1,1", "mesh 1,1",
+                                "unsplit") * 2:
+        d = dirs[name]
+        for f in os.listdir(d):
+            if not f.endswith((".dat", ".idx")):
+                os.remove(os.path.join(d, f))
+        flag = " -mesh 1,1" if name != "unsplit" else ""
+        log: list = []
+        shell_main(["-dir", d, "-c",
+                    f"ec.encode -volumeId {vid} -keepSource{flag}"],
+                   log, launches, f"shell ec.encode ({name})")
+        _, wall, got, _inner = log[0]
+        check(got == {"transpose": batches, "swar": 0},
+              f"shell ec.encode ({name}): {got['transpose']} launches, one "
+              f"per batch ({batches})")
+        result["encode_s"][name].append(wall)
+        check(not mesh.current().enabled, "the -mesh scope closed")
+    result["warmup_s"] = result["encode_s"]["unsplit"].pop(0)
+    digests = {name: sealed_digests(os.path.join(d, str(vid)))
+               for name, d in dirs.items()}
+    sealed = {n: h for n, h in pres["sealed"].items() if n != ".vif"}
+    check(digests["mesh 1,1"] == digests["unsplit"]
+          and {n: h for n, h in digests["mesh 1,1"].items()
+               if n != ".vif"} == sealed,
+          "shell ec.encode -mesh 1,1: 14 shards, .ecx and .vif sha256-equal "
+          "to the unsplit command's (and shards and .ecx to the path "
+          "phase's)")
+    enc_s = result["encode_s"]
+    med = {name: float(np.median(t)) for name, t in enc_s.items()}
+    result["median_ratio"] = med["mesh 1,1"] / med["unsplit"]
+    say(f"  ec.encode A/B on {label}: warm-up {result['warmup_s']} s, "
+        f"then unsplit {enc_s['unsplit']} s, -mesh 1,1 "
+        f"{enc_s['mesh 1,1']} s; medians {med['unsplit']:.3f} and "
+        f"{med['mesh 1,1']:.3f} s, -mesh 1,1 / unsplit = "
+        f"{result['median_ratio']:.3f} ({dat_size / GIB:.3f} GiB of .dat "
+        f"each)")
+
+    mbase = os.path.join(dirs["mesh 1,1"], str(vid))
+    for i in LOST_REBUILD:
+        os.remove(ec_files.shard_path(mbase, i))
+    log = []
+    lines = shell_main(["-dir", dirs["mesh 1,1"], "-c",
+                        f"ec.rebuild -volumeId {vid} -mesh 1,1"],
+                       log, launches, "shell ec.rebuild (mesh 1,1)")
+    _, wall, got, _inner = log[0]
+    check(lines == [f"ec.rebuild volume {vid}: rebuilt "
+                    f"{list(LOST_REBUILD)}"]
+          and got == {"transpose": chunks, "swar": 0},
+          f"shell ec.rebuild -mesh 1,1: {got['transpose']} launches, one "
+          f"per chunk ({chunks})")
+    check(sealed_digests(mbase, shards=LOST_REBUILD)
+          == {ec_files.shard_ext(i): pres["sealed"][ec_files.shard_ext(i)]
+              for i in LOST_REBUILD},
+          f"shell ec.rebuild -mesh 1,1: shards {list(LOST_REBUILD)} "
+          f"sha256-equal to the sealed ones")
+    result["rebuild_s"] = wall
+    say(f"  ec.rebuild -mesh 1,1 on {label}: {wall:.3f} s, "
+        f"{len(LOST_REBUILD) * shard_size / GIB / wall:.3f} GiB/s rebuilt")
+
+    # (b) the split code on CUDA tensors: a 2 x 2 grid of cuda:0 cells
+    cells = [dev] * 4
+    res, wall = drive(f"dry run over [{dev}] * 4",
+                      lambda: dryrun.run(cells),
+                      {"transpose": True, "swar": False}, launches)
+    check(res["mesh"] == {"dp": 2, "sp": 2} and res["mismatches"] == 0,
+          f"dry-run twin over [{dev}] * 4: {json.dumps(res)}")
+    grid = mesh.make_mesh(cells, dp=2, sp=2)
+    enc = scheme.encoder(dev)
+    rng = np.random.default_rng(SEED + 6)
+    rows = batch.max_rows_per_batch(scheme.data_shards, MIB,
+                                    batch.DEFAULT_MAX_BATCH_BYTES)
+    slab = rng.integers(0, 256, (rows, scheme.data_shards, MIB),
+                        dtype=np.uint8)
+    t0 = time.perf_counter()
+    unsplit = np.asarray(enc.encode_parity_host(slab))
+    unsplit_s = time.perf_counter() - t0
+    got, split_s = drive(
+        f"encode_parity_host_sharded {slab.shape} on a 2 x 2 grid",
+        lambda: np.asarray(mesh.encode_parity_host_sharded(enc, slab,
+                                                           grid)),
+        {"transpose": True, "swar": False}, launches)
+    check(counts()["transpose"] == 4,
+          f"2 x 2 grid: {counts()['transpose']} launches for one slab, one "
+          f"per cell (B = {rows} padded to {-(-rows // 2) * 2})")
+    check(got.shape == unsplit.shape and np.array_equal(got, unsplit),
+          f"2 x 2 grid: parity {got.shape} byte-equal to the unsplit path")
+    # again, with the pinned staging and output buffers of the first
+    # call cached by the host allocator
+    t0 = time.perf_counter()
+    np.asarray(mesh.encode_parity_host_sharded(enc, slab, grid))
+    warm_s = time.perf_counter() - t0
+    oracle = rs_ref.ReferenceEncoder(scheme.data_shards,
+                                     scheme.parity_shards)
+    span = 64 * 1024
+    for r in (0, rows // 2 - 1, rows // 2, rows - 1):
+        s0 = int(rng.integers(0, MIB - span))
+        check(np.array_equal(got[r, :, s0:s0 + span],
+                             oracle.encode_parity(slab[r, :, s0:s0 + span])),
+              f"2 x 2 grid: row {r} bytes {s0}.. equal to rs_ref")
+    say(f"  2 x 2 grid of {dev} cells on {label}: {split_s:.3f} s per "
+        f"slab round trip, {warm_s:.3f} s the second time, against "
+        f"{unsplit_s:.3f} s unsplit (a correctness phase: the cells share "
+        f"one stream)")
+    result.update(dryrun=res, slab_split_s=split_s, slab_warm_s=warm_s,
+                  slab_unsplit_s=unsplit_s)
+    del slab, got, unsplit
+
+    # (c) -mesh 2,2 on one card: refused before any file changes
+    def snapshot():
+        out = {}
+        for f in os.listdir(dirs["mesh 1,1"]):
+            st = os.stat(os.path.join(dirs["mesh 1,1"], f))
+            out[f] = (st.st_size, st.st_mtime_ns)
+        return out
+
+    before = snapshot()
+    for line in (f"ec.encode -volumeId {vid} -mesh 2,2",
+                 f"ec.rebuild -volumeId {vid} -mesh 2,2"):
+        err = io.StringIO()
+
+        def refused():
+            with contextlib.redirect_stderr(err), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                return cli.main(["-dir", dirs["mesh 1,1"], "-c", line])
+
+        rc, _ = drive(f"shell {line}", refused,
+                      {"transpose": False, "swar": False}, launches)
+        msg = err.getvalue().strip()
+        say(f"  > {msg}")
+        check(rc == 1 and msg.startswith("error: ")
+              and "cannot tile the 1 local device(s)" in msg
+              and snapshot() == before,
+              f"shell {line}: refused on one card (exit {rc}), no file "
+              f"changed")
+    for d in dirs.values():
+        shutil.rmtree(d)
+    say(f"  mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
 # config 3: the many-volume coalescing batcher
 # --------------------------------------------------------------------------
 
@@ -1116,6 +1299,9 @@ def main() -> int:
                      DEFAULT_SCHEME.shard_file_size(VOLUME_BYTES), launches)
         say("phase config 4 (RS(6,3) and RS(12,4), 1 GiB volume):")
         config4_phase(dev, pres, label, launches)
+        say("phase mesh (the multi-device split):")
+        mesh_phase(dev, os.path.join(workdir, "mesh"), pres, label,
+                   launches)
         say("phase config 3 (1000 x 30 MiB volumes, coalesced):")
         config3_phase(dev, label, launches)
         say("phase config 3, file level:")

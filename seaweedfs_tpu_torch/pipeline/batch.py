@@ -18,8 +18,9 @@ per-volume shard layout.
 Every batch is packed into a fresh array (one that holds a single span
 may be a view of its source), so the data-shard views the sinks receive
 stay valid for as long as a sink holds them. The batches ride the
-overlapped plane of pipe.py, one launch each. Single device only in this
-slice: no mesh routing.
+overlapped plane of pipe.py, one launch each — or, when
+``parallel/mesh.routing_mesh`` says to split, one launch per mesh cell
+(:func:`_pick_encode_fn`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from ..ops.rs_torch import Encoder
+from ..parallel import mesh as mesh_mod
 from ..storage import ec_files, volume as volume_mod
 from . import pipe, writeback
 from .scheme import DEFAULT_SCHEME, EcScheme
@@ -128,6 +131,19 @@ def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
             yield out
 
 
+def _pick_encode_fn(encoder: Encoder):
+    """The compute stage: when routing_mesh() says to split — more than
+    one card, or an explicit -mesh (CPU device lists included) — the
+    coalesced batches split dp/sp over the mesh
+    (parallel/mesh.encode_parity_host_sharded); otherwise the
+    single-device host path."""
+    m = mesh_mod.routing_mesh(encoder.device)
+    if m is not None:
+        return lambda batch: mesh_mod.encode_parity_host_sharded(
+            encoder, batch, mesh=m)
+    return encoder.encode_parity_host
+
+
 def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
                   sink: Callable[[object, int, int, np.ndarray], None],
                   scheme: EcScheme = DEFAULT_SCHEME,
@@ -167,7 +183,7 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
                 sink(sp.key, k + j, sp.offset,
                      parity[sp.r0:sp.r0 + sp.n, j])
 
-    pipe.run_pipeline(batches(), encoder.encode_parity_host, write,
+    pipe.run_pipeline(batches(), _pick_encode_fn(encoder), write,
                       stats=stats)
     return total
 

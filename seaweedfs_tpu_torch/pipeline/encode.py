@@ -17,7 +17,11 @@ next batch's transfer and kernel are in flight. A pooled buffer is
 recycled only after every data-shard write that views it has retired
 (writeback.BatchToken).
 
-Single device only in this slice: no mesh routing.
+When ``parallel/mesh.routing_mesh`` says to split (``-mesh dp,sp``, or
+more than one card), every batch splits over the mesh's devices
+instead: the compute stage is the mesh's prepare (copies to the cells)
+then apply (one product per cell). Plans and offsets are the same, so
+the output bytes are too.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..ops import rs_torch
+from ..parallel import mesh as mesh_mod
 from ..storage import ec_files, idx as idx_mod, volume as volume_mod
 from ..storage import superblock as superblock_mod
 from . import pipe, writeback
@@ -159,6 +164,14 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
     datp = _require_local_dat(base)
     dat_size = datp.stat().st_size
     k = scheme.data_shards
+    mesh = mesh_mod.routing_mesh(encoder.device)
+    if mesh is not None:
+        prepare, apply = mesh_mod.encode_step_fns(encoder, mesh)
+
+        def encode_fn(batch):
+            return apply(prepare(batch))
+    else:
+        encode_fn = encoder.encode_parity_host
 
     plans = list(plan_batches(dat_size, scheme, max_batch_bytes))
     paths = [str(ec_files.shard_path(base, i))
@@ -246,7 +259,7 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
 
         try:
             pipe.run_pipeline(
-                batches(), encoder.encode_parity_host,
+                batches(), encode_fn,
                 write_pooled if writer is not None else write_inline,
                 recycle_fn=recycle, stats=st, overlapped=overlapped)
         except pipe.PipelineError:

@@ -13,8 +13,9 @@ deterministic offsets in preallocated files via the positioned-write
 pool. Rebuilt bytes are a fresh pinned array (the D2H copy), so input
 buffers recycle as soon as a chunk's result has synced.
 
-Single device only in this slice: no mesh routing, no chunk-cache
-invalidation, no tracing spans.
+When ``parallel/mesh.routing_mesh`` says to split, every chunk splits
+over the mesh's devices (:func:`_pick_reconstruct_fn`). Not ported yet:
+chunk-cache invalidation and tracing spans.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import Optional, Sequence
 
 from ..ops import rs_cuda
 from ..ops.rs_ref import TooFewShardsError
+from ..ops.rs_torch import Encoder
+from ..parallel import mesh as mesh_mod
 from ..storage import ec_files
 from . import pipe, writeback
 from .scheme import DEFAULT_SCHEME, EcScheme
@@ -48,6 +51,20 @@ def chunk_length(size: int, k: int,
     n = max(1, -(-size // cap))   # chunks of at most cap bytes
     per = -(-size // n)           # equal shares of the shard
     return -(-per // g) * g       # rounded up to whole granules
+
+
+def _pick_reconstruct_fn(enc: Encoder, present, missing):
+    """The compute stage: when routing_mesh() says to split — more than
+    one card, or an explicit -mesh (CPU device lists included) — the
+    chunks split over the mesh (parallel/mesh.reconstruct_host_sharded);
+    otherwise the single-device host path. The same routing rule as the
+    batcher's encode (pipeline/batch._pick_encode_fn)."""
+    m = mesh_mod.routing_mesh(enc.device)
+    if m is not None:
+        return lambda chunk: mesh_mod.reconstruct_host_sharded(
+            enc, chunk, present, missing, mesh=m)
+    return lambda chunk: enc.reconstruct_batch_host(chunk, present,
+                                                    missing)
 
 
 def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
@@ -120,9 +137,7 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
             writer.open_file(path, size)
         try:
             pipe.run_pipeline(
-                chunks(),
-                lambda chunk: enc.reconstruct_batch_host(chunk, present,
-                                                         missing),
+                chunks(), _pick_reconstruct_fn(enc, present, missing),
                 write, recycle_fn=recycle, stats=st)
         except pipe.PipelineError:
             writer.abort()

@@ -19,14 +19,22 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ..storage.store import Store
+from ..storage.store import Store, StoreError
+from ..storage.volume import VolumeError
 from .commands import CommandEnv, ShellError, run_command
 
 
 def build_env(dirs: list[str], max_volumes: int = 8,
               device=None) -> CommandEnv:
+    """A CommandEnv over the volumes found in ``dirs``. When one fails
+    to load, every volume loaded before it is closed and the error
+    raised."""
     store = Store(dirs, max_volumes=max_volumes)
-    store.load_existing()
+    try:
+        store.load_existing()
+    except BaseException:
+        store.close()
+        raise
     return CommandEnv(store=store, device=device)
 
 
@@ -67,7 +75,12 @@ def main(argv: list[str] | None = None) -> int:
               "use -dir", file=sys.stderr)
         return 2
 
-    env = build_env(args.dir, args.maxVolumes, args.device)
+    try:
+        env = build_env(args.dir, args.maxVolumes, args.device)
+    except (StoreError, VolumeError, OSError) as e:
+        # e.g. a tiered volume: the S3 tier is not ported yet
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     try:
         if args.oneshot is not None:
             for line in args.oneshot.split(";"):

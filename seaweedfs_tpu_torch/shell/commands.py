@@ -15,13 +15,17 @@ semantics stay the reference's:
     volume.list                              registry snapshot
     volume.delete -volumeId 3                drop a volume's files
 
-Not ported yet: the ``-mesh`` flag (the multi-GPU slice), the trace root
-around each command, and the other command families (ROADMAP Queue 1).
+``ec.encode`` and ``ec.rebuild`` take ``-mesh dp,sp`` (or ``auto``):
+split the command's pipeline work over a (dp, sp) mesh of the local
+devices of the env's device type (parallel/mesh.py). Not ported yet: the
+trace root around each command, and the other command families (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import shlex
 import shutil
@@ -30,6 +34,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 from ..ops import rs_torch
+from ..parallel import mesh as mesh_mod
 from ..pipeline import decode as decode_mod
 from ..pipeline import encode as encode_mod
 from ..pipeline import rebuild as rebuild_mod
@@ -100,6 +105,23 @@ def _device(env: CommandEnv):
     return rs_torch.resolve_device(env.device)
 
 
+@contextlib.contextmanager
+def _mesh_scope(spec: str, device):
+    """``-mesh dp,sp`` for ec.encode/ec.rebuild: pin the device mesh over
+    the local devices of ``device``'s type for the command's pipeline
+    work (parallel/mesh.scoped — validated against the device count
+    BEFORE any volume is touched). An empty spec keeps the ambient
+    routing."""
+    if not spec:
+        yield None
+        return
+    try:
+        with mesh_mod.scoped(spec, device.type) as m:
+            yield m
+    except mesh_mod.MeshConfigError as e:
+        raise ShellError(str(e)) from e
+
+
 def _ec_bases(env: CommandEnv) -> list[tuple[str, int, Path]]:
     """Every (collection, vid, base) with EC artifacts in any location."""
     out = []
@@ -121,42 +143,48 @@ def cmd_ec_encode(env: CommandEnv, argv: list[str]) -> None:
     p.add_argument("-collection", default="")
     p.add_argument("-scheme", default="")
     p.add_argument("-keepSource", action="store_true")
+    p.add_argument("-mesh", default="",
+                   help="encode on a dp,sp device mesh (or 'auto'); "
+                        "dp*sp must equal the local device count")
     args = p.parse_args(argv)
     scheme = _scheme_arg(args.scheme, env.scheme)
     device = _device(env)
-    store = env.store
-    vol = store.volumes.get((args.collection, args.volumeId))
-    if vol is not None:
-        vol.sync()
-        base = vol.base
-        replication = str(vol.super_block.replica_placement)
-    else:
-        base = next(
-            (loc.base_for(args.volumeId, args.collection)
-             for loc in store.locations
-             if loc.base_for(args.volumeId,
-                             args.collection).with_suffix(".dat").exists()),
-            None)
-        if base is None:
-            raise ShellError(f"volume {args.volumeId} not found")
-        replication = ""
-    # the encode reads the .dat through its own descriptor, closed when
-    # it returns; the Volume's handles close in delete_volume below
-    vi = encode_mod.encode_volume(base, scheme, replication=replication,
-                                  remove_source=False, device=device)
-    if not args.keepSource:
+    # the mesh is validated here, before any volume is touched
+    with _mesh_scope(args.mesh, device):
+        store = env.store
+        vol = store.volumes.get((args.collection, args.volumeId))
         if vol is not None:
-            store.delete_volume(args.volumeId, args.collection)
+            vol.sync()
+            base = vol.base
+            replication = str(vol.super_block.replica_placement)
         else:
-            for ext in (".dat", ".idx"):
-                q = Path(str(base) + ext)
-                if q.exists():
-                    q.unlink()
-    store.mount_ec_shards(args.volumeId,
-                          list(range(scheme.total_shards)),
-                          args.collection)
-    env.println(f"ec.encode volume {args.volumeId}: "
-                f"{scheme.total_shards} shards, version {vi.version}")
+            base = next(
+                (loc.base_for(args.volumeId, args.collection)
+                 for loc in store.locations
+                 if loc.base_for(args.volumeId, args.collection)
+                 .with_suffix(".dat").exists()),
+                None)
+            if base is None:
+                raise ShellError(f"volume {args.volumeId} not found")
+            replication = ""
+        # the encode reads the .dat through its own descriptor, closed
+        # when it returns; the Volume's handles close in delete_volume
+        vi = encode_mod.encode_volume(base, scheme,
+                                      replication=replication,
+                                      remove_source=False, device=device)
+        if not args.keepSource:
+            if vol is not None:
+                store.delete_volume(args.volumeId, args.collection)
+            else:
+                for ext in (".dat", ".idx"):
+                    q = Path(str(base) + ext)
+                    if q.exists():
+                        q.unlink()
+        store.mount_ec_shards(args.volumeId,
+                              list(range(scheme.total_shards)),
+                              args.collection)
+        env.println(f"ec.encode volume {args.volumeId}: "
+                    f"{scheme.total_shards} shards, version {vi.version}")
 
 
 @command("ec.decode")
@@ -196,6 +224,9 @@ def cmd_ec_rebuild(env: CommandEnv, argv: list[str]) -> None:
     p.add_argument("-volumeId", type=int, default=0)
     p.add_argument("-collection", default="")
     p.add_argument("-scheme", default="")
+    p.add_argument("-mesh", default="",
+                   help="rebuild on a dp,sp device mesh (or 'auto'); "
+                        "dp*sp must equal the local device count")
     args = p.parse_args(argv)
     scheme = _scheme_arg(args.scheme, env.scheme)
     device = _device(env)
@@ -205,13 +236,15 @@ def cmd_ec_rebuild(env: CommandEnv, argv: list[str]) -> None:
         targets.append((args.collection, args.volumeId))
     else:
         targets = sorted({(col, vid) for col, vid, _ in _ec_bases(env)})
-    for col, vid in targets:
-        base = store.gather_ec_volume(vid, col)
-        rebuilt = rebuild_mod.rebuild_ec_files(base, scheme, device=device)
-        if rebuilt:
-            store.mount_ec_shards(vid, rebuilt, col)
-        env.println(f"ec.rebuild volume {vid}: "
-                    f"rebuilt {rebuilt if rebuilt else 'nothing'}")
+    with _mesh_scope(args.mesh, device):
+        for col, vid in targets:
+            base = store.gather_ec_volume(vid, col)
+            rebuilt = rebuild_mod.rebuild_ec_files(base, scheme,
+                                                   device=device)
+            if rebuilt:
+                store.mount_ec_shards(vid, rebuilt, col)
+            env.println(f"ec.rebuild volume {vid}: "
+                        f"rebuilt {rebuilt if rebuilt else 'nothing'}")
 
 
 @command("ec.balance")

@@ -98,6 +98,10 @@ class Volume:
     def create(self) -> "Volume":
         if dat_path(self.base).exists():
             raise VolumeError(f"{dat_path(self.base)} already exists")
+        # A leftover sqlite map from a deleted volume with this id would
+        # feed the fresh volume phantom entries — this is a NEW volume,
+        # so any prior map is dead by definition.
+        Path(str(self.base) + ".sdx").unlink(missing_ok=True)
         self._dat = DiskFile(dat_path(self.base), create=True)
         self._dat.append(self.super_block.to_bytes())
         self._idx = open(idx_path(self.base), "w+b")

@@ -272,3 +272,71 @@ def test_shell_encode_on_the_card_matches_the_cpu(tmp_path):
     got = digests(dirs["card"])
     assert "3.ec13" in got and "3.dat" not in got
     assert got == digests(dirs["cpu"])
+
+
+# -- the split over a (dp, sp) grid of cuda:0 cells -------------------------
+
+CARD4 = ["cuda:0"] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KINDS)
+def test_split_over_cuda0_cells_matches_unsplit(monkeypatch, kernel):
+    """A 2 x 2 grid of cuda:0 cells: B = 5 pads to 6 and S splits in
+    two; one launch per cell, parity byte-equal to the unsplit path and
+    to the plain versions, the padded row sliced off."""
+    _need_card()
+    from seaweedfs_tpu_torch.parallel import mesh
+    monkeypatch.setenv("SEAWEEDFS_TORCH_KERNEL", kernel)
+    m = mesh.make_mesh(CARD4, dp=2, sp=2)
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 256, (5, 10, (1 << 18) + 300), dtype=np.uint8)
+    enc = rs_torch.Encoder(10, 4)
+    wrapper = KERNELS[KINDS.index(kernel)][0]
+    n = wrapper.launches
+    got = np.asarray(mesh.encode_parity_host_sharded(enc, x, m))
+    assert wrapper.launches == n + 4
+    assert got.shape == (5, 4, x.shape[2])
+    np.testing.assert_array_equal(got, np.asarray(enc.encode_parity_host(x)))
+    np.testing.assert_array_equal(
+        got, rs_torch.Encoder(10, 4, device="cpu").encode_parity_host(x))
+
+
+@pytest.mark.cuda
+def test_dryrun_over_cuda0_cells():
+    _need_card()
+    from seaweedfs_tpu_torch.parallel import dryrun
+    n = _launches()
+    out = dryrun.run(CARD4)
+    assert out["mesh"] == {"dp": 2, "sp": 2} and out["mismatches"] == 0
+    assert _launches() > n
+
+
+@pytest.mark.cuda
+def test_one_by_one_mesh_encode_keeps_bytes_and_launches(tmp_path):
+    """``-mesh 1,1`` on one card: the same shard bytes and the same
+    launches as the unsplit encode; ``-mesh 2,2`` is refused."""
+    _need_card()
+    import hashlib
+
+    from seaweedfs_tpu_torch.parallel import mesh
+    bases = {}
+    for name in ("plain", "mesh"):
+        bases[name] = tmp_path / name
+        volume.write_synthetic_volume(bases[name], 16 << 20,
+                                      avg_size=64 * 1024, seed=3)
+    n = _launches()
+    encode.write_ec_files(bases["plain"])
+    plain_launches = _launches() - n
+    with mesh.scoped("1,1", "cuda"):
+        encode.write_ec_files(bases["mesh"])
+    assert _launches() - n == 2 * plain_launches > 0
+    for i in range(14):
+        assert hashlib.sha256(ec_files.shard_path(bases["plain"], i)
+                              .read_bytes()).digest() == \
+            hashlib.sha256(ec_files.shard_path(bases["mesh"], i)
+                           .read_bytes()).digest()
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(mesh.MeshConfigError, match="dp,sp"):
+            with mesh.scoped("2,2", "cuda"):
+                pass

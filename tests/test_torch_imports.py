@@ -34,7 +34,9 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.storage.backend",
        "seaweedfs_tpu_torch.storage.store",
        "seaweedfs_tpu_torch.storage.volume",
-       "seaweedfs_tpu_torch.util.durability"}
+       "seaweedfs_tpu_torch.util.durability",
+       "seaweedfs_tpu_torch.parallel", "seaweedfs_tpu_torch.parallel.mesh",
+       "seaweedfs_tpu_torch.parallel.dryrun"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -46,9 +48,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "bad: []" in out.stdout
-    # every module of the slices so far was imported, the shell, Store
-    # and Volume engine among them
-    assert int(out.stdout.split()[0]) >= 41
+    # every module of the slices so far was imported, the shell, Store,
+    # Volume engine and the multi-device split among them
+    assert int(out.stdout.split()[0]) >= 44
     assert "missing: []" in out.stdout
 
 

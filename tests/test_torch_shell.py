@@ -21,6 +21,7 @@ from seaweedfs_tpu.shell import commands as jax_commands
 from seaweedfs_tpu.storage import store as jax_store
 from seaweedfs_tpu.storage.volume import generate_synthetic_volume
 from seaweedfs_tpu_torch.ops import rs_native, rs_torch
+from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
 from seaweedfs_tpu_torch.shell import commands
 from seaweedfs_tpu_torch.storage import ec_files
 from seaweedfs_tpu_torch.storage import store as port_store
@@ -259,12 +260,87 @@ def test_volume_list_and_errors(tmp_path):
             "ec.balance", "ec.decode", "ec.encode", "ec.rebuild",
             "volume.delete", "volume.list"]
         assert set(listed) <= set(jax_commands.COMMANDS)
-        # the port leaves the -mesh flag to the multi-GPU slice: an
-        # unknown argument, reported as a ShellError
-        with pytest.raises(commands.ShellError, match="-mesh"):
-            commands.run_command(env, "ec.rebuild -mesh 1,1")
+        # -mesh is known; a spec that cannot tile the one CPU device is
+        # a ShellError that names the dp,sp it wants
+        with pytest.raises(commands.ShellError, match="dp,sp"):
+            commands.run_command(env, "ec.rebuild -mesh 2,2")
     finally:
         env.store.close()
+
+
+@pytest.fixture
+def eight_cpu_devices(monkeypatch):
+    """8 CPU entries for the port's meshes, as the JAX package's tests
+    have 8 virtual CPU devices."""
+    real = mesh_mod.local_devices
+    monkeypatch.setattr(
+        mesh_mod, "local_devices",
+        lambda device_type="cuda": [torch.device("cpu")] * 8
+        if device_type == "cpu" else real(device_type))
+
+
+def test_ec_encode_and_rebuild_on_a_mesh(tmp_path, monkeypatch,
+                                         eight_cpu_devices):
+    """``ec.encode -mesh 2,4`` and ``ec.rebuild -mesh 2,4`` (the JAX
+    tests/test_mesh_pipeline.py shell cases): the same files and printed
+    lines in both packages; volumes 3 and 4 hold the same bytes, so the
+    split encode of 3 must equal the unsplit encode of 4."""
+    cells = []
+    real = mesh_mod.apply_prepared
+
+    def spy(coefs, prep):
+        cells.append(prep.mesh.shape)
+        return real(coefs, prep)
+
+    monkeypatch.setattr(mesh_mod, "apply_prepared", spy)
+
+    def make(root):
+        for vid in (3, 4):
+            _volume(vid, 40, 700, seed=9)(root)
+
+    lost = [2, 9, 13]
+
+    def lose(root, env):
+        sealed = {i: (root / "a" / f"3.ec{i:02d}").read_bytes()
+                  for i in lost}
+        for i in lost:
+            (root / "a" / f"3.ec{i:02d}").unlink()
+        env.store.unmount_ec_shards(3, lost)
+        return sealed
+
+    def scope_closed(root, _env):
+        from seaweedfs_tpu.parallel import mesh as jax_mesh
+        mod = mesh_mod if root.name == "port" else jax_mesh
+        return mod.current().enabled
+
+    log, files = drive(tmp_path, make, [
+        "ec.encode -volumeId 3 -keepSource -mesh 2,4",
+        "ec.encode -volumeId 4 -keepSource", lose,
+        "ec.rebuild -volumeId 3 -mesh 2,4", scope_closed])
+    assert log[0] == ["ec.encode volume 3: 14 shards, version 3"]
+    assert log[3] == [f"ec.rebuild volume 3: rebuilt {lost}"]
+    assert log[4] is False
+    assert cells and all(c == {"dp": 2, "sp": 4} for c in cells)
+    for i in range(14):
+        assert files[f"a/3.ec{i:02d}"] == files[f"a/4.ec{i:02d}"], i
+    for i in lost:
+        assert files[f"a/3.ec{i:02d}"] == log[2][i]
+    assert files["a/3.ecx"] == files["a/4.ecx"]
+
+
+def test_bad_mesh_is_a_clean_error_and_touches_nothing(tmp_path,
+                                                       eight_cpu_devices):
+    """A bad spec, or one that cannot tile the devices, is a ShellError
+    raised before any volume is touched, with the JAX package's text."""
+    log, files = drive(tmp_path, _volume(5, 4, 64), [
+        "ec.encode -volumeId 5 -mesh 3,3",
+        "ec.encode -volumeId 5 -mesh nope",
+        "ec.rebuild -mesh 1,1,1", "volume.list"])
+    for entry in log[:3]:
+        assert entry[0] == "error" and "dp,sp" in entry[1]
+    assert "8 local device(s)" in log[0][1]
+    assert log[3][0].startswith("volume 5 collection=- size=")
+    assert files == _files(tmp_path / "seed")
 
 
 def _cli(pkg, *args, timeout=300):

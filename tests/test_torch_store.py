@@ -222,6 +222,60 @@ def test_tier_sidecar_and_s3_backend_raise(tmp_path):
         st.mount_volume(6)
 
 
+def test_shell_refuses_a_tiered_store_and_closes_what_it_loaded(
+        tmp_path, monkeypatch, capsys):
+    """A .tier sidecar (the S3 tier is not ported) makes the shell print
+    one ``error:`` line naming the volume and exit non-zero, with every
+    volume loaded before it closed."""
+    from seaweedfs_tpu_torch.shell import cli
+    a, b = tmp_path / "a", tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    for d, vid in ((a, 5), (b, 6)):
+        with port_volume.Volume(d / str(vid), vid).create() as v:
+            v.write_needle(needle.Needle(cookie=1, id=1, data=b"x",
+                                         append_at_ns=1))
+    (b / "6.tier").write_text('{"endpoint": "e", "bucket": "b"}')
+    closed = []
+    real_close = port_volume.Volume.close
+
+    def close(self):
+        closed.append(self.base)
+        return real_close(self)
+
+    monkeypatch.setattr(port_volume.Volume, "close", close)
+    rc = cli.main(["-dir", str(a), "-dir", str(b), "-device", "cpu",
+                   "-c", "volume.list"])
+    err = capsys.readouterr().err.splitlines()
+    assert rc == 1
+    assert len(err) == 1 and err[0].startswith("error: ")
+    assert str(b / "6") in err[0] and "tier" in err[0]
+    assert closed == [a / "5"]
+
+
+def test_create_drops_a_stale_sqlite_map(tmp_path):
+    """A leftover .sdx of a deleted volume with the same id must not feed
+    a volume the port creates: the JAX sqlite map then loads exactly the
+    new .idx, as the memory map does."""
+    base = tmp_path / "4"
+    with jax_volume.Volume(base, 4, needle_map="sqlite").create() as v:
+        for n in _needles(jax_needle, 4, seed=1):
+            v.write_needle(n)
+    assert Path(str(base) + ".sdx").exists()
+    for ext in (".dat", ".idx"):        # deleted outside the store
+        Path(str(base) + ext).unlink()
+    with port_volume.Volume(base, 4).create() as v:
+        for n in _needles(needle, 8, seed=2):
+            v.write_needle(n)
+    with jax_volume.Volume(base, 4, needle_map="sqlite").load() as v:
+        got = sorted((e.key, e.offset_units, e.size)
+                     for e in v.nm.live_entries())
+    with jax_volume.Volume(base, 4).load() as v:
+        want = sorted((e.key, e.offset_units, e.size)
+                      for e in v.nm.live_entries())
+    assert got == want and [k for k, _o, _s in want] == list(range(1, 9))
+
+
 # -- crash recovery ---------------------------------------------------------
 
 
