@@ -63,7 +63,20 @@ of which fails the run on any mismatch:
    grid (B pads to 26, S splits in two: 4 launches), byte-equal to the
    unsplit path and to ``rs_ref`` on sampled rows; (c) ``-mesh 2,2``
    refused on one card with no file changed;
-10. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+10. config (the shell's ``-config``): on config 1's volume through
+   ``shell.cli.main``, (a) a TOML of ``[pipeline] double_buffer``,
+   ``[mesh]`` 1 x 1 and ``[flight]``: ``ec.encode -keepSource;
+   pipeline.status; pipeline.analyze; pipeline.dump -trace`` (shards,
+   .ecx and .vif sha256-equal to the sealed ones, one launch per batch,
+   one read / h2d / dispatch / d2h_sync / write span per batch in the
+   trace), then ``ec.rebuild`` of 4 lost shards; (b) ``double_buffer``
+   off against on over the 1 x 1 split (off copies on the side stream
+   ahead of each kernel, on copies on a copy stream one batch ahead),
+   (c) the flight recorder disarmed against armed (the armed runs print
+   ``pipeline.analyze``), each a warm-up of each side then A, B, B, A
+   with both medians and their ratio, launches checked on every encode
+   and the files sha256-checked on one of each side;
+11. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
    ``batch.encode_packed`` over the same with every parity span checked
    whole against ``rs_ref`` and the batch census printed, 200 volumes on the
@@ -212,7 +225,7 @@ def kernel_phase(dev: torch.device) -> dict:
         # config 4's slabs
         (f"RS({k},{m}) parity", rs_torch.Encoder(k, m, device=dev)
          .parity_coefs, (batch.max_rows_per_batch(
-             k, MIB, batch.DEFAULT_MAX_BATCH_BYTES), k, MIB))
+             k, MIB, pipe.current().batch_bytes), k, MIB))
         for k, m, _ in CONFIG4] + [
         ("RS(10,4) parity, ragged S", parity, (3, 10, MIB + 1000 + 3)),
     ]
@@ -751,7 +764,7 @@ def shell_phase(dev, workdir: str, pres: dict, label: str,
               f"shards={list(range(scheme.total_shards))}" in line
               for line in lines), "volume.list lists all 14 shards")
     batches = len(list(encode.plan_batches(dat_size, scheme,
-                                           pipe.BATCH_BYTES)))
+                                           pipe.current().batch_bytes)))
     enc_log = [e for e in log if e[0] == "ec.encode"][0]
     check(enc_log[2]["transpose"] == batches and enc_log[2]["swar"] == 0,
           f"shell ec.encode: transpose kernel launched "
@@ -923,7 +936,7 @@ def mesh_phase(dev, workdir: str, pres: dict, label: str,
     dat_size = os.path.getsize(pres["base"] + ".dat")
     shard_size = scheme.shard_file_size(dat_size)
     batches = len(list(encode.plan_batches(dat_size, scheme,
-                                           pipe.BATCH_BYTES)))
+                                           pipe.current().batch_bytes)))
     chunks = -(-shard_size // rebuild.chunk_length(shard_size,
                                                    scheme.data_shards))
     dirs = {"unsplit": os.path.join(workdir, "unsplit"),
@@ -1008,7 +1021,7 @@ def mesh_phase(dev, workdir: str, pres: dict, label: str,
     enc = scheme.encoder(dev)
     rng = np.random.default_rng(SEED + 6)
     rows = batch.max_rows_per_batch(scheme.data_shards, MIB,
-                                    batch.DEFAULT_MAX_BATCH_BYTES)
+                                    pipe.current().batch_bytes)
     slab = rng.integers(0, 256, (rows, scheme.data_shards, MIB),
                         dtype=np.uint8)
     t0 = time.perf_counter()
@@ -1075,6 +1088,168 @@ def mesh_phase(dev, workdir: str, pres: dict, label: str,
     for d in dirs.values():
         shutil.rmtree(d)
     say(f"  mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
+# config: the shell's -config ([pipeline], [mesh], [flight])
+# --------------------------------------------------------------------------
+
+#: the config phase's TOML files: (a) all three sections, the lookahead
+#: over a 1 x 1 mesh; (b) the A/B of double_buffer; (d) the recorder
+#: armed and disarmed on the unsplit path
+CONFIGS = {
+    "all": "[pipeline]\ndouble_buffer = true\n\n[mesh]\nenabled = true\n"
+           "dp = 1\nsp = 1\n\n[flight]\nenabled = true\n",
+    "lookahead off": "[pipeline]\ndouble_buffer = false\n\n[mesh]\n"
+                     "enabled = true\ndp = 1\nsp = 1\n",
+    "lookahead on": "[pipeline]\ndouble_buffer = true\n\n[mesh]\n"
+                    "enabled = true\ndp = 1\nsp = 1\n",
+    "disarmed": "[flight]\nenabled = false\n",
+    "armed": "[flight]\nenabled = true\n",
+}
+
+
+def config_phase(dev, workdir: str, pres: dict, label: str,
+                 launches: dict) -> dict:
+    """Config 1's volume through ``shell.cli.main -config``: (a)
+    ``[pipeline] double_buffer``, ``[mesh]`` 1 x 1 and ``[flight]``
+    for an encode with ``pipeline.status``, ``pipeline.analyze`` and
+    ``pipeline.dump -trace``, then a rebuild of 4 lost shards; (b) the
+    A/B of ``double_buffer`` off and on, in turns; (c) the recorder
+    armed against disarmed, in turns. Every encode's launches are
+    counted against its plans; (a) and the first timed run of each side
+    of (b) and (c) are sha256-checked (hashing 1.5 GB takes about a
+    second, so not every run)."""
+    t_phase = time.perf_counter()
+    scheme = DEFAULT_SCHEME
+    vid = 1
+    dat_size = os.path.getsize(pres["base"] + ".dat")
+    shard_size = scheme.shard_file_size(dat_size)
+    batch_bytes = pipe.current().batch_bytes
+    batches = len(list(encode.plan_batches(dat_size, scheme, batch_bytes)))
+    chunks = -(-shard_size // rebuild.chunk_length(shard_size,
+                                                   scheme.data_shards))
+    d = os.path.join(workdir, "vol")
+    os.makedirs(d)
+    for ext in (".dat", ".idx"):
+        os.link(pres["base"] + ext, os.path.join(d, f"{vid}{ext}"))
+    base = os.path.join(d, str(vid))
+    conf = {}
+    for name, text in CONFIGS.items():
+        conf[name] = os.path.join(workdir, name.replace(" ", "_") + ".toml")
+        with open(conf[name], "w") as f:
+            f.write(text)
+    # the shell seals a registered volume: its .vif carries replication
+    # 000 (the shell phase's check); shards and .ecx are the path phase's
+    vi = ec_files.VolumeInfo.load(pres["base"])
+    vi.replication = "000"
+    vif_ref = os.path.join(workdir, "vif_ref")
+    vi.save(vif_ref)
+    sealed = dict(pres["sealed"], **{".vif": sha256_file(vif_ref + ".vif")})
+
+    def clean():
+        for f in os.listdir(d):
+            if not f.endswith((".dat", ".idx")):
+                os.remove(os.path.join(d, f))
+
+    def run(what, config, want, commands="", verify=True):
+        """One ``ec.encode -keepSource`` (plus ``commands``) through the
+        shell into a directory with no shards: launches equal to
+        ``want``, and with ``verify`` every file sha256-equal to the
+        sealed one; returns (command wall seconds, seconds inside its
+        pipeline call, lines)."""
+        clean()
+        log: list = []
+        args = ["-dir", d] + (["-config", conf[config]] if config else [])
+        lines = shell_main(args + ["-c", f"ec.encode -volumeId {vid} "
+                                         f"-keepSource{commands}"],
+                           log, launches, what)
+        _, wall, got, inner = log[0]
+        check(got == {"transpose": want, "swar": 0},
+              f"{what}: {got['transpose']} launches ({want} planned)")
+        if verify:
+            check(sealed_digests(base) == sealed,
+                  f"{what}: shards, .ecx and .vif sha256-equal to the "
+                  f"sealed ones")
+        return wall, inner, lines
+
+    # (a) all three sections: the encode, its status, verdict and trace
+    trace = os.path.join(workdir, "trace.json")
+    wall, _inner, lines = run("shell -config (all three sections) ec.encode",
+                      "all", batches, f"; pipeline.status; "
+                      f"pipeline.analyze; pipeline.dump -trace {trace}")
+    result = {"encode_s": wall}
+    check(lines[1].endswith("double_buffer=True")
+          and lines[2].startswith("  mesh: axes=dp1xsp1 ")
+          and any(ln.startswith("pipeline.analyze: bottleneck: ")
+                  for ln in lines),
+          "pipeline.status shows the [pipeline] and [mesh] sections, "
+          "pipeline.analyze names a bottleneck")
+    with open(trace) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    per_batch = {name: sorted(e["args"]["batch"] for e in spans
+                              if e["name"] == name)
+                 for name in ("read", "dispatch", "d2h_sync", "write")}
+    check(all(ids == list(range(batches)) for ids in per_batch.values())
+          and sum(e["name"] == "h2d" for e in spans) == batches,
+          f"the trace holds one read, h2d, dispatch, d2h_sync and write "
+          f"span per batch ({batches} batches, {len(spans)} spans)")
+    check(not mesh.current().enabled and not pipe.current().double_buffer,
+          "the shell restored the config after the session")
+    for i in LOST_REBUILD:
+        os.remove(ec_files.shard_path(base, i))
+    log: list = []
+    lines = shell_main(["-dir", d, "-config", conf["all"], "-c",
+                        f"ec.rebuild -volumeId {vid}; pipeline.analyze"],
+                       log, launches, "shell -config ec.rebuild")
+    _, wall, got, _inner = log[0]
+    check(lines[0] == f"ec.rebuild volume {vid}: rebuilt "
+                      f"{list(LOST_REBUILD)}"
+          and got == {"transpose": chunks, "swar": 0}
+          and sealed_digests(base) == sealed,
+          f"shell -config ec.rebuild: {got['transpose']} launches, one per "
+          f"chunk ({chunks}); shards sha256-equal to the sealed ones")
+    result["rebuild_s"] = wall
+
+    def turns(what, a, b, want, commands=""):
+        """A warm-up of each side (the first run of a pool size pins its
+        buffers, which the host allocator then caches), then A, B, B, A,
+        timed inside the encode's pipeline call (the layer the knob acts
+        on; the command's wall beside it); the medians and B / A. B's
+        runs also run ``commands``."""
+        times = {a: [], b: []}
+        walls = {a: [], b: []}
+        for i, name in enumerate((a, b, a, b, b, a)):
+            wall, inner, _ = run(f"{what}: {name}", name, want[name],
+                                 commands if name == b else "",
+                                 verify=i in (2, 3))
+            if i >= 2:
+                times[name].append(inner)
+                walls[name].append(wall)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        say(f"  {what} on {label}, seconds in the pipeline call: {a} "
+            f"{times[a]}, {b} {times[b]}; medians {med[a]:.3f} and "
+            f"{med[b]:.3f} s, {b} / {a} = {med[b] / med[a]:.3f} (command "
+            f"walls: {a} {walls[a]}, {b} {walls[b]})")
+        return {"s": times, "wall_s": walls, "median_ratio": med[b] / med[a]}
+
+    # (b) double_buffer off against on, both through the 1 x 1 split:
+    # off is the split's default placement (each batch's copy on the
+    # side stream ahead of its kernel), on adds the copy stream and the
+    # one-batch lookahead
+    result["double_buffer"] = turns(
+        "ec.encode A/B of [pipeline] double_buffer", "lookahead off",
+        "lookahead on", {"lookahead off": batches, "lookahead on": batches})
+    # (c) the recorder's own cost on the unsplit path, whose verdict
+    # pipeline.analyze prints after each armed run
+    result["flight"] = turns(
+        "ec.encode with the flight recorder disarmed / armed", "disarmed",
+        "armed", {"disarmed": batches, "armed": batches},
+        commands="; pipeline.analyze")
+    clean()
+    shutil.rmtree(d)
+    say(f"  config phase: {time.perf_counter() - t_phase:.1f} s")
     return result
 
 
@@ -1170,14 +1345,14 @@ def config3_phase(dev, label: str, launches: dict) -> dict:
         del enc.encode_parity_host
     res["census"] = {str(k_): v for k_, v in census.items()}
     rows_cap = batch.max_rows_per_batch(k, MIB,
-                                        batch.DEFAULT_MAX_BATCH_BYTES)
+                                        pipe.current().batch_bytes)
     rows = C3_VOLUMES * scheme.shard_file_size(C3_VOLUME_BYTES) // MIB
     want = {(rows_cap, k, MIB): rows // rows_cap}
     if rows % rows_cap:
         want[(rows % rows_cap, k, MIB)] = 1
     check(sum(census.values()) == st.batches and census == want,
           f"config 3 census: {dict(census)} "
-          f"(batch bound {batch.DEFAULT_MAX_BATCH_BYTES} bytes)")
+          f"(batch bound {pipe.current().batch_bytes} bytes)")
     result["checked"] = res
 
     os.environ["SEAWEEDFS_TORCH_KERNEL"] = "swar"
@@ -1302,6 +1477,9 @@ def main() -> int:
         say("phase mesh (the multi-device split):")
         mesh_phase(dev, os.path.join(workdir, "mesh"), pres, label,
                    launches)
+        say("phase config (the shell's -config):")
+        config_phase(dev, os.path.join(workdir, "config"), pres, label,
+                     launches)
         say("phase config 3 (1000 x 30 MiB volumes, coalesced):")
         config3_phase(dev, label, launches)
         say("phase config 3, file level:")

@@ -21,24 +21,31 @@ On the card, every cell works on the side stream of its device
 (``rs_torch._side_stream``): its input copy (from a pinned staging
 buffer of its own, or from the whole contiguous batch when the grid is
 1 × 1 and nothing pads), its kernel, and the copy of its output into a
-pinned host buffer of its own, followed by an event. The result's
-``np.asarray`` waits on every cell's event and assembles the cells on
-the host, slicing the padding off; a caller that recycles the input
-buffer after it can never overwrite bytes still being copied. A grid may
-repeat a device: cells on one card run in order on its one side stream.
+pinned host buffer of its own, followed by an event. Under the
+``[pipeline] double_buffer`` lookahead (``copy_stream=True``), which
+issues the next batch's prepare before the current batch's apply, the
+input copy runs on a copy stream of its device instead and records an
+event the side stream waits on just before the kernel, so it need not
+queue behind the current batch's kernel and copy back. The result's
+``np.asarray`` waits on every cell's last event and assembles the cells
+on the host, slicing the padding off; a caller that recycles the input
+buffer after it can never overwrite bytes still being copied. A grid
+may repeat a device: cells on one card run in order on its streams.
 
-Routing (:func:`routing_mesh`): the ``-mesh dp,sp`` shell flag pins a
-mesh over the local devices of the command's device type; more than one
-card with no flag splits adaptively (:data:`AUTO`); anything else stays
-on the single-device path of ``rs_torch``. Not ported yet: the ``[mesh]``
-TOML section (``configure_from``), the pipeline's ``double_buffer``
-lookahead over the prepare/apply split, and the tracing series of the
-telemetry totals.
+Routing (:func:`routing_mesh`): the ``[mesh]`` TOML section
+(:func:`configure_from`, the shell's ``-config``) or the ``-mesh dp,sp``
+shell flag, which overrides it for one command, pins a mesh over the
+local devices of the command's device type; more than one card with no
+mesh configured splits adaptively (:data:`AUTO`); anything else stays on
+the single-device path of ``rs_torch``. Prepare records the flight
+recorder's H2D events. Not ported yet: the tracing series of the
+telemetry totals (ROADMAP, observability).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 import time
@@ -138,7 +145,7 @@ def make_mesh(devices=None, dp: Optional[int] = None,
 
 
 # --------------------------------------------------------------------------
-# configuration — the -mesh shell flag
+# configuration — the [mesh] TOML section and the -mesh shell flag
 # --------------------------------------------------------------------------
 
 class MeshConfigError(ValueError):
@@ -174,6 +181,16 @@ def configure(**kw) -> None:
             setattr(_CONFIG, key, type(cur)(val))
 
 
+def configure_from(conf: dict) -> None:
+    """Apply a loaded TOML dict's ``[mesh]`` block (missing keys keep
+    their current values; an unknown key raises ``TypeError``)."""
+    from ..util import config as config_mod
+    sect = config_mod.lookup(conf, "mesh")
+    if not isinstance(sect, dict):
+        return
+    configure(**sect)
+
+
 def parse_spec(spec: str) -> tuple[int, int]:
     """``-mesh dp,sp`` -> (dp, sp); ``-mesh auto`` -> (0, 0), the
     most-square factorization of the local device count."""
@@ -197,9 +214,10 @@ def parse_spec(spec: str) -> tuple[int, int]:
 @contextlib.contextmanager
 def scoped(spec: str, device_type: str = "cuda"):
     """Enable an explicit mesh over the local ``device_type`` devices
-    for one command (the ``-mesh`` shell flag): parse, validate against
-    the device count — a clear :class:`MeshConfigError` BEFORE any work
-    starts — and restore the previous config on exit. Yields the Mesh."""
+    for one command (the ``-mesh`` shell flag, over whatever ``[mesh]``
+    set): parse, validate against the device count — a clear
+    :class:`MeshConfigError` BEFORE any work starts — and restore the
+    previous config on exit. Yields the Mesh."""
     dp, sp = parse_spec(spec)
     prev = (_CONFIG.enabled, _CONFIG.dp, _CONFIG.sp)
     _CONFIG.enabled, _CONFIG.dp, _CONFIG.sp = True, dp, sp
@@ -268,6 +286,14 @@ def routing_mesh(device=None):
 # cells: placement, the per-cell product, assembly
 # --------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _copy_stream(dev: torch.device) -> torch.cuda.Stream:
+    """One copy stream per card for the lookahead's input copies, so the
+    next batch's copy need not queue behind the current batch's kernel
+    and output copy on the side stream."""
+    return torch.cuda.Stream(device=dev)
+
+
 @contextlib.contextmanager
 def _on(dev: torch.device):
     """Run a cell's work on its device: on a card, on that card's side
@@ -293,43 +319,73 @@ def _cells(mesh: Mesh, b: int, s: int):
 
 class Sharded:
     """A (B, n, S) uint8 array split over a mesh: ``cells[c]`` is the
-    tensor of cell c (row-major) on its device. ``np.asarray`` gathers
-    it to the host."""
+    tensor of cell c (row-major) on its device, and ``ready[c]`` the
+    event its copy to a card records (None where no copy is in flight).
+    ``np.asarray`` gathers it to the host."""
 
-    __slots__ = ("cells", "shape", "mesh", "_keep")
+    __slots__ = ("cells", "shape", "mesh", "ready", "_keep")
 
-    def __init__(self, cells: list, shape: tuple, mesh: Mesh, keep=()):
+    def __init__(self, cells: list, shape: tuple, mesh: Mesh, keep=(),
+                 ready=None):
         self.cells = cells
         self.shape = tuple(shape)
         self.mesh = mesh
+        self.ready = ready if ready is not None else [None] * len(cells)
         self._keep = keep   # host staging buffers of queued copies
+
+    def cell(self, c: int) -> torch.Tensor:
+        """Cell c's tensor, for work on the current stream of its device:
+        that stream first waits for the cell's copy to land."""
+        if self.ready[c] is not None:
+            torch.cuda.current_stream(self.cells[c].device).wait_event(
+                self.ready[c])
+        return self.cells[c]
 
     def __array__(self, dtype=None, copy=None):
         out = np.empty(self.shape, dtype=np.uint8)
-        for (dev, rows, cols), t in zip(
-                _cells(self.mesh, self.shape[0], self.shape[2]),
-                self.cells):
+        for c, (dev, rows, cols) in enumerate(
+                _cells(self.mesh, self.shape[0], self.shape[2])):
             with _on(dev):
-                out[rows, :, cols] = t.cpu().numpy()
+                out[rows, :, cols] = self.cell(c).cpu().numpy()
         return out if dtype is None else out.astype(dtype)
 
 
-def _place(x: np.ndarray, mesh: Mesh, b_pad: int, s_pad: int) -> Sharded:
+def _to_cell(host: torch.Tensor, dev: torch.device, copy_stream: bool):
+    """Start copying ``host`` to ``dev``: on a card, on its side stream
+    ahead of the kernel, or with ``copy_stream`` on its copy stream with
+    an event behind the copy (the side stream's kernel waits on it); the
+    CPU takes the tensor as it is. Returns (tensor, event or None)."""
+    if dev.type != "cuda":
+        return host.to(dev), None
+    if not copy_stream:
+        with _on(dev):
+            return host.to(dev, non_blocking=True), None
+    with torch.cuda.device(dev), torch.cuda.stream(_copy_stream(dev)):
+        x = host.to(dev, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+    # the side stream reads x: its memory may not be reused before the
+    # side stream's work on it is done
+    x.record_stream(rs_torch._side_stream(dev))
+    return x, ready
+
+
+def _place(x: np.ndarray, mesh: Mesh, b_pad: int, s_pad: int,
+           copy_stream: bool = False) -> Sharded:
     """Start copying HOST ``x`` (b, n, s), zero-padded to (b_pad, n,
-    s_pad), to the mesh's cells. Each cell is staged into a contiguous
-    buffer of its own (pinned for a card) — a strided slice of a host
-    batch is no async copy source — except on a 1 × 1 grid with no
-    padding, which copies the whole contiguous batch as it is."""
+    s_pad), to the mesh's cells (on a copy stream per card with
+    ``copy_stream``: :func:`_to_cell`). Each cell is staged into a
+    contiguous buffer of its own (pinned for a card) — a strided slice
+    of a host batch is no async copy source — except on a 1 × 1 grid
+    with no padding, which copies the whole contiguous batch as it is."""
     b, n, s = x.shape
     cuda = mesh.device_type == "cuda"
     if len(mesh.devices) == len(mesh.devices[0]) == 1 \
             and (b, s) == (b_pad, s_pad) and x.flags.c_contiguous:
-        dev = mesh.devices[0][0]
         src = torch.from_numpy(x)
-        with _on(dev):
-            return Sharded([src.to(dev, non_blocking=True)], x.shape,
-                           mesh, (src,))
-    cells, keep = [], []
+        cell, ready = _to_cell(src, mesh.devices[0][0], copy_stream)
+        return Sharded([cell], x.shape, mesh, (src,), [ready])
+    cells, keep, events = [], [], []
     for dev, rows, cols in _cells(mesh, b_pad, s_pad):
         stage = torch.empty((rows.stop - rows.start, n,
                              cols.stop - cols.start), dtype=torch.uint8,
@@ -341,10 +397,11 @@ def _place(x: np.ndarray, mesh: Mesh, b_pad: int, s_pad: int) -> Sharded:
             host[...] = 0
         host[:rr, :, :cc] = x[rows.start:rows.start + rr, :,
                               cols.start:cols.start + cc]
-        with _on(dev):
-            cells.append(stage.to(dev, non_blocking=True))
+        cell, ready = _to_cell(stage, dev, copy_stream)
+        cells.append(cell)
+        events.append(ready)
         keep.append(stage)
-    return Sharded(cells, (b_pad, n, s_pad), mesh, keep)
+    return Sharded(cells, (b_pad, n, s_pad), mesh, keep, events)
 
 
 def shard_batch(x: np.ndarray, mesh: Mesh, pad: bool = False) -> Sharded:
@@ -380,10 +437,10 @@ def _map_cells(fn, xs: Sharded, n_out: int, mesh: Mesh) -> Sharded:
         raise ValueError(f"input placed on a {xs.mesh.shape} mesh, the "
                          f"step was made for {mesh.shape}")
     outs = []
-    for (dev, _r, _c), x in zip(_cells(xs.mesh, xs.shape[0], xs.shape[2]),
-                                xs.cells):
+    for c, (dev, _r, _c) in enumerate(
+            _cells(xs.mesh, xs.shape[0], xs.shape[2])):
         with _on(dev):
-            outs.append(fn(x))
+            outs.append(fn(xs.cell(c)))
     return Sharded(outs, (xs.shape[0], n_out, xs.shape[2]), xs.mesh)
 
 
@@ -582,7 +639,8 @@ def _auto_mesh_for(b: int, device_type: str) -> Mesh:
     return make_mesh(devices, dp=dp_auto if b >= dp_auto else 1)
 
 
-def prepare_batch(batch: np.ndarray, mesh=None, device=None) -> Prepared:
+def prepare_batch(batch: np.ndarray, mesh=None, device=None,
+                  copy_stream: bool = False) -> Prepared:
     """Pad a HOST (B, n_in, S) u8 batch to the mesh geometry and start
     its copies to the cells.
 
@@ -591,8 +649,14 @@ def prepare_batch(batch: np.ndarray, mesh=None, device=None) -> Prepared:
     With ``mesh=None`` (or :data:`AUTO`) the adaptive auto mesh over the
     local devices of ``device``'s type is used; an explicit Mesh is
     honored AS GIVEN — an uneven batch pads rather than re-factoring the
-    mesh. The placement time lands in the "dispatch" totals."""
+    mesh. ``copy_stream`` issues the copies on a copy stream per card
+    (:func:`_to_cell`). The placement time lands in the "dispatch"
+    totals; the flight
+    recorder's H2D span covers it (its end means the copies are issued,
+    not landed: the landing is in the batch's sync span)."""
+    from ..pipeline import flight
     t0 = time.perf_counter()
+    flight.record(flight.EV_H2D_SUBMIT)
     b, n_in, s = batch.shape
     if mesh is None or mesh is AUTO:
         mesh = _auto_mesh_for(b, rs_torch.resolve_device(device).type)
@@ -600,9 +664,10 @@ def prepare_batch(batch: np.ndarray, mesh=None, device=None) -> Prepared:
     gran = _granule(mesh.shape["sp"])
     b_pad = -(-b // dp) * dp
     s_pad = -(-s // gran) * gran
-    arr = _place(batch, mesh, b_pad, s_pad)
+    arr = _place(batch, mesh, b_pad, s_pad, copy_stream)
     _observe("dispatch", time.perf_counter() - t0, b_pad * n_in * s_pad,
              mesh)
+    flight.record(flight.EV_H2D_READY, arg=b_pad * n_in * s_pad)
     return Prepared(arr, b, s, mesh)
 
 
@@ -616,10 +681,10 @@ def apply_prepared(coefs: np.ndarray, prep: Prepared) -> _MeshResult:
     coefs = np.ascontiguousarray(coefs, dtype=np.uint8)
     arr = prep.arr
     outs = []
-    for (dev, rows, cols), x in zip(
-            _cells(prep.mesh, arr.shape[0], arr.shape[2]), arr.cells):
+    for c, (dev, rows, cols) in enumerate(
+            _cells(prep.mesh, arr.shape[0], arr.shape[2])):
         with _on(dev):
-            y = rs_cuda.apply_gf_matrix(coefs, x)
+            y = rs_cuda.apply_gf_matrix(coefs, arr.cell(c))
             if dev.type == "cuda":
                 host = torch.empty(y.shape, dtype=torch.uint8,
                                    pin_memory=True)
@@ -635,14 +700,16 @@ def apply_prepared(coefs: np.ndarray, prep: Prepared) -> _MeshResult:
     return _MeshResult(outs, shape, prep.b, prep.s, prep)
 
 
-def encode_step_fns(encoder: rs_torch.Encoder, mesh=None):
+def encode_step_fns(encoder: rs_torch.Encoder, mesh=None,
+                    copy_stream: bool = False):
     """(prepare_fn, apply_fn) pair for the pipeline's compute stage:
-    prepare starts the copies to the cells, apply runs the parity
-    product on the prepared batch."""
+    prepare starts the copies to the cells (on a copy stream per card
+    with ``copy_stream``, for the double-buffer lookahead), apply runs
+    the parity product on the prepared batch."""
     coefs = encoder.parity_coefs
 
     def prep(batch: np.ndarray) -> Prepared:
-        return prepare_batch(batch, mesh, encoder.device)
+        return prepare_batch(batch, mesh, encoder.device, copy_stream)
 
     def apply(prepared: Prepared) -> _MeshResult:
         return apply_prepared(coefs, prepared)

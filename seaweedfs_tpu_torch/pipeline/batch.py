@@ -20,7 +20,9 @@ may be a view of its source), so the data-shard views the sinks receive
 stay valid for as long as a sink holds them. The batches ride the
 overlapped plane of pipe.py, one launch each — or, when
 ``parallel/mesh.routing_mesh`` says to split, one launch per mesh cell
-(:func:`_pick_encode_fn`).
+(:func:`_pick_encode_fn`). The batch bound is ``[pipeline]
+batch_bytes``, and a completed run is published to the ring of recent
+runs as ``ec.batch``.
 """
 
 from __future__ import annotations
@@ -37,10 +39,6 @@ from ..storage import ec_files, volume as volume_mod
 from . import pipe, writeback
 from .scheme import DEFAULT_SCHEME, EcScheme
 from .stripe import iter_row_batches, stripe_rows
-
-#: Bound on bytes packed into one coalesced batch (input side).
-DEFAULT_MAX_BATCH_BYTES = pipe.BATCH_BYTES
-
 
 def max_rows_per_batch(k: int, block: int, max_batch_bytes: int) -> int:
     """Row cap at which a (k, block)-shaped bucket flushes — THE flush
@@ -98,14 +96,17 @@ class _Bucket:
 
 def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
                         scheme: EcScheme = DEFAULT_SCHEME,
-                        max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES
+                        max_batch_bytes: Optional[int] = None
                         ) -> Iterator[tuple[list[RowSpan], np.ndarray]]:
-    """Pack per-volume row tensors into shared (B, k, block) batches.
+    """Pack per-volume row tensors into shared (B, k, block) batches of
+    at most ``max_batch_bytes`` (default ``[pipeline] batch_bytes``).
 
     Rows are grouped into per-shape buckets (so volumes that mix large
     and small rows still coalesce with their neighbours); a bucket
     flushes when it reaches the batch bound, and every span carries its
     shard-file offset so results scatter back position-addressed."""
+    if max_batch_bytes is None:
+        max_batch_bytes = pipe.current().batch_bytes
     buckets: dict[tuple[int, int], _Bucket] = {}
     cursor: dict[object, int] = {}
     for key, rows in _iter_volume_rows(sources, scheme, max_batch_bytes):
@@ -147,11 +148,13 @@ def _pick_encode_fn(encoder: Encoder):
 def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
                   sink: Callable[[object, int, int, np.ndarray], None],
                   scheme: EcScheme = DEFAULT_SCHEME,
-                  max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
+                  max_batch_bytes: Optional[int] = None,
                   device=None,
                   stats: Optional[pipe.PipeStats] = None) -> int:
     """Coalesced encode over many volumes with the 3-stage pipeline, on
-    ``device`` (None = the card; raises when there is none).
+    ``device`` (None = the card; raises when there is none), in batches
+    of at most ``max_batch_bytes`` (default ``[pipeline]
+    batch_bytes``).
 
     ``sink(key, shard_id, offset, blocks)`` receives each span's bytes
     addressed by shard-file offset (spans of one (key, shard) are
@@ -163,6 +166,8 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
     input bytes."""
     encoder = scheme.encoder(device)
     k = scheme.data_shards
+    if max_batch_bytes is None:
+        max_batch_bytes = pipe.current().batch_bytes
     total = 0
 
     def batches():
@@ -184,13 +189,13 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
                      parity[sp.r0:sp.r0 + sp.n, j])
 
     pipe.run_pipeline(batches(), _pick_encode_fn(encoder), write,
-                      stats=stats)
+                      stats=stats, kind="ec.batch")
     return total
 
 
 def encode_many(payloads: Sequence[np.ndarray],
                 scheme: EcScheme = DEFAULT_SCHEME,
-                max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
+                max_batch_bytes: Optional[int] = None,
                 keep_output: bool = False,
                 device=None,
                 stats: Optional[pipe.PipeStats] = None):
@@ -228,7 +233,7 @@ def encode_many(payloads: Sequence[np.ndarray],
 
 def encode_volumes(bases: Sequence[str | Path],
                    scheme: EcScheme = DEFAULT_SCHEME,
-                   max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
+                   max_batch_bytes: Optional[int] = None,
                    device=None,
                    stats: Optional[pipe.PipeStats] = None) -> int:
     """Seal many volumes' .dat files into shard files via coalesced

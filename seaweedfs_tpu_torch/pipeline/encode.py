@@ -17,16 +17,21 @@ next batch's transfer and kernel are in flight. A pooled buffer is
 recycled only after every data-shard write that views it has retired
 (writeback.BatchToken).
 
-When ``parallel/mesh.routing_mesh`` says to split (``-mesh dp,sp``, or
-more than one card), every batch splits over the mesh's devices
-instead: the compute stage is the mesh's prepare (copies to the cells)
-then apply (one product per cell). Plans and offsets are the same, so
-the output bytes are too.
+Batch bound, overlap, pool size, writer width and preallocation come
+from ``[pipeline]`` (pipe.current()). When ``parallel/mesh.routing_mesh``
+says to split (``[mesh]``, ``-mesh dp,sp``, or more than one card), every
+batch splits over the mesh's devices instead: the compute stage is the
+mesh's prepare (copies to the cells) then apply (one product per cell),
+passed to the pipeline as two stages so ``[pipeline] double_buffer`` can
+overlap the next batch's prepare with the current batch's apply. Plans
+and offsets are the same, so the output bytes are too. A completed
+encode is published to the ring of recent runs as ``ec.encode``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -36,7 +41,7 @@ from ..ops import rs_torch
 from ..parallel import mesh as mesh_mod
 from ..storage import ec_files, idx as idx_mod, volume as volume_mod
 from ..storage import superblock as superblock_mod
-from . import pipe, writeback
+from . import flight, pipe, writeback
 from .scheme import DEFAULT_SCHEME, EcScheme
 
 
@@ -151,26 +156,37 @@ def _shard_rows(col2d: np.ndarray, row_ok: bool,
 
 
 def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
-                   max_batch_bytes: int = pipe.BATCH_BYTES,
+                   max_batch_bytes: Optional[int] = None,
                    stats: Optional[pipe.PipeStats] = None,
-                   overlapped: bool = True,
+                   overlapped: Optional[bool] = None,
                    device=None) -> int:
     """Generate <base>.ec00..ec<k+m-1> from <base>.dat on ``device``
-    (None = the card). Returns the .dat size.
+    (None = the card). Returns the .dat size. ``max_batch_bytes`` and
+    ``overlapped`` default to ``[pipeline] batch_bytes`` and
+    ``overlapped``.
 
     ``overlapped=False`` is the single-threaded path: identical plans
     and offsets, so output bytes match the overlapped path exactly."""
+    cfg = pipe.current()
+    if max_batch_bytes is None:
+        max_batch_bytes = cfg.batch_bytes
+    if overlapped is None:
+        overlapped = cfg.overlapped
     encoder = scheme.encoder(device)
     datp = _require_local_dat(base)
     dat_size = datp.stat().st_size
     k = scheme.data_shards
     mesh = mesh_mod.routing_mesh(encoder.device)
+    lookahead = overlapped and cfg.double_buffer and mesh is not None
     if mesh is not None:
-        prepare, apply = mesh_mod.encode_step_fns(encoder, mesh)
-
-        def encode_fn(batch):
-            return apply(prepare(batch))
+        # the split: prepare (copies to the cells) and apply (one
+        # product per cell) are two stages of the pipeline, which
+        # [pipeline] double_buffer overlaps, the copies then on a copy
+        # stream of their own
+        prepare_fn, encode_fn = mesh_mod.encode_step_fns(
+            encoder, mesh, copy_stream=lookahead)
     else:
+        prepare_fn = None
         encode_fn = encoder.encode_parity_host
 
     plans = list(plan_batches(dat_size, scheme, max_batch_bytes))
@@ -180,7 +196,7 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
 
     pool = pipe.HostBufferPool(
         max((p.nbytes for p in plans), default=1),
-        max(1, min(pipe.POOL_BUFFERS, len(plans))),
+        pipe.pool_buffers(len(plans), lookahead),
         pinned=encoder.device.type == "cuda")
     st = stats if stats is not None else pipe.PipeStats()
 
@@ -196,10 +212,12 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
                 out = os.open(p, os.O_CREAT | os.O_WRONLY | os.O_TRUNC,
                               0o644)
                 fds[p] = out
-                writeback.preallocate(out, shard_size)
+                if cfg.preallocate:
+                    writeback.preallocate(out, shard_size)
 
         def batches():
             for plan in plans:
+                flight.record(flight.EV_ENQUEUE, arg=plan.nbytes)
                 buf = pool.acquire()
                 view = buf[:plan.nbytes]
                 for boff, foff, want, have in plan.segs:
@@ -257,11 +275,13 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
                 meta.submitted = True
                 pool.release(meta.buf)
 
+        t0 = time.perf_counter()
         try:
             pipe.run_pipeline(
                 batches(), encode_fn,
                 write_pooled if writer is not None else write_inline,
-                recycle_fn=recycle, stats=st, overlapped=overlapped)
+                recycle_fn=recycle, stats=st, overlapped=overlapped,
+                publish=False, prepare_fn=prepare_fn)
         except pipe.PipelineError:
             if writer is not None:
                 writer.abort()
@@ -271,6 +291,8 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
             writer.close()
             st.write_seconds += writer.busy_seconds
             writer = None
+        st.wall_seconds = time.perf_counter() - t0
+        pipe.publish_stats(st, kind="ec.encode")
     finally:
         if writer is not None:
             writer.abort()
@@ -292,12 +314,12 @@ def write_ecx_file(base: str | Path) -> int:
 
 
 def encode_volume(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
-                  max_batch_bytes: int = pipe.BATCH_BYTES,
+                  max_batch_bytes: Optional[int] = None,
                   replication: str = "",
                   remove_source: bool = False,
                   device=None,
                   stats: Optional[pipe.PipeStats] = None,
-                  overlapped: bool = True
+                  overlapped: Optional[bool] = None
                   ) -> ec_files.VolumeInfo:
     """Full seal on ``device`` (None = the card; raises when there is
     none): shards + .ecx + .vif, optionally dropping .dat/.idx the way

@@ -1,22 +1,40 @@
 """Overlapped ingest plane: host -> device -> host with buffer reuse.
 
-The lean port of ``seaweedfs_tpu/pipeline/pipe.py``:
+The port of ``seaweedfs_tpu/pipeline/pipe.py``:
 
 - a reader thread materializes host batches (``os.preadv`` straight into
   a pool of reusable buffers, :class:`HostBufferPool`) and feeds a
   depth-limited queue;
 - the calling thread hands each batch to ``encode_fn``, which returns at
   once (on the card: an async copy, kernel and copy back on a side
-  stream — ops/rs_torch.py);
+  stream — ops/rs_torch.py), one dispatch per batch; with a
+  ``prepare_fn`` (the mesh path) the stage splits into prepare and
+  apply, and ``[pipeline] double_buffer`` issues the next batch's
+  prepare before the current batch's apply;
 - a writer thread calls ``np.asarray`` on the oldest result, which waits
   for THAT batch only while newer ones are still in flight, and hands the
   bytes to ``write_fn``.
 
 On CUDA the pool buffers are pinned host memory, so the copies to and
-from the card run asynchronously. Each batch is its own launch; there is
-no grouping of batches into one dispatch. Left out against the JAX
-package: the flight recorder, race and buffer checkers, telemetry
-publishing, the group controller and the mesh prepare/apply split.
+from the card run asynchronously. Queue depths, batch bounds and writer
+width come from the ``[pipeline]`` TOML section
+(:func:`configure_from`, the shell's ``-config``); :class:`PipelineConfig`'s
+defaults are the only source of them. Every completed run is folded into
+the process totals and a ring of recent runs (:func:`publish_stats`,
+read by the shell's ``pipeline.status``), and every batch's lifecycle
+goes to the flight recorder when it is armed (pipeline/flight.py).
+
+Left out against the JAX package: grouped dispatch (the group drain,
+``GroupController``, ``pick_grouped_dispatch``). On the card a group
+would enqueue the same per-slab copies and launches as one dispatch per
+batch, and only shrink the batches, so it waits for a launch that
+covers many slabs (ROADMAP); its ``[pipeline]`` fields are accepted and
+shown, and change nothing. The race and buffer checkers
+(``racecheck.register``, ``bufcheck``) and the per-stage tracing series
+(``_stage_observe``) wait for the port of ``util/tracing`` and the
+checkers (ROADMAP Queue 1, observability); comments mark where they go.
+A failed run publishes nothing here, where the JAX package folds its
+partial stats into the totals.
 """
 
 from __future__ import annotations
@@ -25,27 +43,19 @@ import os
 import queue
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
-#: Stage-queue depth: 2 = classic double buffering.
-DEPTH = 2
+from . import flight
 
-#: Most input bytes in one batch: an encode slab, or a rebuild chunk
-#: summed over its survivors.
-BATCH_BYTES = 256 * 1024 * 1024
-
-#: Most reusable host buffers a run holds: one per queue slot on each
-#: side of the dispatch, plus the two batches being read and written. A
-#: run with fewer batches holds one buffer per batch.
-POOL_BUFFERS = DEPTH + 2
-
-#: Shard-writeback pool width, and pending jobs per writer thread.
-WRITER_THREADS = 4
-WRITER_QUEUE_DEPTH = 4
+# SEAWEEDFS_TORCH_FLIGHT=1 arms the recorder for any process that runs a
+# pipeline; unset means every flight.record() below is one attribute
+# load + None test.
+flight.install_from_env()
 
 #: Row-view shard writes need rows at least this long: below it the
 #: per-row write overhead beats the strided gather-copy it avoids, so
@@ -53,6 +63,74 @@ WRITER_QUEUE_DEPTH = 4
 ROW_WRITE_MIN_BLOCK = 64 * 1024
 
 _END = object()
+
+
+# --------------------------------------------------------------------------
+# configuration — the [pipeline] TOML section
+# --------------------------------------------------------------------------
+
+@dataclass
+class PipelineConfig:
+    """Tuning knobs of the overlapped ingest plane, at the JAX package's
+    defaults. Flags > TOML > these defaults. ``pool_buffers = 0`` means
+    "derive" (:func:`pool_buffers`). ``grouped_batch_bytes``,
+    ``group_cap`` and ``feedback`` tune the JAX package's grouped
+    dispatch, which the port leaves out (see the module docstring): a
+    TOML file may set them, ``pipeline.status`` shows them, and nothing
+    reads them."""
+
+    depth: int = 2                           # stage-queue depth
+    batch_bytes: int = 256 * 1024 * 1024     # max input bytes per batch
+    grouped_batch_bytes: int = 64 * 1024 * 1024  # per-batch clamp, grouped
+    group_cap: int = 0                       # max batches per dispatch
+    writer_threads: int = 4                  # shard-writeback pool width
+    writer_queue_depth: int = 4              # pending jobs per writer
+    pool_buffers: int = 0                    # reusable host buffers
+    feedback: bool = True                    # stage-latency controller
+    overlapped: bool = True                  # False = synchronous path
+    preallocate: bool = True                 # size shard files up front
+    double_buffer: bool = False              # one-deep H2D lookahead
+
+
+_CONFIG = PipelineConfig()
+
+
+def current() -> PipelineConfig:
+    return _CONFIG
+
+
+def configure(**kw) -> None:
+    """Set config fields; None values keep their current setting."""
+    for key, val in kw.items():
+        if not hasattr(_CONFIG, key):
+            raise TypeError(f"unknown pipeline config key {key!r}")
+        if val is not None:
+            cur = getattr(_CONFIG, key)
+            setattr(_CONFIG, key, type(cur)(val))
+
+
+def configure_from(conf: dict) -> None:
+    """Apply a loaded TOML dict's ``[pipeline]`` block (missing keys
+    keep their current values; an unknown key raises ``TypeError``)."""
+    from ..util import config as config_mod
+    sect = config_mod.lookup(conf, "pipeline")
+    if not isinstance(sect, dict):
+        return
+    configure(**sect)
+
+
+def pool_buffers(n_batches: int, lookahead: bool = False) -> int:
+    """Reusable host buffers for a run of ``n_batches``: ``[pipeline]
+    pool_buffers``, or one per queue slot on each side of the dispatch
+    plus the batches being read and written — and one more for the batch
+    the double-buffer lookahead holds. Never more buffers than batches,
+    and with the lookahead at least two: the held batch is dispatched
+    only once the next one has been read."""
+    want = _CONFIG.pool_buffers or \
+        max(4, _CONFIG.depth + 2) + int(lookahead)
+    if lookahead:
+        want = max(want, 2)
+    return max(1, min(want, n_batches))
 
 
 def pread_into(fd: int, view: np.ndarray, offset: int) -> None:
@@ -81,7 +159,10 @@ class HostBufferPool:
         self.nbytes = nbytes
         self.count = count
         self._free: queue.Queue = queue.Queue()
-        # the tensors own the memory the numpy views point into
+        # the tensors own the memory the numpy views point into; the
+        # JAX package registers each buffer with its buffer checker and
+        # the pool with its race checker here (bufcheck, racecheck:
+        # ROADMAP, observability)
         self._tensors = [torch.empty(nbytes, dtype=torch.uint8,
                                      pin_memory=pinned)
                          for _ in range(count)]
@@ -91,15 +172,29 @@ class HostBufferPool:
     def acquire(self, timeout: Optional[float] = None) -> np.ndarray:
         """A free buffer; blocks until one is recycled. Raises
         ``queue.Empty`` on timeout."""
-        return self._free.get(timeout=timeout)
+        flight.record(flight.EV_POOL_WAIT)
+        buf = self._free.get(timeout=timeout)
+        if flight.armed():
+            occ = float(self.in_flight())
+            flight.record(flight.EV_POOL_GOT, value=occ)
+            flight.record(flight.EV_POOL_OCC, value=occ)
+        return buf
 
     def release(self, buf: np.ndarray) -> None:
         """Return a buffer obtained from :meth:`acquire`."""
         self._free.put(buf)
+        if flight.armed():
+            occ = float(self.in_flight())
+            flight.record(flight.EV_RECYCLE, value=occ)
+            flight.record(flight.EV_POOL_OCC, value=occ)
 
     def in_flight(self) -> int:
         return self.count - self._free.qsize()
 
+
+# --------------------------------------------------------------------------
+# stage metrics and the ring of recent runs
+# --------------------------------------------------------------------------
 
 @dataclass
 class PipeStats:
@@ -107,6 +202,8 @@ class PipeStats:
     stage thread and read after the join, so no locking is needed."""
 
     batches: int = 0
+    groups: int = 0                 # compute dispatch steps
+    max_group: int = 0
     bytes_in: int = 0
     bytes_out: int = 0
     read_seconds: float = 0.0       # batch materialization (reader)
@@ -115,30 +212,98 @@ class PipeStats:
     write_seconds: float = 0.0      # write_fn + positioned writes
     wall_seconds: float = 0.0
 
+    @property
+    def compute_seconds(self) -> float:
+        """Device-side stage time: dispatch + the D2H sync wait."""
+        return self.dispatch_seconds + self.sync_seconds
+
+    def stage_seconds(self) -> dict:
+        """The reader/compute/writer breakdown."""
+        return {"read": round(self.read_seconds, 6),
+                "compute": round(self.compute_seconds, 6),
+                "write": round(self.write_seconds, 6),
+                "wall": round(self.wall_seconds, 6)}
+
     def to_dict(self) -> dict:
-        d = {"batches": self.batches, "bytes_in": self.bytes_in,
-             "bytes_out": self.bytes_out,
-             "read_seconds": self.read_seconds,
-             "dispatch_seconds": self.dispatch_seconds,
-             "sync_seconds": self.sync_seconds,
-             "write_seconds": self.write_seconds,
-             "wall_seconds": self.wall_seconds}
+        d = self.stage_seconds()
+        d.update(batches=self.batches, groups=self.groups,
+                 max_group=self.max_group, bytes_in=self.bytes_in,
+                 bytes_out=self.bytes_out,
+                 dispatch_seconds=round(self.dispatch_seconds, 6),
+                 sync_seconds=round(self.sync_seconds, 6))
         if self.wall_seconds > 0:
-            d["gibps"] = self.bytes_in / (1 << 30) / self.wall_seconds
+            d["gibps"] = round(
+                self.bytes_in / (1 << 30) / self.wall_seconds, 3)
         return d
+
+
+#: Process-lifetime totals + a short ring of completed-run snapshots,
+#: printed by the pipeline.status shell command.
+_TELEMETRY_LOCK = threading.Lock()
+_TOTALS = {"runs": 0, "batches": 0, "bytes_in": 0, "bytes_out": 0,
+           "read_seconds": 0.0, "compute_seconds": 0.0,
+           "write_seconds": 0.0, "wall_seconds": 0.0}
+RECENT: deque = deque(maxlen=8)
+
+
+def publish_stats(stats: PipeStats, kind: str = "pipe") -> None:
+    """Fold one completed run into the process totals + recent ring."""
+    with _TELEMETRY_LOCK:
+        _TOTALS["runs"] += 1
+        _TOTALS["batches"] += stats.batches
+        _TOTALS["bytes_in"] += stats.bytes_in
+        _TOTALS["bytes_out"] += stats.bytes_out
+        _TOTALS["read_seconds"] += stats.read_seconds
+        _TOTALS["compute_seconds"] += stats.compute_seconds
+        _TOTALS["write_seconds"] += stats.write_seconds
+        _TOTALS["wall_seconds"] += stats.wall_seconds
+        entry = {"kind": kind}
+        entry.update(stats.to_dict())
+        RECENT.append(entry)
+
+
+def last_run() -> Optional[dict]:
+    """Most recent completed run's snapshot."""
+    with _TELEMETRY_LOCK:
+        return dict(RECENT[-1]) if RECENT else None
+
+
+def debug_payload() -> dict:
+    """Totals + the recent-run ring."""
+    with _TELEMETRY_LOCK:
+        out = {k: (round(v, 6) if isinstance(v, float) else v)
+               for k, v in _TOTALS.items()}
+        out["recent"] = [dict(e) for e in RECENT]
+    return out
+
+
+def reset_telemetry() -> None:
+    """Drop totals and the recent ring (tests)."""
+    with _TELEMETRY_LOCK:
+        for k in _TOTALS:
+            _TOTALS[k] = 0 if isinstance(_TOTALS[k], int) else 0.0
+        RECENT.clear()
 
 
 class PipelineError(RuntimeError):
     pass
 
 
+# --------------------------------------------------------------------------
+# the pipeline
+# --------------------------------------------------------------------------
+
 def run_pipeline(batches: Iterable[tuple[Any, np.ndarray]],
-                 encode_fn: Callable[[np.ndarray], Any],
+                 encode_fn: Callable[[Any], Any],
                  write_fn: Callable[[Any, np.ndarray, np.ndarray], None],
                  recycle_fn: Optional[
                      Callable[[Any, np.ndarray], None]] = None,
                  stats: Optional[PipeStats] = None,
-                 overlapped: bool = True) -> int:
+                 overlapped: Optional[bool] = None,
+                 kind: str = "pipe",
+                 publish: bool = True,
+                 prepare_fn: Optional[Callable[[np.ndarray], Any]] = None
+                 ) -> int:
     """Drive (meta, host_batch) items through ``encode_fn`` with
     read/compute/write overlap.
 
@@ -147,28 +312,82 @@ def run_pipeline(batches: Iterable[tuple[Any, np.ndarray]],
     FIFO order; ``recycle_fn(meta, batch)``, when given, runs after
     ``write_fn`` returns — the hook pooled readers use to hand buffers
     back, and the one every failure path calls for batches whose write
-    never ran. Returns the number of batches processed. Exceptions from
+    never ran. Returns the number of batches written. Exceptions from
     any stage propagate as :class:`PipelineError`.
 
-    ``overlapped=False`` runs the same stages inline on the calling
-    thread: the synchronous path whose output bytes the overlapped one
-    must match.
+    ``prepare_fn(batch)``, when given, splits the compute stage in two:
+    its return value (the mesh path's placed batch,
+    parallel/mesh.encode_step_fns) is what ``encode_fn`` receives. With
+    ``[pipeline] double_buffer`` the overlapped path issues the NEXT
+    batch's ``prepare_fn`` before the CURRENT batch's ``encode_fn``, so
+    its copy to the card overlaps the current product; the synchronous
+    path runs prepare and encode back to back, so output bytes are the
+    same either way.
+
+    ``overlapped=False`` (or ``[pipeline] overlapped = false``) runs the
+    same stages inline on the calling thread: the synchronous path whose
+    output bytes the overlapped one must match.
+
+    ``stats`` receives the stage breakdown; a run that completes is also
+    folded into the process totals under ``kind`` unless ``publish`` is
+    False (the file paths publish after their writeback time is folded
+    in). A failed run publishes nothing.
     """
+    cfg = _CONFIG
+    if overlapped is None:
+        overlapped = cfg.overlapped
     st = stats if stats is not None else PipeStats()
     t_wall = time.perf_counter()
+    flight.record(flight.EV_RUN_START, arg=hash(kind) & 0x7FFFFFFF)
+    done = False
     try:
         if not overlapped:
-            return _run_sync(batches, encode_fn, write_fn, recycle_fn, st)
-        return _run_overlapped(batches, encode_fn, write_fn,
-                               DEPTH, recycle_fn, st)
+            n = _run_sync(batches, encode_fn, write_fn, recycle_fn, st,
+                          prepare_fn)
+        else:
+            n = _run_overlapped(batches, encode_fn, write_fn, cfg.depth,
+                                recycle_fn, st, prepare_fn,
+                                cfg.double_buffer and prepare_fn is not None)
+        done = True
     finally:
         st.wall_seconds = time.perf_counter() - t_wall
+        # the end marker closes analyze()'s window whether or not the
+        # run completed
+        flight.record(flight.EV_RUN_END)
+        if publish and done:
+            publish_stats(st, kind=kind)
+        if flight.armed():
+            # end-of-run fold into the seaweed_pipeline_* gauges and the
+            # flight payload — never on the hot path, and never allowed
+            # to fail the run it observed
+            try:
+                flight.publish_run_gauges()
+            except Exception:  # noqa: BLE001 — see comment above
+                pass
+    return n
 
 
-def _run_sync(batches, encode_fn, write_fn, recycle_fn,
-              st: PipeStats) -> int:
+def _batch_nbytes(batch) -> int:
+    return getattr(batch, "nbytes", 0)
+
+
+def _record_depth(q: queue.Queue, which: int) -> None:
+    """Queue-depth counter event (``which``: 0 = read queue, 1 = write
+    queue); the depth is only read when the recorder is armed."""
+    if flight.armed():
+        flight.record(flight.EV_QDEPTH, value=float(q.qsize()), arg=which)
+
+
+def _run_sync(batches, encode_fn, write_fn, recycle_fn, st: PipeStats,
+              prepare_fn=None) -> int:
+    """The synchronous reference path: same stages, one thread (prepare
+    runs immediately before encode, so the split changes nothing here —
+    that is what makes it the byte-identity oracle for the
+    double-buffered path)."""
     it = iter(batches)
     while True:
+        seq = st.batches
+        flight.record(flight.EV_READ_START, batch=seq)
         t0 = time.perf_counter()
         try:
             meta, batch = next(it)
@@ -176,13 +395,22 @@ def _run_sync(batches, encode_fn, write_fn, recycle_fn,
             break
         t1 = time.perf_counter()
         st.read_seconds += t1 - t0
+        flight.record(flight.EV_READ_END, batch=seq,
+                      arg=_batch_nbytes(batch))
         try:
-            result = encode_fn(batch)
+            flight.record(flight.EV_DISPATCH, batch=seq)
+            result = encode_fn(batch if prepare_fn is None
+                               else prepare_fn(batch))
             t2 = time.perf_counter()
             st.dispatch_seconds += t2 - t1
+            flight.record(flight.EV_DISPATCH_DONE, batch=seq, arg=1)
+            flight.record(flight.EV_SYNC_START, batch=seq)
             result_np = np.asarray(result)
             t3 = time.perf_counter()
             st.sync_seconds += t3 - t2
+            flight.record(flight.EV_SYNC_END, batch=seq,
+                          arg=result_np.nbytes)
+            flight.record(flight.EV_WRITE_START, batch=seq)
             write_fn(meta, batch, result_np)
         except Exception as e:
             if recycle_fn is not None:
@@ -191,14 +419,18 @@ def _run_sync(batches, encode_fn, write_fn, recycle_fn,
         if recycle_fn is not None:
             recycle_fn(meta, batch)
         st.write_seconds += time.perf_counter() - t3
+        flight.record(flight.EV_WRITE_END, batch=seq)
         st.batches += 1
-        st.bytes_in += batch.nbytes
+        st.groups += 1
+        st.max_group = max(st.max_group, 1)
+        st.bytes_in += _batch_nbytes(batch)
         st.bytes_out += result_np.nbytes
     return st.batches
 
 
 def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
-                    st: PipeStats) -> int:
+                    st: PipeStats, prepare_fn=None,
+                    lookahead: bool = False) -> int:
     read_q: queue.Queue = queue.Queue(maxsize=depth)
     write_q: queue.Queue = queue.Queue(maxsize=depth)
     errors: list[BaseException] = []
@@ -213,17 +445,39 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
             except Exception:  # noqa: BLE001 — see comment above
                 pass
 
+    def fail(e: BaseException, drop) -> None:
+        # a compute-stage failure: record it, stop the stages, and
+        # recycle every batch it held so a pooled reader blocked on
+        # acquire() can drain out
+        errors.append(e)
+        stop.set()
+        for meta, batch in drop:
+            recycle_quietly(meta, batch)
+
+    # Per-stage batch sequence numbers for the flight recorder: every
+    # queue between stages is FIFO and the lookahead keeps order,
+    # so the reader's n-th batch IS the compute stage's n-th and the
+    # writer's n-th.
     def reader():
+        seq = 0
         try:
             it = iter(batches)
             while not stop.is_set():
+                flight.record(flight.EV_READ_START, batch=seq)
                 t0 = time.perf_counter()
                 try:
                     item = next(it)
                 except StopIteration:
                     return
-                st.read_seconds += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                st.read_seconds += dt
+                flight.record(flight.EV_READ_END, batch=seq,
+                              arg=_batch_nbytes(item[1]))
+                seq += 1
+                # _stage_observe("pipe.read", ...) goes here once
+                # util/tracing is ported (ROADMAP, observability)
                 read_q.put(item)
+                _record_depth(read_q, 0)
         except Exception as e:  # noqa: BLE001 — re-raised by the caller
             errors.append(e)
             stop.set()
@@ -231,57 +485,114 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
             read_q.put(_END)
 
     def writer():
+        seq = 0
         while True:
             item = write_q.get()
             if item is _END:
                 return
+            _record_depth(write_q, 1)
             meta, batch, result = item
             if stop.is_set():
                 recycle_quietly(meta, batch)
                 continue
             try:
+                flight.record(flight.EV_SYNC_START, batch=seq)
                 t0 = time.perf_counter()
                 result_np = np.asarray(result)
                 t1 = time.perf_counter()
                 st.sync_seconds += t1 - t0
+                flight.record(flight.EV_SYNC_END, batch=seq,
+                              arg=result_np.nbytes)
+                flight.record(flight.EV_WRITE_START, batch=seq)
                 write_fn(meta, batch, result_np)
                 if recycle_fn is not None:
                     recycle_fn(meta, batch)
                 st.write_seconds += time.perf_counter() - t1
+                flight.record(flight.EV_WRITE_END, batch=seq)
+                seq += 1
                 st.batches += 1
-                st.bytes_in += batch.nbytes
+                st.bytes_in += _batch_nbytes(batch)
                 st.bytes_out += result_np.nbytes
             except Exception as e:  # noqa: BLE001 — re-raised by the caller
                 errors.append(e)
                 stop.set()
                 recycle_quietly(meta, batch)
 
+    def dispatch(meta, batch, payload, t0) -> None:
+        # one batch's encode_fn (a failure drops it and the batch the
+        # lookahead holds), then the result goes to the writer in FIFO
+        # order
+        nonlocal cseq, pending
+        flight.record(flight.EV_DISPATCH, batch=cseq)
+        try:
+            result = encode_fn(payload)
+        except Exception as e:  # noqa: BLE001 — see fail()
+            drop = [(meta, batch)]
+            if pending is not None:
+                drop.append(pending[:2])
+                pending = None
+            fail(e, drop)
+            return
+        flight.record(flight.EV_DISPATCH_DONE, batch=cseq, arg=1)
+        cseq += 1
+        st.dispatch_seconds += time.perf_counter() - t0
+        st.groups += 1
+        st.max_group = 1
+        write_q.put((meta, batch, result))
+        _record_depth(write_q, 1)
+
     rt = threading.Thread(target=reader, name="ec-pipe-read", daemon=True)
     wt = threading.Thread(target=writer, name="ec-pipe-write", daemon=True)
     rt.start()
     wt.start()
+    cseq = 0
+    #: the double-buffer lookahead: the one (meta, batch, prepared) whose
+    #: copy to the card is in flight while the previous batch computes;
+    #: flushed after the loop
+    pending = None
     try:
         while True:
             item = read_q.get()
             if item is _END:
                 break
-            meta, batch = item
             if stop.is_set():
                 # a later stage failed: drain the reader, recycling so a
                 # pooled reader blocked on acquire() can finish
-                recycle_quietly(meta, batch)
+                recycle_quietly(*item)
                 continue
+            meta, batch = item
             t0 = time.perf_counter()
             try:
-                result = encode_fn(batch)
-            except Exception as e:  # noqa: BLE001 — re-raised below
-                errors.append(e)
-                stop.set()
-                recycle_quietly(meta, batch)
+                payload = batch if prepare_fn is None else prepare_fn(batch)
+            except Exception as e:  # noqa: BLE001 — see fail()
+                drop = [(meta, batch)]
+                if pending is not None:
+                    drop.append(pending[:2])
+                    pending = None
+                fail(e, drop)
                 continue
-            st.dispatch_seconds += time.perf_counter() - t0
-            write_q.put((meta, batch, result))
+            if lookahead:
+                # the batch just prepared has its copy in flight:
+                # dispatch the PREVIOUS prepared batch so its product
+                # overlaps this copy
+                pending, prev = (meta, batch, payload), pending
+                if prev is None:
+                    st.dispatch_seconds += time.perf_counter() - t0
+                    continue
+                meta, batch, payload = prev
+            dispatch(meta, batch, payload, t0)
+        # flush the double-buffer tail: the last prepared batch has no
+        # successor to overlap with
+        if pending is not None:
+            meta, batch, payload = pending
+            pending = None
+            if stop.is_set():
+                recycle_quietly(meta, batch)
+            else:
+                dispatch(meta, batch, payload, time.perf_counter())
     finally:
+        if pending is not None:
+            recycle_quietly(*pending[:2])
         write_q.put(_END)
         wt.join()
         stop.set()

@@ -14,13 +14,15 @@ pool. Rebuilt bytes are a fresh pinned array (the D2H copy), so input
 buffers recycle as soon as a chunk's result has synced.
 
 When ``parallel/mesh.routing_mesh`` says to split, every chunk splits
-over the mesh's devices (:func:`_pick_reconstruct_fn`). Not ported yet:
-chunk-cache invalidation and tracing spans.
+over the mesh's devices (:func:`_pick_reconstruct_fn`). A completed
+rebuild is published to the ring of recent runs as ``ec.rebuild``. Not
+ported yet: chunk-cache invalidation and tracing spans.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -29,7 +31,7 @@ from ..ops.rs_ref import TooFewShardsError
 from ..ops.rs_torch import Encoder
 from ..parallel import mesh as mesh_mod
 from ..storage import ec_files
-from . import pipe, writeback
+from . import flight, pipe, writeback
 from .scheme import DEFAULT_SCHEME, EcScheme
 
 
@@ -40,13 +42,14 @@ class EcRebuildError(RuntimeError):
 def chunk_length(size: int, k: int,
                  chunk_bytes: Optional[int] = None) -> int:
     """Shard bytes per survivor in one kernel call for shards of ``size``
-    bytes: at most ``chunk_bytes`` (default: one batch of
-    ``pipe.BATCH_BYTES`` over the k survivors), whole granules, so only
+    bytes: at most ``chunk_bytes`` (default: one batch of ``[pipeline]
+    batch_bytes`` over the k survivors), whole granules, so only
     a shard's last chunk can need the kernel wrappers' padding, and the
     shard split into chunks of equal length, so no pooled buffer is much
     larger than the bytes read into it."""
     g = rs_cuda.GRANULE
-    cap = pipe.BATCH_BYTES // k if chunk_bytes is None else chunk_bytes
+    cap = pipe.current().batch_bytes // k if chunk_bytes is None \
+        else chunk_bytes
     cap = max(g, cap // g * g)
     n = max(1, -(-size // cap))   # chunks of at most cap bytes
     per = -(-size // n)           # equal shares of the shard
@@ -103,7 +106,7 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
     n_chunks = -(-size // chunk_bytes) if size else 0
     pool = pipe.HostBufferPool(
         max(1, k * min(chunk_bytes, size)),
-        max(1, min(pipe.POOL_BUFFERS, n_chunks)),
+        pipe.pool_buffers(n_chunks),
         pinned=enc.device.type == "cuda")
     in_fds = [os.open(ec_files.shard_path(base, i), os.O_RDONLY)
               for i in present]
@@ -115,6 +118,7 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
         pos = 0
         while pos < size:
             take = min(chunk_bytes, size - pos)
+            flight.record(flight.EV_ENQUEUE, arg=k * take)
             buf = pool.acquire()
             view = buf[:k * take]
             for s, fd in enumerate(in_fds):
@@ -133,12 +137,13 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
         pool.release(meta[0])
 
     try:
+        t0 = time.perf_counter()
         for path in out_paths:
             writer.open_file(path, size)
         try:
             pipe.run_pipeline(
                 chunks(), _pick_reconstruct_fn(enc, present, missing),
-                write, recycle_fn=recycle, stats=st)
+                write, recycle_fn=recycle, stats=st, publish=False)
         except pipe.PipelineError:
             writer.abort()
             writer = None
@@ -146,6 +151,8 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
         writer.close()
         st.write_seconds += writer.busy_seconds
         writer = None
+        st.wall_seconds = time.perf_counter() - t0
+        pipe.publish_stats(st, kind="ec.rebuild")
     finally:
         if writer is not None:
             writer.abort()

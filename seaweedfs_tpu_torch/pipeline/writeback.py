@@ -1,7 +1,9 @@
 """Writeback overlap: positioned shard writes on a small thread pool.
 
-The port of seaweedfs_tpu/pipeline/writeback.py, without its fault
-injection, race-checker, buffer-checker and flight-recorder hooks.
+The port of seaweedfs_tpu/pipeline/writeback.py, with its flight-recorder
+events (a queued write, a retired one) and without its fault injection,
+race-checker and buffer-checker hooks. Pool width, queue depth and
+preallocation come from ``[pipeline]`` (pipe.current()).
 
 Shard writes run off the pipeline's critical path: shard files are
 preallocated to their final size up front, every row lands at a
@@ -28,6 +30,8 @@ import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+
+from . import flight
 
 
 #: Linux UIO_MAXIOV; one pwritev can scatter at most this many
@@ -115,8 +119,9 @@ class WriterPool:
 
     def __init__(self):
         from . import pipe as pipe_mod
-        self.threads = pipe_mod.WRITER_THREADS
-        self._queues = [queue.Queue(maxsize=pipe_mod.WRITER_QUEUE_DEPTH)
+        cfg = pipe_mod.current()
+        self.threads = max(1, cfg.writer_threads)
+        self._queues = [queue.Queue(maxsize=max(1, cfg.writer_queue_depth))
                         for _ in range(self.threads)]
         self._fds: dict[str, int] = {}
         self._errors: list[BaseException] = []
@@ -132,12 +137,14 @@ class WriterPool:
     # -- registration ----------------------------------------------------
 
     def open_file(self, path: str, size: int = 0) -> None:
-        """Create/register ``path``; with ``size``, reserve its final
-        length up front."""
+        """Create/register ``path``; with ``size`` (and ``[pipeline]
+        preallocate``) reserve its final length up front."""
         if path in self._fds:
             return
+        from . import pipe as pipe_mod
         fd = os.open(path, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o644)
-        preallocate(fd, size)
+        if pipe_mod.current().preallocate:
+            preallocate(fd, size)
         # open_file is a setup call: the fd is registered before any
         # write for it is submitted, so workers only READ the entry
         self._fds[path] = fd
@@ -156,6 +163,9 @@ class WriterPool:
         if fd is None:
             raise WriterError(f"writeback: {path!r} not opened")
         q = self._queues[hash(path) % self.threads]
+        if flight.armed():
+            flight.record(flight.EV_WRITE_SUBMIT,
+                          arg=sum(r.nbytes for r in rows))
         q.put((fd, offset, rows, token))
 
     # -- lifecycle -------------------------------------------------------
@@ -206,8 +216,11 @@ class WriterPool:
                     continue
                 t0 = time.perf_counter()
                 try:
-                    pwrite_rows(fd, offset, rows)
-                    busy_acc += time.perf_counter() - t0
+                    wrote = pwrite_rows(fd, offset, rows)
+                    dt = time.perf_counter() - t0
+                    flight.record(flight.EV_PWRITEV_RETIRE, value=dt,
+                                  arg=wrote)
+                    busy_acc += dt
                 except BaseException as e:  # noqa: BLE001 — re-raised at submit/close
                     # list.append is GIL-atomic and the list is only
                     # drained after the workers join

@@ -5,22 +5,33 @@ The port of ``seaweedfs_tpu/shell/cli.py`` for its offline mode: with
 runs a command — or a ``;``-separated sequence sharing one session — and
 exits. ``-device`` picks where the EC pipelines run: ``cuda`` (the
 default, which fails without a card) or ``cpu`` (the plain PyTorch
-codec):
+codec). ``-config F`` loads a TOML file and applies its ``[pipeline]``,
+``[mesh]`` and ``[flight]`` sections for the session (restored when
+``main`` returns); a file that cannot be read, an unknown key or a
+``[mesh]`` that cannot tile the ``-device`` type's devices is refused
+with one ``error:`` line and exit status 1 before any volume is
+touched:
 
     python -m seaweedfs_tpu_torch shell -dir /data -c "ec.encode -volumeId 3"
     python -m seaweedfs_tpu_torch shell -dir /a -dir /b -device cpu
+    python -m seaweedfs_tpu_torch shell -dir /data -config ec.toml \
+        -c "ec.encode -volumeId 3; pipeline.status; pipeline.analyze"
 
-Not ported yet: ``-master`` (the cluster shell), ``-filer`` and
-``-config`` (ROADMAP Queue 1 item 5).
+Not ported yet: ``-master`` (the cluster shell) and ``-filer`` (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import os
 import sys
 
 from ..storage.store import Store, StoreError
 from ..storage.volume import VolumeError
+from ..util import config as config_mod
 from .commands import CommandEnv, ShellError, run_command
 
 
@@ -36,6 +47,46 @@ def build_env(dirs: list[str], max_volumes: int = 8,
         store.close()
         raise
     return CommandEnv(store=store, device=device)
+
+
+def _keep(stack: contextlib.ExitStack, cfg, after=None) -> None:
+    """Put the dataclass ``cfg`` back as it is now when ``stack``
+    closes, then call ``after``."""
+    saved = dataclasses.replace(cfg)
+
+    def restore():
+        for f in dataclasses.fields(saved):
+            setattr(cfg, f.name, getattr(saved, f.name))
+        if after is not None:
+            after()
+
+    stack.callback(restore)
+
+
+def _apply_config(stack: contextlib.ExitStack, conf: dict,
+                 device_type: str) -> None:
+    """Apply ``conf``'s ``[pipeline]``, ``[mesh]`` and ``[flight]``
+    sections, each module imported only when its section is there, and
+    restore each when ``stack`` closes. A ``[mesh]`` is validated
+    against the local ``device_type`` devices here, so a mesh that
+    cannot tile them is refused before any work starts. Raises
+    ``TypeError`` (an unknown key), ``ValueError`` (a bad value, or
+    ``mesh.MeshConfigError``) or ``RuntimeError`` (no card)."""
+    if config_mod.lookup(conf, "pipeline") is not None:
+        from ..pipeline import pipe as pipe_mod
+        _keep(stack, pipe_mod.current())
+        pipe_mod.configure_from(conf)
+    if config_mod.lookup(conf, "mesh") is not None:
+        from ..parallel import mesh as mesh_mod
+        _keep(stack, mesh_mod.current())
+        mesh_mod.configure_from(conf)
+        mesh_mod.configured_mesh(device_type)
+    if config_mod.lookup(conf, "flight") is not None:
+        from ..pipeline import flight as flight_mod
+        # restoring the fields and calling configure() re-arms or
+        # disarms the recorder as it was
+        _keep(stack, flight_mod.current(), flight_mod.configure)
+        flight_mod.configure_from(conf)
 
 
 def _repl(run, env) -> int:
@@ -58,6 +109,9 @@ def main(argv: list[str] | None = None) -> int:
                    help="local disk location (repeatable; offline mode)")
     p.add_argument("-master", default=None,
                    help="master ip:port (cluster mode; not ported yet)")
+    p.add_argument("-config", default="",
+                   help="TOML file whose [pipeline], [mesh] and [flight] "
+                        "sections tune the EC pipelines")
     p.add_argument("-maxVolumes", type=int, default=8)
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="where the EC pipelines run (default: the card)")
@@ -75,6 +129,21 @@ def main(argv: list[str] | None = None) -> int:
               "use -dir", file=sys.stderr)
         return 2
 
+    with contextlib.ExitStack() as stack:
+        if args.config:
+            try:
+                if not os.path.isfile(args.config):
+                    raise OSError(f"-config {args.config}: no such file")
+                _apply_config(stack, config_mod.load(args.config),
+                             args.device)
+            except (OSError, TypeError, ValueError, RuntimeError) as e:
+                # refused before any volume is touched
+                print(f"error: {e}", file=sys.stderr)
+                return 1
+        return _session(args)
+
+
+def _session(args) -> int:
     try:
         env = build_env(args.dir, args.maxVolumes, args.device)
     except (StoreError, VolumeError, OSError) as e:

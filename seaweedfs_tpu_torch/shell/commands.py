@@ -14,12 +14,17 @@ semantics stay the reference's:
     ec.balance                               spread shards over locations
     volume.list                              registry snapshot
     volume.delete -volumeId 3                drop a volume's files
+    pipeline.status                          config + recent runs
+    pipeline.dump -trace F                   flight recorder -> trace
+    pipeline.analyze [-all]                  bottleneck verdict
 
 ``ec.encode`` and ``ec.rebuild`` take ``-mesh dp,sp`` (or ``auto``):
 split the command's pipeline work over a (dp, sp) mesh of the local
-devices of the env's device type (parallel/mesh.py). Not ported yet: the
-trace root around each command, and the other command families (ROADMAP
-Queue 1).
+devices of the env's device type (parallel/mesh.py), over whatever the
+shell's ``-config`` set in ``[mesh]``. The ``pipeline.*`` commands read
+back what ``[pipeline]``, ``[mesh]`` and ``[flight]`` set and what the
+session's runs recorded. Not ported yet: the trace root around each
+command, and the other command families (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import contextlib
 import io
 import shlex
 import shutil
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Optional
@@ -37,6 +43,8 @@ from ..ops import rs_torch
 from ..parallel import mesh as mesh_mod
 from ..pipeline import decode as decode_mod
 from ..pipeline import encode as encode_mod
+from ..pipeline import flight
+from ..pipeline import pipe
 from ..pipeline import rebuild as rebuild_mod
 from ..pipeline.scheme import DEFAULT_SCHEME, EcScheme
 from ..storage import ec_files
@@ -61,7 +69,6 @@ class CommandEnv:
 
     def __post_init__(self):
         if self.out is None:
-            import sys
             self.out = sys.stdout
 
     def println(self, *args) -> None:
@@ -322,6 +329,135 @@ def cmd_volume_delete(env: CommandEnv, argv: list[str]) -> None:
     args = p.parse_args(argv)
     env.store.delete_volume(args.volumeId, args.collection)
     env.println(f"volume.delete {args.volumeId}: done")
+
+
+@command("pipeline.status")
+def cmd_pipeline_status(env: CommandEnv, argv: list[str]) -> None:
+    """Overlapped-ingest-plane config + per-run stage breakdowns of
+    this process."""
+    p = _parser("pipeline.status")
+    p.parse_args(argv)
+    cfg = pipe.current()
+    # the JAX package's line: the grouped-dispatch fields are shown as
+    # set, though the port reads them nowhere (pipeline/pipe.py)
+    env.println(
+        f"pipeline.status depth={cfg.depth} "
+        f"batch_bytes={cfg.batch_bytes} "
+        f"grouped_batch_bytes={cfg.grouped_batch_bytes} "
+        f"group_cap={cfg.group_cap or 'env'} "
+        f"writers={cfg.writer_threads}x{cfg.writer_queue_depth} "
+        f"feedback={cfg.feedback} overlapped={cfg.overlapped} "
+        f"preallocate={cfg.preallocate} "
+        f"double_buffer={cfg.double_buffer}")
+    # read the mesh module as the JAX shell reads its own: only when
+    # something imported it
+    mesh = sys.modules.get("seaweedfs_tpu_torch.parallel.mesh")
+    if mesh is not None:
+        mp = mesh.debug_payload()
+        if mp["batches"] or mp["configured"]["enabled"]:
+            env.println(
+                f"  mesh: axes=dp{mp['axes']['dp']}xsp{mp['axes']['sp']}"
+                f" batches={mp['batches']} in={mp['bytes_in']}B "
+                f"dispatch={mp['dispatch_seconds']}s "
+                f"collective={mp['collective_seconds']}s "
+                f"configured={mp['configured']}")
+    pay = pipe.debug_payload()
+    env.println(
+        f"  totals: runs={pay['runs']} batches={pay['batches']} "
+        f"in={pay['bytes_in']}B out={pay['bytes_out']}B "
+        f"read={pay['read_seconds']}s compute={pay['compute_seconds']}s "
+        f"write={pay['write_seconds']}s wall={pay['wall_seconds']}s")
+
+    def _busy(run: dict) -> str:
+        # busy FRACTION of the run's wall window, not raw thread-seconds:
+        # stage sums add seconds from several threads (the writeback
+        # workers alone), so a share above 100% would mean nothing
+        wall = run.get("wall") or 0.0
+        if wall <= 0:
+            return "busy=n/a"
+        return ("busy read={:.0%} compute={:.0%} write={:.0%}".format(
+            min(1.0, run["read"] / wall),
+            min(1.0, run["compute"] / wall),
+            min(1.0, run["write"] / wall)))
+
+    for run in pay["recent"]:
+        env.println(
+            f"  {run['kind']}: {run['batches']} batches "
+            f"in {run['groups']} dispatches (max group "
+            f"{run['max_group']}) {run['bytes_in']}B "
+            f"{_busy(run)} wall={run['wall']}s "
+            f"{run.get('gibps', 0)} GiB/s")
+    fp = flight.debug_payload()
+    last = fp.get("last_run")
+    if last:
+        # recorder-derived occupancy: measured against the recorded wall
+        # window, the honest version of the busy lines above
+        frac = " ".join(f"{k}={v:.0%}"
+                        for k, v in last["busy_fraction"].items())
+        env.println(f"  flight: window={last['window_seconds']}s "
+                    f"batches={last['batches']} {frac}")
+        env.println(f"  flight: {last['verdict']}")
+    elif fp.get("armed"):
+        env.println("  flight: armed, no recorded run yet")
+
+
+def _require_armed() -> None:
+    if not flight.armed():
+        raise ShellError(
+            "flight recorder not armed — set [flight] enabled = true "
+            "or SEAWEEDFS_TORCH_FLIGHT=1 and rerun the pipeline")
+
+
+@command("pipeline.dump")
+def cmd_pipeline_dump(env: CommandEnv, argv: list[str]) -> None:
+    """Export the flight recorder's window as Chrome trace-event JSON
+    (open in Perfetto or chrome://tracing — one track per stage thread
+    plus queue-depth / pool-occupancy counter tracks)."""
+    p = _parser("pipeline.dump")
+    p.add_argument("-trace", required=True,
+                   help="output path for the trace JSON")
+    args = p.parse_args(argv)
+    _require_armed()
+    n = flight.dump_trace(args.trace)
+    env.println(f"pipeline.dump: {n} trace events -> {args.trace} "
+                f"(load in Perfetto / chrome://tracing)")
+
+
+@command("pipeline.analyze")
+def cmd_pipeline_analyze(env: CommandEnv, argv: list[str]) -> None:
+    """Name the recorded window's bottleneck stage and recommend
+    [pipeline] knob changes, with the occupancy evidence printed
+    alongside."""
+    p = _parser("pipeline.analyze")
+    p.add_argument("-all", action="store_true",
+                   help="analyze the whole ring, not just the last run")
+    args = p.parse_args(argv)
+    _require_armed()
+    ana = flight.analyze(last_run_only=not args.all)
+    if ana["bottleneck"] is None:
+        env.println("pipeline.analyze: no recorded batches")
+        return
+    occ = ana["occupancy"]
+    env.println(f"pipeline.analyze: {ana['verdict']}")
+    env.println(f"  window={occ['window_seconds']}s "
+                f"batches={occ['batches']} events={occ['events']}")
+    for stage in sorted(occ["busy_fraction"],
+                        key=occ["busy_fraction"].get, reverse=True):
+        frac = occ["busy_fraction"][stage]
+        line = f"  {stage}: busy={frac:.1%}"
+        bub = occ["bubble_seconds"].get(stage)
+        if bub is not None:
+            line += f" bubble={bub}s"
+        env.println(line)
+    if occ["waited_on"]:
+        waits = ", ".join(
+            f"{k}={v}" for k, v in sorted(occ["waited_on"].items(),
+                                          key=lambda kv: -kv[1]))
+        env.println(f"  per-batch critical path (batches that waited "
+                    f"longest on each stage): {waits}")
+    env.println("  recommendations:")
+    for rec in ana["recommendations"]:
+        env.println(f"   - {rec}")
 
 
 def run_command(env: CommandEnv, line: str) -> None:

@@ -2,8 +2,9 @@
 
 The port's copy of the local-disk part of
 ``seaweedfs_tpu/storage/backend.py``. Not ported yet: the ``mmap`` read
-path and the S3 cold tier, with the backend registry that selects them
-(ROADMAP Queue 1 item 5).
+path (with the volume server's ``[storage]`` section, ROADMAP Queue 1
+item 3) and the S3 cold tier (item 5), with the backend registry that
+selects them.
 
 Concurrency contract: ``read_at`` may be called from many threads
 concurrently with one appender (it uses positionless pread); mutations

@@ -340,3 +340,134 @@ def test_one_by_one_mesh_encode_keeps_bytes_and_launches(tmp_path):
         with pytest.raises(mesh.MeshConfigError, match="dp,sp"):
             with mesh.scoped("2,2", "cuda"):
                 pass
+
+
+# -- the [pipeline] / [mesh] / [flight] slice on the card -------------------
+
+@pytest.fixture
+def pipeline_state():
+    """The [pipeline], [mesh] and [flight] state restored after the
+    test."""
+    import dataclasses
+
+    from seaweedfs_tpu_torch.parallel import mesh
+    from seaweedfs_tpu_torch.pipeline import flight
+    saved = dataclasses.replace(pipe.current())
+    yield
+    for f in dataclasses.fields(saved):
+        setattr(pipe.current(), f.name, getattr(saved, f.name))
+    mesh.configure(enabled=False, dp=0, sp=0)
+    flight.disarm()
+    flight.reset()
+
+
+def _digests(base):
+    import hashlib
+    return [hashlib.sha256(ec_files.shard_path(base, i).read_bytes())
+            .hexdigest() for i in range(14)]
+
+
+def _two_volumes(tmp_path, *names):
+    bases = {}
+    for name in names:
+        bases[name] = tmp_path / name
+        # 16 MiB: 2 small rows of 1 MiB blocks
+        volume.write_synthetic_volume(bases[name], 16 << 20,
+                                      avg_size=64 * 1024, seed=3)
+    return bases
+
+
+@pytest.mark.cuda
+def test_copy_stream_only_under_the_lookahead():
+    """A 1 x 1 mesh prepare copies on the side stream ahead of the
+    kernel (no event to wait on) unless the lookahead asks for the copy
+    stream; both give the unsplit parity, one launch each."""
+    _need_card()
+    from seaweedfs_tpu_torch.parallel import mesh
+    enc = rs_torch.Encoder(10, 4)
+    m = mesh.make_mesh(mesh.local_devices("cuda")[:1], dp=1, sp=1)
+    x = np.random.default_rng(8).integers(0, 256, (2, 10, 1 << 20),
+                                          dtype=np.uint8)
+    want = np.asarray(enc.encode_parity_host(x))
+    for copy_stream in (False, True):
+        prep, apply = mesh.encode_step_fns(enc, m, copy_stream=copy_stream)
+        placed = prep(x)
+        assert (placed.arr.ready[0] is not None) == copy_stream
+        n = _launches()
+        got = np.asarray(apply(placed))
+        assert _launches() - n == 1
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_double_buffer_mesh_encode_keeps_bytes_and_launches(
+        tmp_path, pipeline_state):
+    """-config with [pipeline] double_buffer and [mesh] 1 x 1: the
+    prepare of each batch's copy on the copy stream runs ahead of the
+    previous batch's kernel; one launch per batch, the unsplit bytes,
+    and the flight recorder holds every batch of the plans."""
+    _need_card()
+    import io
+    import json
+    from contextlib import redirect_stdout
+
+    from seaweedfs_tpu_torch.pipeline import flight
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.shell import cli
+    bases = _two_volumes(tmp_path, "plain", "split")
+    encode.write_ec_files(bases["plain"])
+    conf = tmp_path / "c.toml"
+    conf.write_text("[pipeline]\nbatch_bytes = 4194304\n"
+                    "double_buffer = true\n[mesh]\nenabled = true\n"
+                    "[flight]\nenabled = true\n")
+    d = tmp_path / "d"
+    d.mkdir()
+    for ext in (".dat", ".idx"):
+        (d / f"5{ext}").write_bytes(
+            (bases["split"].parent / f"split{ext}").read_bytes())
+    dat = (d / "5.dat").stat().st_size
+    plans = list(encode.plan_batches(dat, DEFAULT_SCHEME, 4 << 20))
+    trace = tmp_path / "t.json"
+    out = io.StringIO()
+    n = _launches()
+    with redirect_stdout(out):
+        rc = cli.main(["-dir", str(d), "-config", str(conf), "-c",
+                       f"ec.encode -volumeId 5; pipeline.analyze; "
+                       f"pipeline.dump -trace {trace}"])
+    assert rc == 0, out.getvalue()
+    assert _launches() - n == len(plans) == 6
+    assert _digests(d / "5") == _digests(bases["plain"])
+    lines = out.getvalue().splitlines()
+    assert lines[1].startswith("pipeline.analyze: bottleneck: ")
+    assert " batches=6 " in lines[2]
+    spans = [e for e in json.loads(trace.read_text())["traceEvents"]
+             if e["ph"] == "X"]
+    for name in ("read", "dispatch", "d2h_sync", "write"):
+        assert sorted(e["args"]["batch"] for e in spans
+                      if e["name"] == name) == list(range(6)), name
+    # the copies' spans carry no batch id: one per batch all the same
+    assert sum(e["name"] == "h2d" for e in spans) == 6
+    assert not flight.armed()         # main restored the config
+
+
+@pytest.mark.cuda
+def test_armed_encode_records_every_batch_of_its_plans(tmp_path,
+                                                       pipeline_state):
+    """An armed unsplit encode on the card: the recorder's last run holds
+    one batch per plan, each with its read, dispatch, sync and write."""
+    _need_card()
+    from seaweedfs_tpu_torch.pipeline import flight
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    base = _two_volumes(tmp_path, "v")["v"]
+    dat = (tmp_path / "v.dat").stat().st_size
+    # 4 MiB batches: 3 column chunks of each 1 MiB row, every one at
+    # least DEVICE_MIN_S long, so each launches the kernel
+    plans = list(encode.plan_batches(dat, DEFAULT_SCHEME, 4 << 20))
+    flight.configure(enabled=True)
+    n = _launches()
+    encode.write_ec_files(base, max_batch_bytes=4 << 20)
+    assert _launches() - n == len(plans) == 6
+    occ = flight.occupancy()
+    assert occ["batches"] == len(plans)
+    assert occ["busy_seconds"]["d2h"] > 0
+    assert flight.debug_payload()["last_run"]["batches"] == len(plans)

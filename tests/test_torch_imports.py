@@ -36,7 +36,9 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.storage.volume",
        "seaweedfs_tpu_torch.util.durability",
        "seaweedfs_tpu_torch.parallel", "seaweedfs_tpu_torch.parallel.mesh",
-       "seaweedfs_tpu_torch.parallel.dryrun"}
+       "seaweedfs_tpu_torch.parallel.dryrun",
+       "seaweedfs_tpu_torch.util.config", "seaweedfs_tpu_torch.util.stats",
+       "seaweedfs_tpu_torch.pipeline.flight"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -49,8 +51,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "bad: []" in out.stdout
     # every module of the slices so far was imported, the shell, Store,
-    # Volume engine and the multi-device split among them
-    assert int(out.stdout.split()[0]) >= 44
+    # Volume engine, the multi-device split, the config loader and the
+    # flight recorder among them
+    assert int(out.stdout.split()[0]) >= 47
     assert "missing: []" in out.stdout
 
 

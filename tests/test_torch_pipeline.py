@@ -185,8 +185,8 @@ def test_rebuild_chunks_split_the_shard_evenly(size, cap):
     c = rebuild.chunk_length(size, 10, cap)
     n = -(-size // c)
     assert c % rs_cuda.GRANULE == 0
-    assert c <= max(rs_cuda.GRANULE, pipe.BATCH_BYTES // 10 if cap is None
-                    else cap)
+    assert c <= max(rs_cuda.GRANULE,
+                    pipe.current().batch_bytes // 10 if cap is None else cap)
     assert (n - 1) * c < size <= n * c
     # equal shares: the last chunk is short by less than a granule per chunk
     assert size - (n - 1) * c > c - n * rs_cuda.GRANULE
@@ -206,7 +206,7 @@ def test_pools_hold_one_buffer_per_batch_at_most(tmp_path, monkeypatch):
     encode.encode_volume(base, SCHEME, max_batch_bytes=BATCH, device="cpu",
                          stats=st)
     # 3 small rows of 20 KiB, two to a batch
-    assert st.batches == 2 < pipe.POOL_BUFFERS
+    assert st.batches == 2 < pipe.pool_buffers(1000)
     assert made == [(2 * 10 * 2048, 2)]
     sealed = _sealed(base)
     for i in LOST:

@@ -258,6 +258,7 @@ def test_volume_list_and_errors(tmp_path):
         listed = env.out.getvalue().splitlines()
         assert listed == sorted(commands.COMMANDS) == [
             "ec.balance", "ec.decode", "ec.encode", "ec.rebuild",
+            "pipeline.analyze", "pipeline.dump", "pipeline.status",
             "volume.delete", "volume.list"]
         assert set(listed) <= set(jax_commands.COMMANDS)
         # -mesh is known; a spec that cannot tile the one CPU device is
@@ -400,3 +401,282 @@ def test_cli_without_a_card_fails_and_writes_no_shard(tmp_path):
         assert _files(tmp_path) == sealed   # no link, shard or .dat made
     finally:
         env.store.close()
+
+
+# ------------------------------------------------------------------
+# -config: [pipeline], [mesh] and [flight] through the CLI, and the
+# pipeline.status / pipeline.analyze / pipeline.dump commands
+# ------------------------------------------------------------------
+
+import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import re  # noqa: E402
+
+from seaweedfs_tpu.parallel import mesh as jax_mesh  # noqa: E402
+from seaweedfs_tpu.pipeline import flight as jax_flight  # noqa: E402
+from seaweedfs_tpu.pipeline import pipe as jax_pipe  # noqa: E402
+from seaweedfs_tpu.shell import cli as jax_cli  # noqa: E402
+from seaweedfs_tpu_torch.pipeline import flight  # noqa: E402
+from seaweedfs_tpu_torch.pipeline import pipe  # noqa: E402
+from seaweedfs_tpu_torch.shell import cli  # noqa: E402
+
+CONFIG = """\
+[pipeline]
+batch_bytes = 1048576
+double_buffer = true
+writer_threads = 2
+
+[mesh]
+enabled = true
+dp = {dp}
+sp = {sp}
+
+[flight]
+enabled = true
+"""
+
+
+@pytest.fixture
+def session_state():
+    """Both packages' [pipeline], [mesh] and [flight] state, rings of
+    recent runs and mesh totals start empty and are restored after the
+    test: the JAX shell leaves what its -config set in place."""
+    mods = ((pipe, mesh_mod, flight), (jax_pipe, jax_mesh, jax_flight))
+    saved = [(dataclasses.replace(p.current()),
+              dataclasses.replace(m.current())) for p, m, _f in mods]
+    for p, m, f in mods:
+        p.reset_telemetry()
+        m.reset_telemetry()
+        f.disarm()
+        f.reset()
+    yield
+    for (p, m, f), (pc, mc) in zip(mods, saved):
+        for cfg, old in ((p.current(), pc), (m.current(), mc)):
+            for fld in dataclasses.fields(old):
+                setattr(cfg, fld.name, getattr(old, fld.name))
+        p.reset_telemetry()
+        m.reset_telemetry()
+        f.disarm()
+        f.reset()
+
+
+def _main(pkg, args):
+    """One in-process CLI run: (exit code, stdout lines, stderr lines)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        if pkg == "port":
+            rc = cli.main([*args, "-device", "cpu"])
+        else:
+            rc = jax_cli.main(args)
+    return rc, out.getvalue().splitlines(), err.getvalue().splitlines()
+
+
+def _masked(lines):
+    """Printed lines with what a run's timing decides masked: numbers
+    (seconds, rates, busy shares, counts), the verdict's stage, the
+    advice it picks (one marker for each list, whose length depends on
+    the verdict) and the trace path; the stage lines of an analysis are
+    sorted by busy share, so the set is compared."""
+    out = []
+    for line in lines:
+        line = re.sub(r"bottleneck: .*", "bottleneck: <stage>", line)
+        line = re.sub(r"(critical path \(.*\)): .*", r"\1: <stages>", line)
+        line = re.sub(r"-> \S+", "-> <path>", line)
+        if line.startswith("   - "):
+            if out and out[-1] == "   - <advice>":
+                continue
+            line = "   - <advice>"
+        out.append(re.sub(r"\d+(\.\d+)?(e-?\d+)?", "#", line))
+    return sorted(out)
+
+
+def _seed_volumes(root):
+    """Volumes 3 and 4 of the same needles; 4 is sealed and loses three
+    shards, so one session can encode 3 and rebuild 4."""
+    for vid in (3, 4):
+        _volume(vid, 40, 700, seed=9)(root)
+    env = _env("port", [root / "a"])
+    try:
+        commands.run_command(env, "ec.encode -volumeId 4")
+    finally:
+        env.store.close()
+    for i in (2, 9, 13):
+        (root / "a" / f"4.ec{i:02d}").unlink()
+    pipe.reset_telemetry()        # the session's ring starts empty
+
+
+def test_config_session_equals_jax(tmp_path, eight_cpu_devices,
+                                   session_state):
+    """One -config file with [pipeline] (small batches, double_buffer,
+    2 writers), [mesh] (2 x 4 over 8 CPU entries) and [flight] in both
+    packages: ``ec.encode; ec.rebuild; pipeline.status; pipeline.analyze;
+    pipeline.dump -trace F`` writes the same files, prints the same
+    lines once timing is masked, and dumps a trace with the same event
+    names; the session's config is restored when the port's main
+    returns."""
+    conf = tmp_path / "c.toml"
+    conf.write_text(CONFIG.format(dp=2, sp=4))
+    seed = tmp_path / "seed"
+    (seed / "a").mkdir(parents=True)
+    _seed_volumes(seed)
+    res = {}
+    for pkg in ("jax", "port"):
+        root = tmp_path / pkg
+        shutil.copytree(seed, root, symlinks=True)
+        trace = tmp_path / f"{pkg}.trace.json"
+        rc, out, err = _main(pkg, [
+            "-dir", str(root / "a"), "-config", str(conf), "-c",
+            f"ec.encode -volumeId 3 -keepSource; ec.rebuild -volumeId 4; "
+            f"pipeline.status; pipeline.analyze; "
+            f"pipeline.dump -trace {trace}"])
+        assert rc == 0, err
+        doc = json.loads(trace.read_text())
+        res[pkg] = (out, _files(root),
+                    sorted({e["name"] for e in doc["traceEvents"]}))
+    out, files, names = res["port"]
+    assert files == res["jax"][1]
+    assert _masked(out) == _masked(res["jax"][0])
+    assert names == res["jax"][2]
+    assert out[0] == "ec.encode volume 3: 14 shards, version 3"
+    assert out[1] == "ec.rebuild volume 4: rebuilt [2, 9, 13]"
+    assert out[2] == (
+        "pipeline.status depth=2 batch_bytes=1048576 "
+        "grouped_batch_bytes=67108864 group_cap=env writers=2x4 "
+        "feedback=True overlapped=True preallocate=True "
+        "double_buffer=True")
+    assert out[3].startswith("  mesh: axes=dp2xsp4 ")
+    assert [ln.split(":")[0] for ln in out[5:7]] == \
+        ["  ec.encode", "  ec.rebuild"]
+    assert any(ln.startswith("pipeline.analyze: bottleneck: ")
+               for ln in out)
+    assert {"read", "dispatch", "d2h_sync", "write", "h2d"} <= set(names)
+    # the split encode of 3 wrote the unsplit encode of 4's bytes
+    for i in range(14):
+        assert files[f"a/3.ec{i:02d}"] == files[f"a/4.ec{i:02d}"], i
+    # the port's main put the session's config back
+    assert pipe.current() == pipe.PipelineConfig()
+    assert not mesh_mod.current().enabled and not flight.armed()
+
+
+@pytest.mark.parametrize("text,want", [
+    ("[pipeline]\ndepth = 2\nqdepth = 4\n",
+     "unknown pipeline config key 'qdepth'"),
+    ("[mesh]\nenabled = true\ndp = 3\nsp = 3\n",
+     "cannot tile the 8 local device(s)"),
+    ("[flight]\nenabled = true\nsize = 4\n",
+     "unknown flight config key 'size'"),
+    ("[pipeline]\ndepth = \"two\"\n", "invalid literal for int()"),
+    ("[pipeline]\ndepth = two\n", "Invalid value"),
+    (None, "no such file")])
+def test_config_refusals_touch_no_file(tmp_path, eight_cpu_devices,
+                                       session_state, text, want):
+    """An unknown key, a bad value, a [mesh] that cannot tile the 8 CPU
+    entries, or a missing file: one ``error:`` line, exit 1, no file
+    changed, and the config left as it was."""
+    d = tmp_path / "a"
+    d.mkdir()
+    _volume(5, 4, 64)(tmp_path)
+    conf = tmp_path / "bad.toml"
+    if text is not None:
+        conf.write_text(text)
+    before = _files(tmp_path)
+    rc, out, err = _main("port", ["-dir", str(d), "-config", str(conf),
+                                  "-c", "ec.encode -volumeId 5"])
+    assert rc == 1 and out == []
+    assert len(err) == 1 and err[0].startswith("error: ") and want in err[0]
+    assert _files(tmp_path) == before
+    assert pipe.current() == pipe.PipelineConfig()
+    assert not mesh_mod.current().enabled and not flight.armed()
+
+
+def test_lookahead_encode_survives_scribbled_buffers(tmp_path, monkeypatch,
+                                                     session_state):
+    """[mesh] 1 x 1 over the one CPU device with double_buffer: the cell
+    takes the pooled batch as it is, so the lookahead holds a pooled
+    buffer across two stages. A pool that overwrites every buffer handed
+    back must leave the shards equal to the sync path's."""
+    real = pipe.HostBufferPool.release
+
+    def scribble(self, buf):
+        buf[:] = 0xEE
+        real(self, buf)
+
+    seed = tmp_path / "seed"
+    (seed / "a").mkdir(parents=True)
+    _volume(6, 60, 3000, seed=2)(seed)
+    trees = {}
+    for name, extra in (("lookahead", "double_buffer = true\n"),
+                        ("sync", "overlapped = false\n")):
+        root = tmp_path / name
+        shutil.copytree(seed, root)
+        conf = tmp_path / f"{name}.toml"
+        conf.write_text("[pipeline]\nbatch_bytes = 1048576\n" + extra +
+                        "[mesh]\nenabled = true\ndp = 1\nsp = 1\n")
+        mesh_mod.reset_telemetry()
+        with monkeypatch.context() as m:
+            if name == "lookahead":
+                m.setattr(pipe.HostBufferPool, "release", scribble)
+            rc, out, err = _main("port", [
+                "-dir", str(root / "a"), "-config", str(conf), "-c",
+                "ec.encode -volumeId 6; pipeline.status"])
+        assert rc == 0, err
+        assert out[0] == "ec.encode volume 6: 14 shards, version 3"
+        assert "double_buffer=" + ("True" if name == "lookahead"
+                                   else "False") in out[1]
+        assert out[2].startswith("  mesh: axes=dp1xsp1 batches=11 ")
+        trees[name] = _files(root)
+    assert trees["lookahead"] == trees["sync"]
+
+
+def test_cli_config_subprocess(tmp_path):
+    """``python -m seaweedfs_tpu_torch shell -device cpu -config F``: the
+    command line of the acceptance criterion, in its own process."""
+    d = tmp_path / "a"
+    d.mkdir()
+    generate_synthetic_volume(d / "8", 8, n_needles=6, avg_size=400).close()
+    conf = tmp_path / "c.toml"
+    conf.write_text(CONFIG.format(dp=1, sp=1))
+    r = _cli("port", "-dir", str(d), "-device", "cpu", "-config", str(conf),
+             "-c", "ec.encode -volumeId 8; pipeline.status; "
+                   "pipeline.analyze")
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0] == "ec.encode volume 8: 14 shards, version 3"
+    assert "double_buffer=True" in lines[1]
+    assert lines[2].startswith("  mesh: axes=dp1xsp1 batches=11 ")
+    assert any(ln.startswith("pipeline.analyze: bottleneck: ")
+               for ln in lines)
+    assert (d / "8.ec13").exists()
+
+
+def test_mesh_flag_overrides_the_config_for_one_command(
+        tmp_path, monkeypatch, eight_cpu_devices, session_state):
+    """``[mesh]`` 2 x 4 from -config, ``-mesh 1,8`` on one command: that
+    command splits 1 x 8, the next one 2 x 4 again, and the config reads
+    back as the file set it."""
+    cells = []
+    real = mesh_mod.apply_prepared
+
+    def spy(coefs, prep):
+        cells.append((prep.mesh.shape["dp"], prep.mesh.shape["sp"]))
+        return real(coefs, prep)
+
+    monkeypatch.setattr(mesh_mod, "apply_prepared", spy)
+    d = tmp_path / "a"
+    d.mkdir()
+    for vid in (3, 4):
+        _volume(vid, 6, 400, seed=vid)(tmp_path)
+    conf = tmp_path / "c.toml"
+    conf.write_text("[pipeline]\nbatch_bytes = 4194304\n"
+                    "[mesh]\nenabled = true\ndp = 2\nsp = 4\n")
+    rc, out, err = _main("port", [
+        "-dir", str(d), "-config", str(conf), "-c",
+        "ec.encode -volumeId 3 -mesh 1,8; ec.encode -volumeId 4; "
+        "pipeline.status"])
+    assert rc == 0, err
+    split = len(cells) // 2
+    assert cells == [(1, 8)] * split + [(2, 4)] * split and split
+    assert out[2].startswith("pipeline.status ")
+    assert out[3].endswith("configured={'enabled': True, 'dp': 2, "
+                           "'sp': 4}")
