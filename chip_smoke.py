@@ -16,11 +16,13 @@ of which fails the run on any mismatch:
    the card, byte for byte, at the main path's shapes, for RS(10,4) parity
    rows and decode rows with shards 2, 7, 11 and 13 lost (at the 256 MiB
    encode slab, also config 3's slab, and the rebuild chunk), RS(6,3) and
-   RS(12,4) parity rows and a ragged S; then a sweep that launches every
+   RS(12,4) parity rows, a ragged S and the scrub's parity-proof chunk
+   ``(1, 10, 4 MiB)``; then a sweep that launches every
    instance the dispatch has (1-8 outputs of 10 inputs; 4, 6, 12 and 70
    inputs; 12 outputs; a ragged S), also against the numpy oracle; then
-   each kernel's time at the slab and the chunk beside its plain
-   version's and its memory bound, and its blocks per SM;
+   each kernel's time at the slab, the rebuild chunk and the scrub chunk
+   beside its plain version's and its memory bound, and its blocks per
+   SM;
 4. native: the host codec (``rs_native``, built with ``g++``) against
    ``rs_ref`` at 4 sizes, with its SIMD level;
 5. path: a seeded 1 GiB volume of real needles sealed with
@@ -76,7 +78,23 @@ of which fails the run on any mismatch:
    ``pipeline.analyze``), each a warm-up of each side then A, B, B, A
    with both medians and their ratio, launches checked on every encode
    and the files sha256-checked on one of each side;
-11. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+11. storage (the engine at rest, on config 1's volume): (a) a seeded
+   .idx of 1,000,000 needles with 10% deleted loaded by the memory,
+   native and sqlite needle maps (equal live entries and counters, the
+   native library built), with each load's seconds; (b) every third
+   needle deleted and ``volume.vacuum`` run through ``shell.cli.main``,
+   then ``vacuum_volume`` through ``Store(needle_map="native")`` and
+   ``Store(needle_map="sqlite")``: the .dat sha256-equal to the
+   superblock plus the live records, every live needle equal, the
+   deleted gone, compact_revision 1, all three runs' .dat and .idx
+   equal, GiB/s of live bytes copied; (c) a crash at
+   ``crash.vacuum.midcommit`` and a reload that installs the .cpx and
+   serves every acknowledged needle; (d) ``ec.encode`` of the compacted
+   volume, ``scrub_ec``'s baseline with one parity-proof launch per
+   4 MiB chunk, then one byte flipped in shards 3 and 12 and both
+   quarantined and rebuilt to their sealed sha256; (e) ``scrub_volume``
+   repairing one rotten needle from an intact copy, needles/s;
+12. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
    ``batch.encode_packed`` over the same with every parity span checked
    whole against ``rs_ref`` and the batch census printed, 200 volumes on the
@@ -125,8 +143,12 @@ from seaweedfs_tpu_torch.shell import cli
 from seaweedfs_tpu_torch.shell import commands as shell_commands
 from seaweedfs_tpu_torch.storage import ec_files, idx as idx_mod
 from seaweedfs_tpu_torch.storage import needle as needle_mod
+from seaweedfs_tpu_torch.storage import (needle_map_native,
+                                         needle_map_sqlite, scrubber,
+                                         superblock)
 from seaweedfs_tpu_torch.storage import store as store_mod
 from seaweedfs_tpu_torch.storage import volume as volume_mod
+from seaweedfs_tpu_torch.util import faults
 
 SEED = 20261016
 MIB = 1 << 20
@@ -207,6 +229,13 @@ def counts() -> dict:
 # kernel phase
 # --------------------------------------------------------------------------
 
+def scrub_case(parity) -> tuple:
+    """scrub_ec's parity proof: one (1, 10, 4 MiB) chunk of the data
+    shards to the 4 parity shards (the storage phase's shape)."""
+    return ("scrub parity-proof chunk", parity,
+            (1, DEFAULT_SCHEME.data_shards, scrubber.EC_CHUNK_BYTES))
+
+
 def kernel_phase(dev: torch.device) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -228,6 +257,7 @@ def kernel_phase(dev: torch.device) -> dict:
              k, MIB, pipe.current().batch_bytes), k, MIB))
         for k, m, _ in CONFIG4] + [
         ("RS(10,4) parity, ragged S", parity, (3, 10, MIB + 1000 + 3)),
+        scrub_case(parity),
     ]
     # the sweep: every output-count instance, other input counts, a table
     # that fits only 7 outputs per launch (70 inputs), and more outputs
@@ -268,7 +298,7 @@ def kernel_phase(dev: torch.device) -> dict:
     # time both kernels and their plain versions at the encode slab and
     # at the rebuild chunk; occupancy of the instances those shapes use
     timings = {}
-    for what, coefs, shape in main_shapes:
+    for what, coefs, shape in main_shapes + [scrub_case(parity)]:
         inputs = [rand(shape) for _ in range(4)]
         moved = (coefs.shape[0] + coefs.shape[1]) * shape[0] * shape[2]
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -643,9 +673,11 @@ def _timed_commands(log: list):
             setattr(mod, fn, orig)
 
 
-def shell_main(args: list, log: list, launches: dict, what: str) -> list:
+def shell_main(args: list, log: list, launches: dict, what: str,
+               expect=None) -> list:
     """``shell.cli.main`` in this process with every launch count set to
-    0 just before it; returns its printed lines."""
+    0 just before it; ``expect`` says which kernels it must launch (by
+    default the transpose kernel only); returns its printed lines."""
     out = io.StringIO()
 
     def run():
@@ -653,7 +685,8 @@ def shell_main(args: list, log: list, launches: dict, what: str) -> list:
             return cli.main(args)
 
     with _timed_commands(log):
-        rc, _ = drive(what, run, {"transpose": True, "swar": False},
+        rc, _ = drive(what, run,
+                      expect or {"transpose": True, "swar": False},
                       launches)
     lines = out.getvalue().splitlines()
     for line in lines:
@@ -1254,6 +1287,332 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
 
 
 # --------------------------------------------------------------------------
+# storage: the engine at rest (needle maps, vacuum, crash, scrub)
+# --------------------------------------------------------------------------
+
+#: (a): a seeded .idx of a volume of a million ~30 KiB files, about 10%
+#: of them deleted (one tombstone appended per deleted key).
+MAP_NEEDLES = 1_000_000
+MAP_NEEDLE_BYTES = 30 * 1024
+MAP_DELETED = 0.1
+#: (d): the bytes one parity-proof product covers per shard.
+SCRUB_CHUNK = scrubber.EC_CHUNK_BYTES
+
+
+def _map_counters(nm) -> tuple:
+    return (len(nm), nm.file_count, nm.deleted_count, nm.deleted_bytes,
+            nm.max_key, nm.max_offset_units)
+
+
+def _write_map_idx(path: str) -> int:
+    """MAP_NEEDLES entries at 8-byte aligned offsets of ~30 KiB records,
+    then a tombstone for MAP_DELETED of the keys; returns the entries."""
+    rng = np.random.default_rng(SEED + 8)
+    n = MAP_NEEDLES
+    sizes = rng.integers(MAP_NEEDLE_BYTES // 2, MAP_NEEDLE_BYTES * 3 // 2,
+                         n, dtype=np.uint64)
+    recs = -(-(sizes + 16 + 4 + 4 + 8 + 8) // 8) * 8   # padded records
+    offsets = 8 + np.concatenate([[0], np.cumsum(recs[:-1])])
+    dead = np.sort(rng.choice(n, int(n * MAP_DELETED), replace=False))
+    rows = np.zeros(n + len(dead), dtype=[("key", ">u8"), ("off", ">u4"),
+                                          ("size", ">u4")])
+    rows["key"][:n] = np.arange(1, n + 1)
+    rows["off"][:n] = offsets // 8
+    rows["size"][:n] = sizes
+    rows["key"][n:] = dead + 1
+    rows["size"][n:] = 0xFFFFFFFF
+    rows.tofile(path)
+    return len(rows)
+
+
+def _live_records(base: str, version: int = 3) -> list:
+    """(key, byte offset, record bytes) of the live needles of a closed
+    volume, in .dat order: what a compaction copies."""
+    nm = idx_mod.CompactMap.load_from_idx(base + ".idx")
+    return sorted(((e.key, e.byte_offset,
+                    needle_mod.record_size(e.size, version))
+                   for e in nm.live_entries()), key=lambda r: r[1])
+
+
+def _record_digests(vol, keys) -> dict:
+    """sha256 of each needle's record (header, data, CRC, timestamp) as
+    the volume's read path serves it: equal records carry equal data,
+    without the numpy CRC32-C pass a Needle.parse would add."""
+    return {k: hashlib.sha256(vol.read_record(k)[0]).hexdigest()
+            for k in keys}
+
+
+def _flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def storage_phase(dev, workdir: str, pres: dict, label: str,
+                  launches: dict) -> dict:
+    """The storage engine at rest on config 1's volume: (a) a million-
+    entry .idx through the memory, native and sqlite needle maps; (b)
+    every third needle deleted and the volume compacted through the
+    shell's ``volume.vacuum`` (memory map), then through
+    ``Store(needle_map="native")`` and ``Store(needle_map="sqlite")``;
+    (c) a crash at ``crash.vacuum.midcommit`` and the reload; (d)
+    ``ec.encode`` of the compacted volume, ``scrub_ec``'s baseline (one
+    parity-proof launch per 4 MiB chunk) and its repair of two rotten
+    shards; (e) ``scrub_volume`` repairing one rotten needle from an
+    intact copy."""
+    t_phase = time.perf_counter()
+    os.makedirs(workdir)
+    result = {}
+    vid = 1
+
+    # (a) the three needle maps on one .idx
+    idx_path = os.path.join(workdir, "map.idx")
+    n_entries = _write_map_idx(idx_path)
+    maps, secs = {}, {}
+    for kind, load in (
+            ("memory", lambda: idx_mod.CompactMap.load_from_idx(idx_path)),
+            ("native", lambda: needle_map_native.NativeNeedleMap
+             .load_from_idx(idx_path)),
+            ("sqlite", lambda: needle_map_sqlite.SqliteNeedleMap
+             .load_from_idx(os.path.join(workdir, "map.sdx"), idx_path))):
+        t0 = time.perf_counter()
+        maps[kind] = load()
+        secs[kind] = time.perf_counter() - t0
+    check(needle_map_native.available()
+          and isinstance(maps["native"], needle_map_native.NativeNeedleMap),
+          "the native needle map built with g++ (no fallback)")
+    ref = _map_counters(maps["memory"])
+    live = [(e.key, e.offset_units, e.size)
+            for e in maps["memory"].live_entries()]
+    for kind in ("native", "sqlite"):
+        check(_map_counters(maps[kind]) == ref
+              and [(e.key, e.offset_units, e.size)
+                   for e in maps[kind].live_entries()] == live,
+              f"{kind} map: live_entries and counters equal to the memory "
+              f"map's ({ref[0]} live of {n_entries} .idx entries)")
+    for m in maps.values():
+        if hasattr(m, "close"):
+            m.close()
+    say(f"  needle maps, seconds to load {n_entries} .idx entries: "
+        f"{json.dumps(secs)} on {label}")
+    result["map_load_s"] = secs
+    del maps, live
+
+    # (b) every third needle deleted, then compacted three ways
+    src = pres["base"]
+    keys = [e.key for e in pres["idx_entries"]]
+    deleted = set(keys[2::3])
+    with volume_mod.Volume(src, vid).load() as v:
+        want = _record_digests(v, [k for k in keys if k not in deleted])
+    records = [r for r in _live_records(src) if r[0] not in deleted]
+    live_bytes = sum(r[2] for r in records)
+    new_sb = superblock.SuperBlock(compact_revision=1)
+
+    def expected_dat_sha() -> str:
+        """sha256 of the superblock (compact revision 1) and the live
+        records, each 8-byte aligned, read from the original .dat."""
+        h = hashlib.sha256(new_sb.to_bytes())
+        pos = len(new_sb.to_bytes())
+        with open(src + ".dat", "rb") as f:
+            for _key, off, size in records:
+                pad = (-pos) % 8
+                h.update(b"\0" * pad)
+                f.seek(off)
+                h.update(f.read(size))
+                pos += pad + size
+        return h.hexdigest()
+
+    want_dat = expected_dat_sha()
+
+    def copy_volume(name: str) -> str:
+        """The path phase's volume under ``name``: the .dat hard-linked
+        (nothing below writes it in place: deletes append to the .idx
+        and a compaction renames a new file over it), the .idx copied,
+        every third needle deleted through a Store."""
+        d = os.path.join(workdir, name)
+        os.makedirs(d)
+        os.link(src + ".dat", os.path.join(d, f"{vid}.dat"))
+        shutil.copyfile(src + ".idx", os.path.join(d, f"{vid}.idx"))
+        st = store_mod.Store([d])
+        try:
+            st.load_existing()
+            done = sum(st.delete_needle(vid, k) for k in sorted(deleted))
+        finally:
+            st.close()
+        if done != len(deleted):
+            raise SmokeError(f"{name}: {done} of {len(deleted)} deletes")
+        return d
+
+    def check_compacted(d: str, what: str) -> dict:
+        base = os.path.join(d, str(vid))
+        digests = {ext: sha256_file(base + ext) for ext in (".dat", ".idx")}
+        with volume_mod.Volume(base, vid).load() as v:
+            check(v.super_block.compact_revision == 1
+                  and isinstance(v.nm, idx_mod.CompactMap),
+                  f"{what}: compact_revision 0 -> 1")
+            got = _record_digests(v, sorted(want))
+            gone = [k for k in deleted if v.nm.get(k) is not None]
+        check(digests[".dat"] == want_dat,
+              f"{what}: .dat sha256-equal to the superblock plus the "
+              f"{len(records)} live records")
+        check(got == want and not gone,
+              f"{what}: every live needle's record sha256-equal to the "
+              f"original, all {len(deleted)} deleted needles gone")
+        return digests
+
+    # through the shell: the memory map
+    d_mem = copy_volume("vacuum_memory")
+    t0 = time.perf_counter()
+    lines = shell_main(["-dir", d_mem, "-c", f"volume.vacuum -volumeId {vid}"],
+                       [], launches, "shell volume.vacuum (memory map)",
+                       expect={"transpose": False, "swar": False})
+    wall = time.perf_counter() - t0
+    check(len(lines) == 1 and "reclaimed" in lines[0],
+          "shell volume.vacuum: one 'reclaimed' line")
+    rates = {"shell volume.vacuum (memory)": live_bytes / GIB / wall}
+    mem_digests = check_compacted(d_mem, "shell volume.vacuum")
+    dirs = {"memory": d_mem}
+    for kind, nm_type in (("native", needle_map_native.NativeNeedleMap),
+                          ("sqlite", needle_map_sqlite.SqliteNeedleMap)):
+        d = copy_volume(f"vacuum_{kind}")
+        st = store_mod.Store([d], needle_map=kind)
+        try:
+            st.load_existing()
+            vol = st.get_volume(vid)
+            check(isinstance(vol.nm, nm_type),
+                  f"Store(needle_map={kind!r}) loads a {nm_type.__name__}")
+            _, wall = drive(f"Store(needle_map={kind!r}).vacuum_volume",
+                            lambda: st.vacuum_volume(vid),
+                            {"transpose": False, "swar": False}, launches)
+            check(isinstance(vol.nm, nm_type),
+                  f"{kind}: the reloaded map is a {nm_type.__name__}")
+        finally:
+            st.close()
+        rates[f"Store vacuum_volume ({kind})"] = live_bytes / GIB / wall
+        check(check_compacted(d, f"{kind} vacuum") == mem_digests,
+              f"{kind} vacuum: .dat and .idx sha256-equal to the memory "
+              f"map's run")
+        dirs[kind] = d
+    say(f"  vacuum, GiB/s of live needles copied ({live_bytes} bytes of "
+        f"{len(records)} needles): {json.dumps(rates)} on {label}")
+    result["vacuum_gibps"] = rates
+
+    # (c) a crash between the commit's two renames, then the reload
+    d = copy_volume("vacuum_crash")
+    base = os.path.join(d, str(vid))
+
+    class Crash(BaseException):
+        pass
+
+    def crash(point):
+        raise Crash(point)
+
+    st = store_mod.Store([d])
+    st.load_existing()
+    faults.set_crash_handler(crash)
+    faults.inject("crash.vacuum.midcommit", "crash#1")
+    try:
+        try:
+            st.vacuum_volume(vid)
+        except Crash:
+            pass
+        else:
+            raise SmokeError("crash.vacuum.midcommit did not fire")
+    finally:
+        faults.clear()
+        faults.set_crash_handler(None)
+        st.close()
+    check(not os.path.exists(base + ".cpd") and os.path.exists(base + ".cpx"),
+          "crash at crash.vacuum.midcommit: the compacted .dat is live, "
+          "its .cpx kept by cleanup (abort_compact)")
+    st = store_mod.Store([d])
+    try:
+        st.load_existing()
+        vol = st.get_volume(vid)
+        got = _record_digests(vol, sorted(want))
+        gone = [k for k in deleted if vol.nm.get(k) is not None]
+    finally:
+        st.close()
+    check(not os.path.exists(base + ".cpx") and got == want and not gone,
+          f"reload after the crash: the .cpx installed, all {len(want)} "
+          f"acknowledged live needles served, deleted ones gone")
+    shutil.rmtree(d)
+
+    # (d) seal the compacted volume, scrub its shards on the card
+    d = dirs["memory"]
+    base = os.path.join(d, str(vid))
+    scheme = DEFAULT_SCHEME
+    shell_main(["-dir", d, "-c", f"ec.encode -volumeId {vid}"], [],
+               launches, "shell ec.encode (the compacted volume)")
+    shard_len = os.path.getsize(ec_files.shard_path(base, 0))
+    sealed_shards = {i: sha256_file(ec_files.shard_path(base, i))
+                     for i in range(scheme.total_shards)}
+    scrubbed = scheme.total_shards * shard_len
+    proof_launches = -(-shard_len // SCRUB_CHUNK)
+    res, wall = drive("scrub_ec (baseline)",
+                      lambda: scrubber.scrub_ec(base, scheme, device=dev),
+                      {"transpose": True, "swar": False}, launches)
+    got = counts()
+    check(res["baseline"] and res["corrupt"] == 0
+          and got["transpose"] == proof_launches,
+          f"scrub_ec baseline: parity proven with {got['transpose']} "
+          f"launches = ceil({shard_len} / {SCRUB_CHUNK})")
+    result["scrub_ec_baseline"] = {"gibps": scrubbed / GIB / wall,
+                                   "wall_s": wall, "launches": got}
+    for sid in (3, 12):
+        _flip_byte(str(ec_files.shard_path(base, sid)), shard_len // 2 + sid)
+    res, wall = drive("scrub_ec (two rotten shards)",
+                      lambda: scrubber.scrub_ec(base, scheme, device=dev),
+                      {"transpose": True, "swar": False}, launches)
+    check(res["corrupt"] == 2 and len(res["quarantined"]) == 2
+          and res["repaired"] == 2 and res["repair_failed"] == 0,
+          f"scrub_ec: shards 3 and 12 corrupt 2, quarantined "
+          f"{len(res['quarantined'])}, repaired {res['repaired']}")
+    check(all(sha256_file(ec_files.shard_path(base, i)) == sealed_shards[i]
+              for i in range(scheme.total_shards)),
+          "rebuilt shards 3 and 12 sha256-equal to the sealed ones")
+    result["scrub_ec_repair"] = {"gibps": scrubbed / GIB / wall,
+                                 "wall_s": wall, "launches": counts()}
+    say(f"  scrub_ec, GiB/s of the 14 x {shard_len} shard bytes: "
+        f"{json.dumps({k: result[k] for k in ('scrub_ec_baseline', 'scrub_ec_repair')})}"
+        f" on {label}")
+
+    # (e) one rotten needle in the native run's copy, repaired from the
+    # sqlite run's (the two are sha256-equal)
+    rotten = os.path.join(dirs["native"], str(vid))
+    intact = volume_mod.Volume(os.path.join(dirs["sqlite"], str(vid)),
+                               vid).load()
+    vol = volume_mod.Volume(rotten, vid).load()
+    try:
+        victim = sorted(want)[len(want) // 2]
+        _rec, off = vol.read_record(victim)
+        _flip_byte(rotten + ".dat", off + 30)
+        t0 = time.perf_counter()
+        res = scrubber.scrub_volume(
+            vol, fetch_record=lambda key: intact.read_record(key)[0])
+        wall = time.perf_counter() - t0
+        check(res["checked"] == len(want) and res["corrupt"] == 1
+              and res["repaired"] == 1,
+              f"scrub_volume: checked {res['checked']} of {len(want)}, "
+              f"corrupt {res['corrupt']}, repaired {res['repaired']}")
+        vol.read_needle(victim)            # parses: its CRC holds again
+        check(_record_digests(vol, [victim])[victim] == want[victim],
+              f"needle {victim} reads back equal")
+    finally:
+        vol.close()
+        intact.close()
+    result["scrub_volume"] = {"needles_per_s": res["checked"] / wall,
+                              "wall_s": wall}
+    say(f"  scrub_volume: {res['checked'] / wall:.1f} needles/s "
+        f"({res['bytes'] / MIB / wall:.1f} MiB/s) on {label}")
+    shutil.rmtree(workdir)
+    say(f"  storage phase: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
 # config 3: the many-volume coalescing batcher
 # --------------------------------------------------------------------------
 
@@ -1480,6 +1839,9 @@ def main() -> int:
         say("phase config (the shell's -config):")
         config_phase(dev, os.path.join(workdir, "config"), pres, label,
                      launches)
+        say("phase storage (needle maps, vacuum, crash, scrub):")
+        storage_phase(dev, os.path.join(workdir, "storage"), pres, label,
+                      launches)
         say("phase config 3 (1000 x 30 MiB volumes, coalesced):")
         config3_phase(dev, label, launches)
         say("phase config 3, file level:")

@@ -242,9 +242,10 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
                                   _shard_rows(batch[:, s], row_ok,
                                               pooled=True), token)
                     done += 1
-            except writeback.WriterError:
-                # fire the unreached counts (or release the copy
-                # path's buffer) so the reader can drain out
+            except BaseException:
+                # a failed writer or a crash point's simulated crash:
+                # fire the unreached counts (or release the copy path's
+                # buffer) so the reader can drain out
                 if token is None:
                     pool.release(meta.buf)
                 for _ in range(k - done):

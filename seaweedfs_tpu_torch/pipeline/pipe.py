@@ -513,7 +513,10 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
                 st.batches += 1
                 st.bytes_in += _batch_nbytes(batch)
                 st.bytes_out += result_np.nbytes
-            except Exception as e:  # noqa: BLE001 — re-raised by the caller
+            except BaseException as e:  # noqa: BLE001 — re-raised by the caller
+                # BaseException: a crash point's simulated crash too, as
+                # in the JAX writer; a dead writer thread would let the
+                # run end as if every write had landed
                 errors.append(e)
                 stop.set()
                 recycle_quietly(meta, batch)

@@ -1,9 +1,10 @@
 """Writeback overlap: positioned shard writes on a small thread pool.
 
 The port of seaweedfs_tpu/pipeline/writeback.py, with its flight-recorder
-events (a queued write, a retired one) and without its fault injection,
-race-checker and buffer-checker hooks. Pool width, queue depth and
-preallocation come from ``[pipeline]`` (pipe.current()).
+events (a queued write, a retired one) and its crash point
+(``crash.ec.writeback``), and without its race-checker and
+buffer-checker hooks. Pool width, queue depth and preallocation come
+from ``[pipeline]`` (pipe.current()).
 
 Shard writes run off the pipeline's critical path: shard files are
 preallocated to their final size up front, every row lands at a
@@ -31,6 +32,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from ..util import faults
 from . import flight
 
 
@@ -159,6 +161,10 @@ class WriterPool:
         failed."""
         if self._errors:
             self._raise()
+        # crash point on the submitting thread: a crash here models
+        # losing the process with shard slices already queued or
+        # retired but the encode not yet acknowledged
+        faults.check("crash.ec.writeback")
         fd = self._fds.get(path)
         if fd is None:
             raise WriterError(f"writeback: {path!r} not opened")

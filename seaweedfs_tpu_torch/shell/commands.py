@@ -14,6 +14,10 @@ semantics stay the reference's:
     ec.balance                               spread shards over locations
     volume.list                              registry snapshot
     volume.delete -volumeId 3                drop a volume's files
+    volume.vacuum [-volumeId 3]              compact away deleted needles
+    fault.inject -point P -spec S            arm a fault point
+    fault.list                               armed faults + the catalog
+    fault.clear [-point P]                   disarm one point, or all
     pipeline.status                          config + recent runs
     pipeline.dump -trace F                   flight recorder -> trace
     pipeline.analyze [-all]                  bottleneck verdict
@@ -24,7 +28,9 @@ devices of the env's device type (parallel/mesh.py), over whatever the
 shell's ``-config`` set in ``[mesh]``. The ``pipeline.*`` commands read
 back what ``[pipeline]``, ``[mesh]`` and ``[flight]`` set and what the
 session's runs recorded. Not ported yet: the trace root around each
-command, and the other command families (ROADMAP Queue 1).
+command, ``fault.clear -breakers`` (the port's retry layer has no
+circuit breakers until the cluster slice: the flag is refused with one
+error), and the other command families (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ..pipeline.scheme import DEFAULT_SCHEME, EcScheme
 from ..storage import ec_files
 from ..storage.store import Store, StoreError, volume_base_name
 from ..storage.volume import Volume
+from ..util import faults
 
 
 class ShellError(RuntimeError):
@@ -329,6 +336,85 @@ def cmd_volume_delete(env: CommandEnv, argv: list[str]) -> None:
     args = p.parse_args(argv)
     env.store.delete_volume(args.volumeId, args.collection)
     env.println(f"volume.delete {args.volumeId}: done")
+
+
+@command("volume.vacuum")
+def cmd_volume_vacuum(env: CommandEnv, argv: list[str]) -> None:
+    """Compact away deleted needles (volume_vacuum.go Compact +
+    CommitCompact), reclaiming the space delete tombstones only mark."""
+    p = _parser("volume.vacuum")
+    p.add_argument("-volumeId", type=int, default=0,
+                   help="one volume (default: all above threshold)")
+    p.add_argument("-collection", default="")
+    p.add_argument("-garbageThreshold", type=float, default=0.3)
+    args = p.parse_args(argv)
+    targets = [(args.collection, args.volumeId)] if args.volumeId else \
+        sorted(k for k in env.store.volumes
+               if not args.collection or k[0] == args.collection)
+    for col, vid in targets:
+        ratio = env.store.garbage_ratio(vid, col)
+        threshold = 0.0 if args.volumeId else args.garbageThreshold
+        new_size = env.store.vacuum_volume(vid, col, threshold)
+        if new_size is None:
+            env.println(f"volume.vacuum {vid}: garbage {ratio:.1%} "
+                        f"below threshold, skipped")
+        else:
+            env.println(f"volume.vacuum {vid}: garbage {ratio:.1%} "
+                        f"reclaimed, now {new_size} bytes")
+
+
+@command("fault.inject")
+def cmd_fault_inject(env: CommandEnv, argv: list[str]) -> None:
+    """Arm a fault at a named point:
+    fault.inject -point ec.shard_read -spec error@0.5#10"""
+    p = _parser("fault.inject")
+    p.add_argument("-point", required=True,
+                   help="fault point name (see fault.list)")
+    p.add_argument("-spec", required=True,
+                   help="action[@probability][:param][#count]")
+    p.add_argument("-seed", type=int, default=None,
+                   help="override the deterministic replay seed")
+    args = p.parse_args(argv)
+    try:
+        fs = faults.inject(args.point, args.spec, seed=args.seed)
+    except faults.FaultSpecError as e:
+        raise ShellError(f"fault.inject: {e}") from None
+    env.println(f"fault.inject: armed {fs.point}={fs.spec}")
+
+
+@command("fault.list")
+def cmd_fault_list(env: CommandEnv, argv: list[str]) -> None:
+    """Armed fault specs (with hit counts) and the point catalog."""
+    p = _parser("fault.list")
+    p.parse_args(argv)
+    payload = faults.debug_payload()
+    env.println(f"fault.list: enabled={payload['enabled']} "
+                f"seed={payload['seed']} "
+                f"armed={len(payload['specs'])}")
+    for s in payload["specs"]:
+        left = "unbounded" if s["remaining"] < 0 else s["remaining"]
+        env.println(f"  {s['point']}={s['spec']} hits={s['hits']} "
+                    f"remaining={left}")
+    env.println("  points: " + ", ".join(faults.CATALOG))
+
+
+@command("fault.clear")
+def cmd_fault_clear(env: CommandEnv, argv: list[str]) -> None:
+    """Disarm one fault point (or all)."""
+    p = _parser("fault.clear")
+    p.add_argument("-point", default="",
+                   help="one point to disarm (default: all)")
+    p.add_argument("-breakers", action="store_true",
+                   help="also reset all circuit breakers (not ported)")
+    args = p.parse_args(argv)
+    if args.breakers:
+        # refused before anything is disarmed
+        raise ShellError(
+            "fault.clear: -breakers is not ported yet: the circuit "
+            "breakers come with the cluster slice")
+    faults.clear(args.point or None)
+    env.println("fault.clear: "
+                + (args.point or "all points") + " disarmed")
 
 
 @command("pipeline.status")

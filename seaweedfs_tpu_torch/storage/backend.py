@@ -1,10 +1,10 @@
 """The volume engine's .dat file (weed/storage/backend analog).
 
 The port's copy of the local-disk part of
-``seaweedfs_tpu/storage/backend.py``. Not ported yet: the ``mmap`` read
-path (with the volume server's ``[storage]`` section, ROADMAP Queue 1
-item 3) and the S3 cold tier (item 5), with the backend registry that
-selects them.
+``seaweedfs_tpu/storage/backend.py``. Not ported yet (ROADMAP Queue 1):
+the ``mmap`` read path and the backend registry that selects it, which
+come with the volume server's ``-backend`` flag and ``[storage]``
+section that set them, and the S3 cold tier.
 
 Concurrency contract: ``read_at`` may be called from many threads
 concurrently with one appender (it uses positionless pread); mutations

@@ -5,9 +5,9 @@ disk_location.go + store_ec.go): a Store owns one or more directories
 ("disk locations"), each holding normal volumes (<base>.dat/.idx) and
 mounted EC shards (<base>.ec??/.ecx). The offline admin shell drives
 every operation through this object; ``status()`` is the snapshot a
-heartbeat would carry. Not ported yet (ROADMAP Queue 1 item 5): the S3
-tier moves (``tier_move`` / ``tier_restore``) and compaction
-(``garbage_ratio`` / ``vacuum_volume``).
+heartbeat would carry; ``garbage_ratio`` / ``vacuum_volume`` compact a
+volume (storage/vacuum.py). Not ported yet (ROADMAP Queue 1): the S3
+tier moves (``tier_move`` / ``tier_restore``).
 
 Volume base naming follows the reference: ``<vid>`` or
 ``<collection>_<vid>`` inside the location directory.
@@ -118,8 +118,8 @@ class Store:
         if not locations:
             raise StoreError("a store needs at least one disk location")
         self.locations = [DiskLocation(d, max_volumes) for d in locations]
-        #: needle map kind applied to every volume (only "memory" is
-        #: ported).
+        #: needle map kind ("memory" | "native" | "sqlite") applied to
+        #: every volume.
         self.needle_map = needle_map
         self.volumes: dict[tuple[str, int], Volume] = {}
         self.ec_mounts: dict[tuple[str, int], EcVolumeMount] = {}
@@ -265,13 +265,29 @@ class Store:
         with self._lock:
             self.volumes.pop((collection, volume_id), None)
             self.readonly.discard((collection, volume_id))
-        # .sdx goes too: a leftover sqlite map (the JAX package's) would
-        # resurrect phantom index entries if the volume id is ever
-        # re-allocated.
+        # .sdx goes too: a leftover sqlite map would resurrect phantom
+        # index entries if the volume id is ever re-allocated.
         for p in (dat_path(vol.base), idx_path(vol.base),
                   Path(str(vol.base) + ".sdx")):
             if p.exists():
                 p.unlink()
+
+    # -- vacuum -----------------------------------------------------------
+
+    def garbage_ratio(self, volume_id: int, collection: str = ""
+                      ) -> float:
+        from . import vacuum as vacuum_mod
+        return vacuum_mod.garbage_ratio(
+            self.get_volume(volume_id, collection))
+
+    def vacuum_volume(self, volume_id: int, collection: str = "",
+                      threshold: float = 0.0):
+        """Compact away deleted needles when garbage exceeds
+        ``threshold`` (volume_vacuum.go Compact + CommitCompact).
+        Returns the new .dat size, or None when below threshold."""
+        from . import vacuum as vacuum_mod
+        return vacuum_mod.vacuum(self.get_volume(volume_id, collection),
+                                 threshold)
 
     # -- data plane -------------------------------------------------------
 

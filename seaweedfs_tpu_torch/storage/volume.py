@@ -8,10 +8,16 @@ offset, size) per write plus tombstones per delete. Loading replays the
 .idx into a CompactMap; reads seek straight to the needle (the Haystack
 O(1)-seek property).
 
-The needle map is the in-RAM ``memory`` map only: the ``native`` and
-``sqlite`` maps, the S3 cold tier and compaction (vacuum) are not ported
-yet (ROADMAP Queue 1 item 5), and asking for any of them raises rather
-than falling back to something else.
+The ``.dat`` is a local file (storage/backend.py ``DiskFile``) and the
+index goes through a named needle map: ``memory`` (CompactMap),
+``native`` (the C++ table, which falls back to ``memory`` with one
+warning where ``g++`` is missing, as in the JAX package) or ``sqlite``
+(a ``<base>.sdx`` beside the volume). Compaction lives in
+storage/vacuum.py and swaps the files under the same reader drain that
+``close`` uses. Not ported yet (ROADMAP Queue 1): the ``mmap`` backend
+with its ``backend=`` choice, which comes with the volume server that
+sets it, and the S3 cold tier (a volume with a ``.tier`` sidecar does
+not load).
 
 Also hosts the synthetic volume writers used by tests and
 ``chip_smoke.py`` (the reference's ec_test.go builds its fixture volume
@@ -20,6 +26,7 @@ the same way).
 
 from __future__ import annotations
 
+import logging
 import os
 import struct
 import threading
@@ -36,8 +43,13 @@ from .superblock import ReplicaPlacement, SuperBlock
 from .types import (NEEDLE_MAP_ENTRY_SIZE, NEEDLE_PADDING_SIZE,
                     TOMBSTONE_FILE_SIZE, to_offset_units)
 
-#: The only needle map kind the port has.
-NEEDLE_MAPS = ("memory",)
+#: The needle map kinds (``Volume(needle_map=)``, ``Store(needle_map=)``).
+NEEDLE_MAPS = ("memory", "native", "sqlite")
+
+_log = logging.getLogger(__name__)
+#: Set once the native map's fallback has been reported: the warning is
+#: printed once per process, not once per volume.
+_native_fallback_warned = False
 
 
 class VolumeError(RuntimeError):
@@ -63,15 +75,16 @@ class Volume:
     (``<dir>/<collection_>?<vid>`` without extension).
 
     The .dat is a local file (storage/backend.py ``DiskFile``);
-    ``needle_map`` must be "memory" (CompactMap)."""
+    ``needle_map`` selects the index implementation
+    (:data:`NEEDLE_MAPS`)."""
 
     def __init__(self, base: str | Path, volume_id: int = 0,
                  super_block: Optional[SuperBlock] = None,
                  needle_map: str = "memory"):
         if needle_map not in NEEDLE_MAPS:
             raise VolumeError(
-                f"needle map {needle_map!r} is not ported yet (ROADMAP "
-                f"Queue 1 item 5); have {', '.join(NEEDLE_MAPS)}")
+                f"unknown needle map kind {needle_map!r}; have "
+                f"{', '.join(NEEDLE_MAPS)}")
         self.base = Path(base)
         self.volume_id = volume_id
         self.super_block = super_block or SuperBlock()
@@ -79,18 +92,21 @@ class Volume:
         self.nm = CompactMap()
         self._dat: Optional[DiskFile] = None
         self._idx = None
+        #: Guard: at most one compaction in flight (storage/vacuum.py).
+        self.vacuum_in_progress = False
         # Appends mutate shared file-handle state; reads use os.pread on
         # the raw fd, so only writers serialize. Readers register under
         # the lock (consistent needle-map + fd snapshot) and pread
-        # outside it; close() drains them via _no_readers before closing
-        # the fd, so a read never hits a closed (or kernel-reused)
-        # descriptor.
+        # outside it; close() and vacuum's commit_compact drain them via
+        # _no_readers before closing or swapping the fd, so a read never
+        # hits a closed (or kernel-reused) descriptor, nor pre-compact
+        # offsets on the compacted file.
         self._lock = threading.RLock()
         self._readers = 0
-        #: True while close() drains readers (the JAX engine's fd-swap
-        #: drain); new readers block on _no_readers until it clears, so
-        #: a stream of overlapping reads cannot starve it.
-        self._closing = False
+        #: True while close() or commit_compact drains readers; new
+        #: readers block on _no_readers until it clears, so a stream of
+        #: overlapping reads cannot starve the drain.
+        self._swap_pending = False
         self._no_readers = threading.Condition(self._lock)
 
     # -- lifecycle --------------------------------------------------------
@@ -105,8 +121,45 @@ class Volume:
         self._dat = DiskFile(dat_path(self.base), create=True)
         self._dat.append(self.super_block.to_bytes())
         self._idx = open(idx_path(self.base), "w+b")
-        self.nm = CompactMap()
+        self.nm = self._new_needle_map()
         return self
+
+    def _use_native_map(self) -> bool:
+        """native kind requested AND the C library builds here; else
+        warn once and fall back to the memory map."""
+        global _native_fallback_warned
+        from . import needle_map_native
+        if needle_map_native.available():
+            return True
+        if not _native_fallback_warned:
+            _native_fallback_warned = True
+            _log.warning("native needle map unavailable (no g++?); "
+                         "volume %s falls back to the memory map",
+                         self.volume_id)
+        return False
+
+    def _new_needle_map(self):
+        if self.needle_map_kind == "native" and self._use_native_map():
+            from .needle_map_native import NativeNeedleMap
+            return NativeNeedleMap()
+        if self.needle_map_kind == "sqlite":
+            from .needle_map_sqlite import SqliteNeedleMap
+            return SqliteNeedleMap(
+                str(self.base) + ".sdx",
+                generation=self.super_block.compact_revision)
+        return CompactMap()
+
+    def _load_needle_map(self):
+        ip = idx_path(self.base)
+        if self.needle_map_kind == "native" and self._use_native_map():
+            from .needle_map_native import NativeNeedleMap
+            return NativeNeedleMap.load_from_idx(ip)
+        if self.needle_map_kind == "sqlite":
+            from .needle_map_sqlite import SqliteNeedleMap
+            return SqliteNeedleMap.load_from_idx(
+                str(self.base) + ".sdx", ip,
+                generation=self.super_block.compact_revision)
+        return CompactMap.load_from_idx(ip)
 
     def load(self) -> "Volume":
         p = dat_path(self.base)
@@ -114,8 +167,8 @@ class Volume:
             raise VolumeError(
                 f"volume {self.base} has a tier sidecar "
                 f"{tier_path(self.base).name}: the S3 tier is not ported "
-                f"yet (ROADMAP Queue 1 item 5), and a local .dat would be "
-                f"a cache of the tiered copy")
+                f"yet (ROADMAP Queue 1), and a local .dat would be a cache "
+                f"of the tiered copy")
         if not p.exists():
             raise VolumeError(f"{p} does not exist")
         # Compaction crash recovery. States (commit renames .cpd over
@@ -149,12 +202,12 @@ class Volume:
             self._dat = DiskFile(p)
         ip = idx_path(self.base)
         self._idx = open(ip, "a+b") if ip.exists() else open(ip, "w+b")
-        self.nm = CompactMap.load_from_idx(ip)
+        self.nm = self._load_needle_map()
         return self
 
     def close(self) -> None:
         with self._lock:
-            self._closing = True
+            self._swap_pending = True
             try:
                 while self._readers:
                     self._no_readers.wait()
@@ -162,8 +215,15 @@ class Volume:
                     if f is not None:
                         f.close()
                 self._dat = self._idx = None
+                # once, and whether or not the .dat was still open (a
+                # torn vacuum commit drops the files but not the map):
+                # the sqlite map checkpoints on close and refuses a
+                # second one
+                if self.nm is not None and hasattr(self.nm, "close"):
+                    self.nm.close()
+                self.nm = None
             finally:
-                self._closing = False
+                self._swap_pending = False
                 self._no_readers.notify_all()
 
     def __enter__(self):
@@ -209,13 +269,13 @@ class Volume:
         """The raw record of a live needle and its byte offset, read
         outside the lock by a registered reader."""
         with self._lock:
-            while self._closing:
+            while self._swap_pending:
                 self._no_readers.wait()
+            if self._dat is None:
+                raise VolumeError("volume not open")
             entry = self.nm.get(key)
             if entry is None:
                 raise KeyError(f"needle {key} not found")
-            if self._dat is None:
-                raise VolumeError("volume not open")
             dat = self._dat
             self._readers += 1
         try:

@@ -16,7 +16,7 @@ three helpers:
 Not ported yet: the ``batch`` and ``off`` policies with ``configure``,
 ``drain``, ``configure_from`` (the ``[storage]`` TOML block) and
 ``debug_payload``; they come with the volume server, the only reader
-of the ``[storage]`` section (ROADMAP Queue 1 item 3).
+of the ``[storage]`` section (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations

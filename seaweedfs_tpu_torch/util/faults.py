@@ -46,6 +46,10 @@ CATALOG = (
     # the process (or calls the handler set by set_crash_handler).
     "crash.append.dat",      # needle appended to .dat, .idx not yet
     "crash.append.idx",      # .idx journaled, ack not yet returned
+    "crash.vacuum.compact",  # mid-compact: .cpd/.cpx partially built
+    "crash.vacuum.precommit",  # compact done, neither rename applied
+    "crash.vacuum.midcommit",  # .cpd renamed over .dat, .cpx not yet
+    "crash.ec.writeback",      # EC shard slice positioned-write issued
 )
 
 
@@ -215,6 +219,12 @@ def set_crash_handler(handler) -> None:
     restore process-exit semantics."""
     global _CRASH_HANDLER
     _CRASH_HANDLER = handler
+
+
+def debug_payload() -> dict:
+    """Whether faults are enabled, the seed, and every armed spec with
+    its hit count (what ``fault.list`` prints)."""
+    return {"enabled": _ENABLED, "seed": _SEED, "specs": specs()}
 
 
 def check(point: str) -> None:

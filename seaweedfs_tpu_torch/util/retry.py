@@ -6,8 +6,8 @@ from survivors because its shard could not serve it). The counts live in
 a dict under a lock; :func:`degraded_counts` reads them. In the JAX
 package the same call
 feeds the ``degraded_reads_total`` metric and tags the active tracing
-span; the metrics registry and the spans are not ported yet (ROADMAP
-Queue 1 item 6).
+span; feeding that metric and the spans are not ported yet (ROADMAP
+Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -471,3 +471,78 @@ def test_armed_encode_records_every_batch_of_its_plans(tmp_path,
     assert occ["batches"] == len(plans)
     assert occ["busy_seconds"]["d2h"] > 0
     assert flight.debug_payload()["last_run"]["batches"] == len(plans)
+
+
+# -- the storage engine at rest: scrub_ec's parity proof and repair ---------
+
+
+def _sealed_on_the_card(tmp_path):
+    """A 48 MiB volume sealed on the card: 5 small rows of 1 MiB, so
+    each shard is 5 MiB, two 4 MiB chunks of the parity proof (4 MiB and
+    1 MiB, both at least DEVICE_MIN_S long)."""
+    base = tmp_path / "9"
+    volume.write_synthetic_volume(base, 48 << 20, avg_size=1 << 20, seed=9)
+    encode.encode_volume(base)
+    return base
+
+
+@pytest.mark.cuda
+def test_scrub_ec_parity_proof_launches_once_per_chunk(tmp_path,
+                                                       monkeypatch):
+    """scrub_ec's baseline pass on the card: one kernel launch per 4 MiB
+    chunk of the shards, each product byte-equal to the plain version's
+    on the same survivors."""
+    _need_card()
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.storage import scrubber
+    base = _sealed_on_the_card(tmp_path)
+    shard_len = ec_files.shard_path(base, 0).stat().st_size
+    seen = []
+    real = rs_torch.Encoder.reconstruct_batch_host
+
+    def spy(self, shards, present, wanted=None):
+        out = real(self, shards, present, wanted)
+        seen.append((shards.copy(), list(present), list(wanted),
+                     np.array(out)))
+        return out
+
+    monkeypatch.setattr(rs_torch.Encoder, "reconstruct_batch_host", spy)
+    n = _launches()
+    res = scrubber.scrub_ec(base, DEFAULT_SCHEME)
+    assert res["baseline"] and res["corrupt"] == 0
+    want = -(-shard_len // scrubber.EC_CHUNK_BYTES)
+    assert want == 2
+    assert _launches() - n == len(seen) == want
+    # the plain version through the unpatched method: the spy would
+    # append to ``seen`` while it is iterated
+    cpu = rs_torch.Encoder(10, 4, device="cpu")
+    for shards, present, wanted, out in list(seen):
+        assert present == list(range(10)) and wanted == [10, 11, 12, 13]
+        assert out.shape == (1, 4, shards.shape[-1])
+        np.testing.assert_array_equal(
+            out, np.asarray(real(cpu, shards, present, wanted)))
+
+
+@pytest.mark.cuda
+def test_scrub_ec_repairs_rotten_shards_on_the_card(tmp_path):
+    """A byte flipped in data shard 3 and in parity shard 12 after the
+    baseline: both quarantined and rebuilt on the card to their sealed
+    bytes."""
+    _need_card()
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.storage import scrubber
+    base = _sealed_on_the_card(tmp_path)
+    scrubber.scrub_ec(base, DEFAULT_SCHEME)
+    sealed = {i: ec_files.shard_path(base, i).read_bytes() for i in (3, 12)}
+    for sid in sealed:
+        p = ec_files.shard_path(base, sid)
+        buf = bytearray(sealed[sid])
+        buf[len(buf) // 2] ^= 0xFF
+        p.write_bytes(bytes(buf))
+    n = _launches()
+    res = scrubber.scrub_ec(base, DEFAULT_SCHEME)
+    assert _launches() > n
+    assert (res["corrupt"], len(res["quarantined"]), res["repaired"],
+            res["repair_failed"]) == (2, 2, 2, 0)
+    for sid, data in sealed.items():
+        assert ec_files.shard_path(base, sid).read_bytes() == data

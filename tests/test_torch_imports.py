@@ -38,7 +38,12 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.parallel", "seaweedfs_tpu_torch.parallel.mesh",
        "seaweedfs_tpu_torch.parallel.dryrun",
        "seaweedfs_tpu_torch.util.config", "seaweedfs_tpu_torch.util.stats",
-       "seaweedfs_tpu_torch.pipeline.flight"}
+       "seaweedfs_tpu_torch.pipeline.flight",
+       "seaweedfs_tpu_torch.storage.needle_map_native",
+       "seaweedfs_tpu_torch.storage.needle_map_sqlite",
+       "seaweedfs_tpu_torch.storage.vacuum",
+       "seaweedfs_tpu_torch.storage.scrubber",
+       "seaweedfs_tpu_torch.util.crashfs"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -51,9 +56,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "bad: []" in out.stdout
     # every module of the slices so far was imported, the shell, Store,
-    # Volume engine, the multi-device split, the config loader and the
-    # flight recorder among them
-    assert int(out.stdout.split()[0]) >= 47
+    # Volume engine, the multi-device split, the config loader, the
+    # flight recorder, the needle maps, vacuum, the scrubber and the
+    # crash harness among them
+    assert int(out.stdout.split()[0]) >= 52
     assert "missing: []" in out.stdout
 
 

@@ -258,8 +258,9 @@ def test_volume_list_and_errors(tmp_path):
         listed = env.out.getvalue().splitlines()
         assert listed == sorted(commands.COMMANDS) == [
             "ec.balance", "ec.decode", "ec.encode", "ec.rebuild",
+            "fault.clear", "fault.inject", "fault.list",
             "pipeline.analyze", "pipeline.dump", "pipeline.status",
-            "volume.delete", "volume.list"]
+            "volume.delete", "volume.list", "volume.vacuum"]
         assert set(listed) <= set(jax_commands.COMMANDS)
         # -mesh is known; a spec that cannot tile the one CPU device is
         # a ShellError that names the dp,sp it wants
@@ -680,3 +681,95 @@ def test_mesh_flag_overrides_the_config_for_one_command(
     assert out[2].startswith("pipeline.status ")
     assert out[3].endswith("configured={'enabled': True, 'dp': 2, "
                            "'sp': 4}")
+
+
+# -- the storage engine at rest: volume.vacuum and the fault commands -------
+
+from seaweedfs_tpu.storage.volume import Volume as JaxVolume  # noqa: E402
+from seaweedfs_tpu.util import faults as jax_faults  # noqa: E402
+from seaweedfs_tpu_torch.util import faults as port_faults  # noqa: E402
+
+
+@pytest.fixture
+def fault_state():
+    """Both packages' fault registries start and end empty."""
+    for mod in (port_faults, jax_faults):
+        mod.clear()
+    yield
+    for mod in (port_faults, jax_faults):
+        mod.clear()
+
+
+def _garbage_volumes(root):
+    """Volumes 3 (a third of its needles deleted) and 4 (one deleted):
+    a threshold vacuum compacts 3 and skips 4."""
+    for vid, deletes in ((3, range(1, 31, 3)), (4, (5,))):
+        generate_synthetic_volume(root / str(vid), vid, n_needles=30,
+                                  avg_size=300, seed=vid).close()
+        with JaxVolume(root / str(vid), vid).load() as v:
+            for k in deletes:
+                v.delete_needle(k)
+
+
+def test_vacuum_and_fault_commands_equal_jax(tmp_path, fault_state):
+    """``volume.vacuum`` (one volume, then every volume against the
+    threshold) and ``fault.inject`` / ``fault.list`` / ``fault.clear``
+    through both packages' ``cli.main``: equal lines and exit codes,
+    equal files. ``fault.list``'s catalog line lists the port's points,
+    each a point of the JAX catalog, in its order."""
+    seed = tmp_path / "seed"
+    seed.mkdir()
+    _garbage_volumes(seed)
+    session = ("volume.list; volume.vacuum -volumeId 4; volume.vacuum; "
+               "volume.vacuum -garbageThreshold 0.01; volume.list; "
+               "fault.list; "
+               "fault.inject -point ec.shard_read -spec error@0.5#3; "
+               "fault.inject -point crash.append.dat -spec delay:0.001#2 "
+               "-seed 7; fault.list; fault.clear -point ec.shard_read; "
+               "fault.list; fault.clear; fault.list")
+    out = {}
+    for pkg in ("jax", "port"):
+        d = tmp_path / pkg
+        shutil.copytree(seed, d)
+        rc, lines, err = _main(pkg, ["-dir", str(d), "-c", session])
+        catalog = [ln for ln in lines if ln.startswith("  points: ")]
+        rest = [ln for ln in lines if not ln.startswith("  points: ")]
+        out[pkg] = (rc, rest, err, {p.name: p.read_bytes()
+                                    for p in sorted(d.iterdir())})
+        out[pkg + " catalog"] = catalog
+    assert out["port"] == out["jax"]
+    rc, lines, _err, _files = out["port"]
+    assert rc == 0
+    assert "volume.vacuum 4: garbage" in lines[2] and "reclaimed" in lines[2]
+    assert "below threshold, skipped" in lines[4]
+    assert any("fault.inject: armed crash.append.dat=delay:0.001#2" == ln
+               for ln in lines)
+    port_points = out["port catalog"][0][len("  points: "):].split(", ")
+    jax_points = out["jax catalog"][0][len("  points: "):].split(", ")
+    assert len(out["port catalog"]) == len(out["jax catalog"]) == 4
+    assert port_points == [p for p in jax_points if p in port_points]
+    assert "crash.ec.writeback" in port_points
+    assert "crash.vacuum.midcommit" in port_points
+
+
+def test_fault_clear_breakers_is_refused_and_disarms_nothing(
+        tmp_path, fault_state, capsys):
+    """The port has no circuit breakers yet: ``fault.clear -breakers``
+    prints one ``error:`` line, exits 1, and leaves the armed point
+    armed; a bad spec is one ``error:`` line in both packages."""
+    from seaweedfs_tpu_torch.shell import cli as port_cli
+    d = tmp_path / "a"
+    d.mkdir()
+    rc = port_cli.main(["-dir", str(d), "-device", "cpu", "-c",
+                        "fault.inject -point ec.shard_read -spec error; "
+                        "fault.clear -breakers"])
+    err = capsys.readouterr().err.splitlines()
+    assert rc == 1 and len(err) == 1
+    assert err[0].startswith("error: fault.clear: -breakers is not ported")
+    assert "cluster slice" in err[0]
+    assert [s["point"] for s in port_faults.specs()] == ["ec.shard_read"]
+    bad = {pkg: _main(pkg, ["-dir", str(d), "-c",
+                            "fault.inject -point ec.shard_read -spec boom"])
+           for pkg in ("jax", "port")}
+    assert bad["port"] == bad["jax"]
+    assert bad["port"][0] == 1 and "unknown fault action" in bad["port"][2][0]

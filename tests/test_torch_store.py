@@ -199,12 +199,45 @@ def test_every_acknowledged_write_is_fsynced(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kind", ["native", "sqlite"])
 def test_unported_needle_maps_raise(tmp_path, kind):
-    with pytest.raises(port_volume.VolumeError, match="not ported yet"):
-        port_volume.Volume(tmp_path / "1", 1, needle_map=kind)
-    st = port_store.Store([tmp_path], needle_map=kind)
-    with pytest.raises(port_volume.VolumeError, match="ROADMAP"):
+    """A needle map kind the port does not have (here ``nativedb`` and
+    ``sqlitedb``, which neither package has) raises, in Volume and in
+    Store, before anything is written."""
+    with pytest.raises(port_volume.VolumeError,
+                       match="unknown needle map kind"):
+        port_volume.Volume(tmp_path / "1", 1, needle_map=kind + "db")
+    st = port_store.Store([tmp_path], needle_map=kind + "db")
+    with pytest.raises(port_volume.VolumeError, match="memory, native"):
         st.create_volume(1)
     assert list(tmp_path.iterdir()) == []   # nothing written instead
+
+
+@pytest.mark.parametrize("kind", ["native", "sqlite"])
+def test_needle_map_kinds_open_and_serve(tmp_path, kind):
+    """The JAX package's ``native`` and ``sqlite`` kinds open, and a
+    needle written through one is read back after a reload."""
+    with port_volume.Volume(tmp_path / "1", 1, needle_map=kind).create() as v:
+        v.write_needle(needle.Needle(cookie=1, id=1, data=b"x",
+                                     append_at_ns=1))
+    with port_volume.Volume(tmp_path / "1", 1, needle_map=kind).load() as v:
+        assert v.read_needle(1).data == b"x"
+
+
+def test_volume_reads_each_append_and_writes_the_same_files_as_jax(
+        tmp_path):
+    """A Volume in both packages: each needle reads back right after its
+    append, and the .dat and .idx are equal after a delete and a
+    reload."""
+    roots = _both(tmp_path)
+    for name, (vol_mod, _st, ndl) in PKGS.items():
+        base = roots[name] / "1"
+        with vol_mod.Volume(base, 1).create() as v:
+            for n in _needles(ndl, 12, seed=8):
+                v.write_needle(n)
+                assert v.read_needle(n.id).data == n.data
+            v.delete_needle(4)
+        with vol_mod.Volume(base, 1).load() as v:
+            assert len(v.nm) == 11
+    assert _files(roots["jax"]) == _files(roots["port"])
 
 
 def test_tier_sidecar_and_s3_backend_raise(tmp_path):
