@@ -48,13 +48,27 @@ of which fails the run on any mismatch:
    seaweedfs_tpu_torch shell`` in its own process on a 16 MiB volume,
    held against an in-process encode; each command's wall seconds and
    GiB/s beside the direct call's;
-7. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
+7. cluster (config 1 through two port volume servers, A and B, in this
+   process with no master, over localhost gRPC and HTTP): the path
+   phase's needles POSTed to A (.dat and .idx sha256-equal to the path
+   phase's; MiB/s), ``VolumeEcShardsGenerate`` (shards, .ecx and .vif
+   sha256-equal to the sealed ones, one launch per batch; GiB/s beside
+   the direct encode), every needle read by HTTP GET from A's shards (no
+   launch), ``VolumeEcShardsCopy`` of every shard to B (sha256-equal,
+   GiB/s) and one ``VolumeEcShardRead`` range, every needle read from B
+   with shards 0, 5, 11 and 13 deleted (reconstruct-on-read: needles/s,
+   p50, p99, launches, host-codec calls), ``VolumeEcShardsRebuild``
+   (sha256-equal), ``VolumeEcShardsToVolume`` after losing data shards 0
+   and 5 (.dat and .idx sha256-equal, every needle read back); then
+   ``python -m seaweedfs_tpu_torch volume`` in its own process (status,
+   one POST, one GET, SIGTERM);
+8. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
    a bulk decode of 4 lost shards through the kernels while 8 reader
    threads send 64 QPS of 4 KiB interval repairs, all checked;
-8. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
+9. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
    shards rebuilt, and the volume decoded after losing data shards 0 and
    3, all sha256-checked, parity against ``rs_ref`` on sampled rows;
-9. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
+10. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
    normal routing, the shell's ``ec.encode -mesh 1,1`` in turns with the
    unsplit ``ec.encode`` (a warm-up, then A, B, B, A twice) on config 1's
    volume, shards and .ecx sha256-equal and launches equal (one per
@@ -65,7 +79,7 @@ of which fails the run on any mismatch:
    grid (B pads to 26, S splits in two: 4 launches), byte-equal to the
    unsplit path and to ``rs_ref`` on sampled rows; (c) ``-mesh 2,2``
    refused on one card with no file changed;
-10. config (the shell's ``-config``): on config 1's volume through
+11. config (the shell's ``-config``): on config 1's volume through
    ``shell.cli.main``, (a) a TOML of ``[pipeline] double_buffer``,
    ``[mesh]`` 1 x 1 and ``[flight]``: ``ec.encode -keepSource;
    pipeline.status; pipeline.analyze; pipeline.dump -trace`` (shards,
@@ -78,7 +92,7 @@ of which fails the run on any mismatch:
    ``pipeline.analyze``), each a warm-up of each side then A, B, B, A
    with both medians and their ratio, launches checked on every encode
    and the files sha256-checked on one of each side;
-11. storage (the engine at rest, on config 1's volume): (a) a seeded
+12. storage (the engine at rest, on config 1's volume): (a) a seeded
    .idx of 1,000,000 needles with 10% deleted loaded by the memory,
    native and sqlite needle maps (equal live entries and counters, the
    native library built), with each load's seconds; (b) every third
@@ -94,7 +108,7 @@ of which fails the run on any mismatch:
    4 MiB chunk, then one byte flipped in shards 3 and 12 and both
    quarantined and rebuilt to their sealed sha256; (e) ``scrub_volume``
    repairing one rotten needle from an intact copy, needles/s;
-12. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+13. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
    ``batch.encode_packed`` over the same with every parity span checked
    whole against ``rs_ref`` and the batch census printed, 200 volumes on the
@@ -539,6 +553,7 @@ def path_phase(dev, workdir: str, label: str) -> dict:
 
     for overlapped in (True, False):
         mode = "overlapped" if overlapped else "sync"
+        say(f"  page cache before the {mode} encode: {_dirty_mib()}")
         st = pipe.PipeStats()
         _, wall = drive(
             f"encode_volume ({mode})",
@@ -891,6 +906,352 @@ def shell_phase(dev, workdir: str, pres: dict, label: str,
     shutil.rmtree(a)
     shutil.rmtree(b)
     say(f"  shell phase: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
+# cluster phase: config 1 through two port volume servers
+# --------------------------------------------------------------------------
+
+def _dirty_mib() -> str:
+    """The kernel's dirty and under-writeback page-cache MiB: what an
+    encode's fsyncs wait behind."""
+    try:
+        with open("/proc/meminfo") as f:
+            kib = {k: int(v.split()[0]) for k, v in
+                   (line.split(":", 1) for line in f)
+                   if k in ("Dirty", "Writeback")}
+    except OSError:
+        return "not readable"
+    return ", ".join(f"{k} {v / 1024:.1f} MiB" for k, v in kib.items())
+
+
+class _NeedleClock:
+    """Stands in for ``time`` in storage/needle.py while the HTTP ingest
+    runs: the server stamps each needle it writes with ``time_ns()``,
+    and this clock hands out the stamps ``synthetic_needles`` gave the
+    path phase's needles (its base plus the needle id, the ids in
+    order), so the ingested volume must be byte-equal to that one."""
+
+    def __init__(self):
+        self.n = 0
+
+    def time_ns(self) -> int:
+        self.n += 1
+        return 1_700_000_000_000_000_000 + self.n
+
+
+def _http(conn, method: str, path: str, body=None) -> tuple:
+    conn.request(method, path, body=body)
+    r = conn.getresponse()
+    return r.status, r.read()
+
+
+def cluster_phase(dev, workdir: str, pres: dict, label: str,
+                  launches: dict) -> dict:
+    """Config 1 through two port volume servers, A and B, in this process
+    on the card with no master (``master_url=""``), over localhost gRPC
+    and HTTP, this phase driving the choreography the shell would:
+    allocate on A, ingest the path phase's needles by HTTP POST, seal
+    with ``VolumeEcShardsGenerate``, read every needle from A's shards,
+    copy all shards to B, read every needle from B with shards 0, 5, 11
+    and 13 lost (reconstruct-on-read), rebuild them, decode with
+    ``VolumeEcShardsToVolume``; then ``python -m seaweedfs_tpu_torch
+    volume`` in its own process. The peer lookup through a master
+    (``ec_shard_peers``) is not driven here: the port has no master yet,
+    and it runs in tier-1 against the JAX master."""
+    import http.client
+
+    import grpc
+
+    from seaweedfs_tpu_torch import pb
+    from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
+                                                           _grpc_port,
+                                                           free_port_pair)
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.storage.types import FileId
+
+    t_phase = time.perf_counter()
+    scheme = DEFAULT_SCHEME
+    vid = 1
+    dat_size = os.path.getsize(pres["base"] + ".dat")
+    gib = dat_size / GIB
+    sealed = pres["sealed"]
+    result = {}
+    dirs = {name: os.path.join(workdir, name) for name in "AB"}
+    servers, channels = {}, []
+    for name, d in dirs.items():
+        os.makedirs(d)
+        servers[name] = VolumeServer(store_mod.Store([d]),
+                                     port=free_port_pair(),
+                                     device=dev).start()
+
+    def stub(name):
+        ch = grpc.insecure_channel(
+            f"127.0.0.1:{_grpc_port(servers[name].port)}",
+            options=[("grpc.max_receive_message_length", 64 * MIB)])
+        channels.append(ch)
+        return pb.volume_stub(ch)
+
+    a, b = stub("A"), stub("B")
+    conns = {name: http.client.HTTPConnection("127.0.0.1", vs.port,
+                                              timeout=300)
+             for name, vs in servers.items()}
+    abase = os.path.join(dirs["A"], str(vid))
+    bbase = os.path.join(dirs["B"], str(vid))
+    try:
+        # 1-2: allocate on A, then the path phase's needles by HTTP POST
+        a.AllocateVolume(vpb.AllocateVolumeRequest(volume_id=vid))
+        vol = servers["A"].store.get_volume(vid)
+        needles = volume_mod.synthetic_needles(avg_size=MIB, seed=SEED)
+        written = {}
+        post_s = 0.0
+        real_time = needle_mod.time
+        needle_mod.time = _NeedleClock()
+        try:
+            while vol.dat_size < VOLUME_BYTES:
+                n = next(needles)
+                fid = str(FileId(vid, n.id, n.cookie))
+                t0 = time.perf_counter()
+                code, body = _http(conns["A"], "POST", f"/{fid}", n.data)
+                post_s += time.perf_counter() - t0
+                if code != 201:
+                    raise SmokeError(f"POST {fid}: {code} {body[:200]!r}")
+                written[fid] = hashlib.sha256(n.data).digest()
+        finally:
+            needle_mod.time = real_time
+        result["ingest"] = {
+            "needles": len(written), "post_s": post_s,
+            "needles_per_s": len(written) / post_s,
+            "mib_per_s": dat_size / MIB / post_s,
+            "ms_per_needle": 1e3 * post_s / len(written)}
+        say(f"  HTTP ingest into A on {label}: "
+            f"{json.dumps(result['ingest'])}")
+        check(len(written) == pres["n_needles"]
+              and sha256_file(abase + ".dat") == pres["dat_sha"]
+              and sha256_file(abase + ".idx") == pres["idx_sha"],
+              f"{len(written)} needles POSTed to A: .dat and .idx "
+              f"sha256-equal to the path phase's volume")
+
+        def read_all(name: str, what: str, expect: dict) -> list:
+            """GET every needle from server ``name`` with the launch
+            counts set to 0 just before; each body held against the
+            written one; returns each GET's seconds."""
+            times = []
+
+            def run():
+                for fid, digest in written.items():
+                    t0 = time.perf_counter()
+                    code, body = _http(conns[name], "GET", f"/{fid}")
+                    times.append(time.perf_counter() - t0)
+                    if code != 200 or \
+                            hashlib.sha256(body).digest() != digest:
+                        raise SmokeError(f"{what}: GET {fid} gave {code}")
+            drive(what, run, expect, launches)
+            check(len(times) == len(written), f"{what}: all "
+                  f"{len(written)} needles equal to the ones written")
+            return times
+
+        # 3: seal on A, one launch per batch. Its baseline is a direct
+        # encode_volume of A's own .dat just before, in the same cache
+        # state (its files removed again); comparison launches, not
+        # counted in the main-path totals
+        a.VolumeMarkReadonly(vpb.VolumeMarkReadonlyRequest(volume_id=vid))
+        batches = len(list(encode.plan_batches(dat_size, scheme,
+                                               pipe.current().batch_bytes)))
+        say(f"  page cache before the direct encode of A's .dat: "
+            f"{_dirty_mib()}")
+        st = pipe.PipeStats()
+        _, direct_wall = drive(
+            "encode_volume of A's .dat (baseline)",
+            lambda: encode.encode_volume(abase, scheme, device=dev,
+                                         stats=st),
+            {"transpose": True, "swar": False},
+            {name: 0 for name in KERNELS})
+        check(sealed_digests(abase) == sealed, "encode_volume of A's .dat: "
+              "sha256-equal to the path phase's sealed files")
+        for name in sealed:
+            os.remove(abase + name)
+        say(f"  encode_volume of A's .dat: {gib / direct_wall:.3f} GiB/s in "
+            f"{direct_wall:.3f} s on {label}; stages "
+            f"{json.dumps(st.to_dict())}")
+        say(f"  page cache before VolumeEcShardsGenerate: {_dirty_mib()}")
+        _, wall = drive("VolumeEcShardsGenerate on A",
+                        lambda: a.VolumeEcShardsGenerate(
+                            vpb.VolumeEcShardsGenerateRequest(volume_id=vid)),
+                        {"transpose": True, "swar": False}, launches)
+        got = counts()["transpose"]
+        check(got == batches, f"VolumeEcShardsGenerate: transpose kernel "
+              f"launched {got} times, one per batch ({batches})")
+        check(sealed_digests(abase) == sealed,
+              "VolumeEcShardsGenerate: 14 shards, .ecx and .vif "
+              "sha256-equal to the path phase's sealed files")
+        result["generate_gibps"] = gib / wall
+        result["generate_direct_gibps"] = gib / direct_wall
+        say(f"  VolumeEcShardsGenerate: {gib / wall:.3f} GiB/s of .dat in "
+            f"{wall:.3f} s vs encode_volume of the same .dat just before "
+            f"{gib / direct_wall:.3f} GiB/s ({direct_wall / wall:.2f}x) on "
+            f"{label}")
+
+        # 4: mount, drop the .dat, read every needle from A's shards
+        a.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
+            volume_id=vid, shard_ids=list(range(scheme.total_shards))))
+        a.VolumeDelete(vpb.VolumeDeleteRequest(volume_id=vid))
+        check(not os.path.exists(abase + ".dat"), "VolumeDelete: A's .dat "
+              "gone, its shards mounted")
+        times = read_all("A", "GET from A's local shards",
+                         {"transpose": False, "swar": False})
+        result["local_read_needles_per_s"] = len(times) / sum(times)
+        say(f"  GET from A's shards: {len(times) / sum(times):.1f} "
+            f"needles/s, host-codec calls "
+            f"{rs_native.apply_gf_matrix.calls} on {label}")
+
+        # 5: B copies every shard, .ecx, .ecj (absent) and .vif from A
+        moved = sum(os.path.getsize(abase + n) for n in sealed)
+        t0 = time.perf_counter()
+        b.VolumeEcShardsCopy(vpb.VolumeEcShardsCopyRequest(
+            volume_id=vid, shard_ids=list(range(scheme.total_shards)),
+            copy_ecx_file=True, copy_ecj_file=True, copy_vif_file=True,
+            source_data_node=servers["A"].url))
+        copy_s = time.perf_counter() - t0
+        result["copy_gibps"] = moved / GIB / copy_s
+        say(f"  VolumeEcShardsCopy A -> B: {moved} bytes in {copy_s:.3f} s,"
+            f" {moved / GIB / copy_s:.3f} GiB/s on {label}")
+        check(sealed_digests(bbase) == sealed and
+              not os.path.exists(bbase + ".ecj"),
+              "VolumeEcShardsCopy: B's 14 shards, .ecx and .vif "
+              "sha256-equal to A's")
+        off, size = 12345, MIB + 7
+        got = b"".join(r.data for r in a.VolumeEcShardRead(
+            vpb.VolumeEcShardReadRequest(volume_id=vid, shard_id=3,
+                                         offset=off, size=size)))
+        with open(ec_files.shard_path(abase, 3), "rb") as f:
+            f.seek(off)
+            check(got == f.read(size), f"VolumeEcShardRead of shard 3 "
+                  f"[{off}, {off + size}) equal to the file's bytes")
+        b.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
+            volume_id=vid, shard_ids=list(range(scheme.total_shards))))
+
+        # 6: lose 4 shards on B, reconstruct-on-read
+        b.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+            volume_id=vid, shard_ids=list(LOST_READ)))
+        times = read_all("B", f"GET from B with shards {list(LOST_READ)} "
+                         f"lost (reconstruct-on-read)",
+                         {"transpose": True, "swar": False})
+        ms = np.asarray(times) * 1e3
+        result["degraded_read"] = {
+            "needles_per_s": len(times) / sum(times),
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "launches": counts(),
+            "host_codec_calls": rs_native.apply_gf_matrix.calls,
+            "intervals_repaired": servers["B"].metrics.counter(
+                "ec_intervals_repaired").value}
+        say(f"  degraded GET from B on {label}: "
+            f"{json.dumps(result['degraded_read'])}")
+
+        # 7: rebuild the lost shards on B
+        resp, wall = drive(
+            "VolumeEcShardsRebuild on B",
+            lambda: b.VolumeEcShardsRebuild(
+                vpb.VolumeEcShardsRebuildRequest(volume_id=vid)),
+            {"transpose": True, "swar": False}, launches)
+        check(list(resp.rebuilt_shard_ids) == list(LOST_READ)
+              and sealed_digests(bbase) == sealed,
+              f"VolumeEcShardsRebuild: {list(resp.rebuilt_shard_ids)} "
+              f"rebuilt sha256-equal to the sealed shards")
+        shard_size = scheme.shard_file_size(dat_size)
+        result["rebuild_gibps"] = len(LOST_READ) * shard_size / GIB / wall
+        say(f"  VolumeEcShardsRebuild: {wall:.3f} s, "
+            f"{result['rebuild_gibps']:.3f} GiB/s of rebuilt shards vs "
+            f"{pres['rebuild_gibps']:.3f} direct on {label}")
+
+        # 8: lose data shards 0 and 5, decode back to a volume
+        b.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+            volume_id=vid, shard_ids=list(LOST_DECODE)))
+        _, wall = drive(
+            "VolumeEcShardsToVolume on B",
+            lambda: b.VolumeEcShardsToVolume(
+                vpb.VolumeEcShardsToVolumeRequest(volume_id=vid)),
+            {"transpose": True, "swar": False}, launches)
+        result["to_volume_gibps"] = gib / wall
+        say(f"  VolumeEcShardsToVolume: {wall:.3f} s, {gib / wall:.3f} "
+            f"GiB/s of .dat vs decode_volume {pres['decode_gibps']:.3f} "
+            f"direct on {label}")
+        check(sha256_file(bbase + ".dat") == pres["dat_sha"]
+              and sha256_file(bbase + ".idx") == pres["idx_sha"]
+              and servers["B"].store.has_volume(vid),
+              "VolumeEcShardsToVolume: .dat and .idx sha256-equal to the "
+              "originals, the volume mounted again")
+        read_all("B", "GET from B's decoded volume",
+                 {"transpose": False, "swar": False})
+    finally:
+        for c in conns.values():
+            c.close()
+        for ch in channels:
+            ch.close()
+        for vs in servers.values():
+            vs.stop()
+    shutil.rmtree(dirs["A"])
+    shutil.rmtree(dirs["B"])
+
+    # 9: the volume server as an operator runs it, in its own process
+    c = os.path.join(workdir, "C")
+    os.makedirs(c)
+    port = free_port_pair()
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "volume", "-dir", c,
+         "-mserver", "", "-port", str(port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        conn = None
+        while time.perf_counter() - t0 < 180 and proc.poll() is None:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=30)
+                code, body = _http(conn, "GET", "/status")
+                break
+            except OSError:
+                conn = None
+                time.sleep(0.2)
+        check(conn is not None and code == 200,
+              f"python -m seaweedfs_tpu_torch volume: /status answers "
+              f"{json.loads(body) if conn else None} after "
+              f"{time.perf_counter() - t0:.1f} s")
+        ch = grpc.insecure_channel(f"127.0.0.1:{_grpc_port(port)}")
+        pb.volume_stub(ch).AllocateVolume(
+            vpb.AllocateVolumeRequest(volume_id=2))
+        ch.close()
+        data = np.random.default_rng(SEED).integers(
+            0, 256, 3 * MIB, dtype=np.uint8).tobytes()
+        fid = str(FileId(2, 77, 0x1234abcd))
+        posted = _http(conn, "POST", f"/{fid}", data)[0]
+        code, body = _http(conn, "GET", f"/{fid}")
+        check(posted == 201 and code == 200 and body == data,
+              "python -m seaweedfs_tpu_torch volume: one POST and one GET "
+              "of 3 MiB, equal bytes")
+        conn.close()
+    finally:
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    for line in (out + err).splitlines()[-5:]:
+        say(f"  $ {line}")
+    check(proc.returncode == 0, f"the volume subprocess stopped on SIGTERM "
+          f"with exit {proc.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    result["subprocess_s"] = time.perf_counter() - t0
+    shutil.rmtree(c)
+    result["seconds"] = time.perf_counter() - t_phase
+    say(f"  cluster phase: {result['seconds']:.1f} s")
     return result
 
 
@@ -1828,6 +2189,9 @@ def main() -> int:
         say("phase shell (config 1 through the admin shell):")
         shell_phase(dev, os.path.join(workdir, "shell"), pres, label,
                     launches)
+        say("phase cluster (config 1 through two port volume servers):")
+        cluster_phase(dev, os.path.join(workdir, "cluster"), pres, label,
+                      launches)
         say("phase repair under load (config 5):")
         repair_phase(dev, os.path.join(workdir, "config5"),
                      DEFAULT_SCHEME.shard_file_size(VOLUME_BYTES), launches)

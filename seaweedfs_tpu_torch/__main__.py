@@ -1,11 +1,13 @@
 """Top-level CLI dispatcher — the `weed` binary analog.
 
-The port of ``seaweedfs_tpu/__main__.py``, with one subcommand so far:
+The port of ``seaweedfs_tpu/__main__.py``, with two subcommands so far:
 
-    python -m seaweedfs_tpu_torch shell -dir ... [-device cuda|cpu]
+    python -m seaweedfs_tpu_torch shell  -dir ... [-device cuda|cpu]
+    python -m seaweedfs_tpu_torch volume -dir d -mserver host:port \
+        [-device cuda|cpu]
 
-The other subcommands (master, volume, filer, ...) come with later
-slices of the port.
+The other subcommands (master, filer, ...) come with later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -18,8 +20,14 @@ def _run_shell(argv: list[str]) -> int:
     return main(argv)
 
 
+def _run_volume(argv: list[str]) -> int:
+    from .cluster.volume_server import main
+    return main(argv)
+
+
 COMMANDS = {
     "shell": _run_shell,
+    "volume": _run_volume,
 }
 
 

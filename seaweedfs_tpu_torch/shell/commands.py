@@ -27,10 +27,10 @@ split the command's pipeline work over a (dp, sp) mesh of the local
 devices of the env's device type (parallel/mesh.py), over whatever the
 shell's ``-config`` set in ``[mesh]``. The ``pipeline.*`` commands read
 back what ``[pipeline]``, ``[mesh]`` and ``[flight]`` set and what the
-session's runs recorded. Not ported yet: the trace root around each
-command, ``fault.clear -breakers`` (the port's retry layer has no
-circuit breakers until the cluster slice: the flag is refused with one
-error), and the other command families (ROADMAP Queue 1).
+session's runs recorded. ``fault.clear -breakers`` also resets the
+retry layer's circuit breakers (util/retry.py). Not ported yet: the
+trace root around each command, and the other command families
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ from ..pipeline.scheme import DEFAULT_SCHEME, EcScheme
 from ..storage import ec_files
 from ..storage.store import Store, StoreError, volume_base_name
 from ..storage.volume import Volume
-from ..util import faults
+from ..util import faults, retry
 
 
 class ShellError(RuntimeError):
@@ -400,21 +400,20 @@ def cmd_fault_list(env: CommandEnv, argv: list[str]) -> None:
 
 @command("fault.clear")
 def cmd_fault_clear(env: CommandEnv, argv: list[str]) -> None:
-    """Disarm one fault point (or all)."""
+    """Disarm one fault point (or all), optionally also forgetting
+    circuit-breaker state accumulated while faults were armed."""
     p = _parser("fault.clear")
     p.add_argument("-point", default="",
                    help="one point to disarm (default: all)")
     p.add_argument("-breakers", action="store_true",
-                   help="also reset all circuit breakers (not ported)")
+                   help="also reset all circuit breakers")
     args = p.parse_args(argv)
-    if args.breakers:
-        # refused before anything is disarmed
-        raise ShellError(
-            "fault.clear: -breakers is not ported yet: the circuit "
-            "breakers come with the cluster slice")
     faults.clear(args.point or None)
+    if args.breakers:
+        retry.reset_breakers()
     env.println("fault.clear: "
-                + (args.point or "all points") + " disarmed")
+                + (args.point or "all points") + " disarmed"
+                + (" + breakers reset" if args.breakers else ""))
 
 
 @command("pipeline.status")

@@ -114,12 +114,15 @@ class Store:
     """The storage engine facade the volume server drives (store.go)."""
 
     def __init__(self, locations: list[str | Path],
-                 max_volumes: int = 8, needle_map: str = "memory"):
+                 max_volumes: int = 8, backend: str = "disk",
+                 needle_map: str = "memory"):
         if not locations:
             raise StoreError("a store needs at least one disk location")
         self.locations = [DiskLocation(d, max_volumes) for d in locations]
-        #: needle map kind ("memory" | "native" | "sqlite") applied to
-        #: every volume.
+        #: .dat backend kind (storage/backend.py registry) and needle
+        #: map kind ("memory" | "native" | "sqlite") applied to every
+        #: volume.
+        self.backend = backend
         self.needle_map = needle_map
         self.volumes: dict[tuple[str, int], Volume] = {}
         self.ec_mounts: dict[tuple[str, int], EcVolumeMount] = {}
@@ -153,7 +156,7 @@ class Store:
                           "temporaries under %s", removed, loc.directory)
             for col, vid, base in loc.scan_volumes():
                 if (col, vid) not in self.volumes:
-                    vol = Volume(base, vid,
+                    vol = Volume(base, vid, backend=self.backend,
                                  needle_map=self.needle_map).load()
                     with self._lock:
                         self.volumes[(col, vid)] = vol
@@ -195,7 +198,8 @@ class Store:
             replica_placement=ReplicaPlacement.parse(replica_placement),
             ttl=Ttl.parse(ttl))
         vol = Volume(loc.base_for(volume_id, collection), volume_id,
-                     sb, needle_map=self.needle_map).create()
+                     sb, backend=self.backend,
+                     needle_map=self.needle_map).create()
         with self._lock:
             self.volumes[key] = vol
         return vol
@@ -248,7 +252,7 @@ class Store:
                                                     collection)
             if dat_path(base).exists() or tier_path(base).exists():
                 # a tiered volume is found here and refused by load()
-                vol = Volume(base, volume_id,
+                vol = Volume(base, volume_id, backend=self.backend,
                              needle_map=self.needle_map).load()
                 with self._lock:
                     self.volumes[(collection, volume_id)] = vol
@@ -311,6 +315,12 @@ class Store:
 
     def delete_needle(self, volume_id: int, key: int,
                       collection: str = "") -> bool:
+        # A read-only volume takes no delete either: ec.encode freezes
+        # the volume before it seals, and a tombstone journaled after
+        # the seal would never reach the .ecx (the reference refuses it
+        # too; the JAX package's Store does not, ROADMAP Queue 3).
+        if self.is_readonly(volume_id, collection):
+            raise StoreError(f"volume {volume_id} is read-only")
         return self.get_volume(volume_id, collection).delete_needle(key)
 
     # -- EC shards --------------------------------------------------------

@@ -34,7 +34,7 @@ from pathlib import Path
 from typing import Optional
 
 from ..util import durability, faults
-from .backend import DiskFile
+from . import backend as backend_mod
 from . import needle as needle_mod
 from .idx import CompactMap, IndexEntry, walk_index_blob
 from .superblock import SuperBlock
@@ -241,7 +241,8 @@ def _commit_swap_drained(vol: Volume, state: CompactState) -> int:
         # commit runs holding the vacuum_in_progress claim with
         # readers drained (swap-drain protocol above): exactly one
         # thread touches the handles
-        vol._dat = DiskFile(dat_path(vol.base))
+        vol._dat = backend_mod.open_backend(vol.backend_kind,
+                                            dat_path(vol.base))
         vol._idx = open(idx_path(vol.base), "a+b")
         raise
     faults.check("crash.vacuum.midcommit")
@@ -254,7 +255,8 @@ def _commit_swap_drained(vol: Volume, state: CompactState) -> int:
         # take the volume out of service — the next load() installs it.
         vol._dat = vol._idx = None
         raise
-    vol._dat = DiskFile(dat_path(vol.base))
+    vol._dat = backend_mod.open_backend(vol.backend_kind,
+                                        dat_path(vol.base))
     vol._idx = open(idx_path(vol.base), "a+b")
     vol.super_block = state.new_super
     if hasattr(vol.nm, "close"):

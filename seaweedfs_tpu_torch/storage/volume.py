@@ -8,16 +8,15 @@ offset, size) per write plus tombstones per delete. Loading replays the
 .idx into a CompactMap; reads seek straight to the needle (the Haystack
 O(1)-seek property).
 
-The ``.dat`` is a local file (storage/backend.py ``DiskFile``) and the
-index goes through a named needle map: ``memory`` (CompactMap),
-``native`` (the C++ table, which falls back to ``memory`` with one
-warning where ``g++`` is missing, as in the JAX package) or ``sqlite``
-(a ``<base>.sdx`` beside the volume). Compaction lives in
-storage/vacuum.py and swaps the files under the same reader drain that
-``close`` uses. Not ported yet (ROADMAP Queue 1): the ``mmap`` backend
-with its ``backend=`` choice, which comes with the volume server that
-sets it, and the S3 cold tier (a volume with a ``.tier`` sidecar does
-not load).
+The ``.dat`` goes through a named backend (storage/backend.py:
+``disk`` or ``mmap``) and the index through a named needle map:
+``memory`` (CompactMap), ``native`` (the C++ table, which falls back to
+``memory`` with one warning where ``g++`` is missing, as in the JAX
+package) or ``sqlite`` (a ``<base>.sdx`` beside the volume); the volume
+server's ``-backend`` and ``-index`` flags pick them. Compaction lives
+in storage/vacuum.py and swaps the files under the same reader drain
+that ``close`` uses. Not ported yet (ROADMAP Queue 1): the S3 cold tier
+(a volume with a ``.tier`` sidecar does not load).
 
 Also hosts the synthetic volume writers used by tests and
 ``chip_smoke.py`` (the reference's ec_test.go builds its fixture volume
@@ -36,7 +35,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..util import durability, faults
-from .backend import DiskFile
+from . import backend as backend_mod
 from . import needle as needle_mod
 from .idx import CompactMap, IndexEntry, walk_index_blob
 from .superblock import ReplicaPlacement, SuperBlock
@@ -74,13 +73,18 @@ class Volume:
     """A single writable/readable volume addressed by its base path
     (``<dir>/<collection_>?<vid>`` without extension).
 
-    The .dat is a local file (storage/backend.py ``DiskFile``);
+    ``backend`` selects the .dat storage implementation by name
+    (storage/backend.py :data:`~.backend.BACKENDS`: "disk", "mmap");
     ``needle_map`` selects the index implementation
     (:data:`NEEDLE_MAPS`)."""
 
     def __init__(self, base: str | Path, volume_id: int = 0,
                  super_block: Optional[SuperBlock] = None,
-                 needle_map: str = "memory"):
+                 backend: str = "disk", needle_map: str = "memory"):
+        try:
+            backend_mod.check_kind(backend)
+        except ValueError as e:
+            raise VolumeError(str(e)) from None
         if needle_map not in NEEDLE_MAPS:
             raise VolumeError(
                 f"unknown needle map kind {needle_map!r}; have "
@@ -88,9 +92,10 @@ class Volume:
         self.base = Path(base)
         self.volume_id = volume_id
         self.super_block = super_block or SuperBlock()
+        self.backend_kind = backend
         self.needle_map_kind = needle_map
         self.nm = CompactMap()
-        self._dat: Optional[DiskFile] = None
+        self._dat: Optional[backend_mod.BackendStorageFile] = None
         self._idx = None
         #: Guard: at most one compaction in flight (storage/vacuum.py).
         self.vacuum_in_progress = False
@@ -118,7 +123,8 @@ class Volume:
         # feed the fresh volume phantom entries — this is a NEW volume,
         # so any prior map is dead by definition.
         Path(str(self.base) + ".sdx").unlink(missing_ok=True)
-        self._dat = DiskFile(dat_path(self.base), create=True)
+        self._dat = backend_mod.open_backend(
+            self.backend_kind, dat_path(self.base), create=True)
         self._dat.append(self.super_block.to_bytes())
         self._idx = open(idx_path(self.base), "w+b")
         self.nm = self._new_needle_map()
@@ -188,7 +194,7 @@ class Volume:
             for leftover in (cpd, cpx):
                 if leftover.exists():
                     leftover.unlink()
-        self._dat = DiskFile(p)
+        self._dat = backend_mod.open_backend(self.backend_kind, p)
         head = self._dat.read_at(8, 0)
         if len(head) < 8:
             raise VolumeError(f"{p} shorter than a superblock")
@@ -197,9 +203,9 @@ class Volume:
             head + self._dat.read_at(extra_len, 8))
         repairs = check_volume_data_integrity(self.base, self.super_block)
         if repairs.get("dat_truncated_bytes"):
-            # the check truncated the file underneath the open file
+            # the check truncated the file underneath the open backend
             self._dat.close()
-            self._dat = DiskFile(p)
+            self._dat = backend_mod.open_backend(self.backend_kind, p)
         ip = idx_path(self.base)
         self._idx = open(ip, "a+b") if ip.exists() else open(ip, "w+b")
         self.nm = self._load_needle_map()
@@ -251,11 +257,11 @@ class Volume:
             # The barrier flushes (concurrent reads see the record the
             # moment the index entry is visible) and fsyncs: the offset
             # this returns means the needle survives power loss.
-            durability.barrier(self._dat)
+            durability.barrier(self._dat, len(rec))
             units = to_offset_units(offset)
             self._idx.write(IndexEntry(key, units, body_size).to_bytes())
             faults.check("crash.append.idx")
-            durability.barrier(self._idx)
+            durability.barrier(self._idx, NEEDLE_MAP_ENTRY_SIZE)
             self.nm.set(key, units, body_size)
         return offset
 
@@ -329,7 +335,7 @@ class Volume:
                 return False
             self._idx.write(
                 IndexEntry(key, 0, TOMBSTONE_FILE_SIZE).to_bytes())
-            durability.barrier(self._idx)
+            durability.barrier(self._idx, NEEDLE_MAP_ENTRY_SIZE)
         return True
 
     def configure_replication(self, replication: str) -> None:
@@ -342,7 +348,8 @@ class Volume:
                 raise VolumeError("volume not open")
             self.super_block.replica_placement = rp
             self._dat.write_at(self.super_block.to_bytes(), 0)
-            durability.barrier(self._dat)
+            durability.barrier(self._dat,
+                               len(self.super_block.to_bytes()))
 
     def sync(self) -> None:
         with self._lock:

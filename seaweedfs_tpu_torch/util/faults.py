@@ -26,8 +26,8 @@ Coin flips come from a per-spec ``random.Random`` seeded from the
 global seed and the point name, so a run replays identically: same
 seed, same injection schedule. Specs arm at runtime through
 :func:`inject` or the ``SEAWEED_FAULTS`` environment variable
-(``point=spec;point=spec``). Not ported: arming from a ``[faults]`` TOML
-block (the port has no config loader yet).
+(``point=spec;point=spec``), or a ``[faults]`` TOML block
+(:func:`configure_from`, which the volume server's ``-config`` applies).
 """
 
 from __future__ import annotations
@@ -41,6 +41,10 @@ from typing import Optional
 #: Fault points on the port's paths, named as in the JAX catalog. Arming
 #: an unknown name still works (points are matched by string).
 CATALOG = (
+    "volume.read",     # client GET of a needle from a volume server
+    "volume.write",    # client POST of a needle
+    "volume.delete",   # client DELETE of a needle
+    "replica.push",    # volume server fanning a write to a replica
     "ec.shard_read",   # one shard-interval read (pipeline/read.py)
     # Crashpoints: named commit-path instants where a `crash` spec kills
     # the process (or calls the handler set by set_crash_handler).
@@ -160,6 +164,16 @@ def configure(enabled: Optional[bool] = None,
         if seed is not None:
             _SEED = int(seed)
         _recompute_active()
+
+
+def configure_from(conf: dict) -> None:
+    """Apply a loaded TOML dict's ``[faults]`` block: ``enabled``,
+    ``seed``, and an ``inject`` string of ``point=spec`` pairs joined
+    by ``;`` (same syntax as ``SEAWEED_FAULTS``)."""
+    from . import config as config_mod
+    configure(enabled=config_mod.lookup(conf, "faults.enabled"),
+              seed=config_mod.lookup(conf, "faults.seed"))
+    inject_all(config_mod.lookup(conf, "faults.inject", "") or "")
 
 
 def configure_from_env(environ=os.environ) -> None:

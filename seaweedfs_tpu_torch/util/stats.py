@@ -3,9 +3,10 @@
 The port's copy of the part of ``seaweedfs_tpu/util/stats.py`` that the
 flight recorder (pipeline/flight.py) uses: counters, gauges and latency
 histograms addressable by name and labels, rendered in the Prometheus
-exposition format byte for byte as the JAX package renders them. Left
-out: the ``Digest`` quantile sketch and ``MetricsPusher``, which nothing
-in the port uses yet.
+exposition format byte for byte as the JAX package renders them, and
+the ``MetricsPusher`` a volume server starts when its master advertises
+a push gateway. Left out: the ``Digest`` quantile sketch, which only the
+telemetry plane uses (not ported yet).
 """
 
 from __future__ import annotations
@@ -156,3 +157,74 @@ class Metrics:
                         f'trace_id="{_escape_label_value(ex_id)}" '
                         f"value={ex_val:g} ts={ex_ts:.3f}")
         return "\n".join(lines) + "\n"
+
+
+class MetricsPusher:
+    """Prometheus push-gateway client (weed/stats push mode): POSTs the
+    text exposition to ``http://<addr>/metrics/job/<job>/instance/<i>``
+    on an interval. Best-effort — an unreachable gateway is counted,
+    never fatal, and the interval keeps ticking."""
+
+    def __init__(self, metrics: "Metrics", address: str, job: str,
+                 instance: str, interval_seconds: float = 15.0):
+        import threading
+
+        self.metrics = metrics
+        self.address = address
+        self.job = job
+        self.instance = instance
+        self.interval = max(1.0, interval_seconds)
+        self.pushed = 0
+        self.errors = 0
+        self._stop = threading.Event()
+        self._thread: "threading.Thread | None" = None
+        # stop()'s final flush runs on the caller's thread and the
+        # join above it has a timeout: a hung push means BOTH threads
+        # can be inside push_once at once, so the counters need a lock
+        self._count_lock = threading.Lock()
+
+    def start(self) -> "MetricsPusher":
+        import threading
+
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"metrics-push-{self.job}")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2)
+        # Final best-effort push so metrics from the last interval
+        # aren't lost at shutdown.
+        self.push_once()
+
+    def push_once(self) -> bool:
+        import urllib.request
+
+        url = (f"http://{self.address}/metrics/job/{self.job}"
+               f"/instance/{self.instance}")
+        body = self.metrics.render().encode()
+        req = urllib.request.Request(
+            url, data=body, method="POST",
+            headers={"Content-Type": "text/plain"})
+        try:
+            # best-effort fire-and-forget push to an out-of-cluster
+            # gateway: a breaker/retry would add queueing where dropping
+            # a sample is the right behaviour; bounded by the 5 s timeout
+            with urllib.request.urlopen(req, timeout=5):
+                with self._count_lock:
+                    self.pushed += 1
+                return True
+        except Exception:  # noqa: BLE001 — gateway may be down
+            with self._count_lock:
+                self.errors += 1
+            return False
+
+    def _run(self) -> None:
+        # immediate first push, then the interval cadence
+        while not self._stop.is_set():
+            self.push_once()
+            if self._stop.wait(self.interval):
+                return

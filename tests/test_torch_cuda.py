@@ -546,3 +546,83 @@ def test_scrub_ec_repairs_rotten_shards_on_the_card(tmp_path):
             res["repair_failed"]) == (2, 2, 2, 0)
     for sid, data in sealed.items():
         assert ec_files.shard_path(base, sid).read_bytes() == data
+
+
+@pytest.fixture
+def card_server(tmp_path):
+    """A port volume server on the card (device=None) with no master,
+    holding a 48 MiB volume of 1 MiB needles as volume 9; its gRPC
+    stub."""
+    _need_card()
+    import grpc
+    from seaweedfs_tpu_torch import pb
+    from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
+                                                           _grpc_port,
+                                                           free_port_pair)
+    from seaweedfs_tpu_torch.storage.store import Store
+    volume.write_synthetic_volume(tmp_path / "9", 48 << 20,
+                                  avg_size=1 << 20, seed=9)
+    store = Store([tmp_path])
+    store.load_existing()
+    vs = VolumeServer(store, port=free_port_pair()).start()
+    ch = grpc.insecure_channel(f"127.0.0.1:{_grpc_port(vs.port)}")
+    yield vs, pb.volume_stub(ch)
+    ch.close()
+    vs.stop()
+
+
+@pytest.mark.cuda
+def test_volume_server_generate_launches_once_per_batch(card_server):
+    """``VolumeEcShardsGenerate`` on the card: one transpose launch per
+    batch of the seal, and parity equal to ``rs_ref`` on sampled rows."""
+    from seaweedfs_tpu_torch.ops import rs_ref
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    vs, stub = card_server
+    base = vs.store.get_volume(9).base
+    dat = volume.dat_path(base)
+    dat_size = dat.stat().st_size
+    batches = len(list(encode.plan_batches(dat_size, DEFAULT_SCHEME,
+                                           pipe.current().batch_bytes)))
+    n = rs_cuda.apply_gf_matrix_transpose.launches
+    stub.VolumeEcShardsGenerate(vpb.VolumeEcShardsGenerateRequest(
+        volume_id=9))
+    assert rs_cuda.apply_gf_matrix_transpose.launches - n == batches
+    assert dat.exists()
+    ref = rs_ref.ReferenceEncoder(10, 4)
+    size = ec_files.shard_path(base, 0).stat().st_size
+    rng = np.random.default_rng(1)
+    for off in rng.integers(0, size - 4096, 4):
+        rows = [np.frombuffer(ec_files.shard_path(base, i).read_bytes()
+                              [off:off + 4096], dtype=np.uint8)
+                for i in range(14)]
+        assert np.array_equal(ref.encode_parity(np.stack(rows[:10])),
+                              np.stack(rows[10:]))
+
+
+@pytest.mark.cuda
+def test_volume_server_get_repairs_on_the_card(card_server):
+    """An HTTP GET of a needle whose shards are lost rebuilds its
+    intervals on the card and returns the needle's bytes: needle 1
+    starts the volume, so its first interval (at least half a MiB, over
+    DEVICE_MIN_S) lies in lost shard 0."""
+    import urllib.request
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.storage.types import FileId
+    vs, stub = card_server
+    vol = vs.store.get_volume(9)
+    want = {k: vol.read_needle(k) for k in (1, 2)}
+    stub.VolumeEcShardsGenerate(vpb.VolumeEcShardsGenerateRequest(
+        volume_id=9))
+    stub.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
+        volume_id=9, shard_ids=list(range(14))))
+    stub.VolumeDelete(vpb.VolumeDeleteRequest(volume_id=9))
+    stub.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+        volume_id=9, shard_ids=[0, 1]))
+    for k, n in want.items():
+        before = _launches()
+        url = f"http://{vs.url}/{FileId(9, k, n.cookie)}"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            assert r.read() == n.data
+        if k == 1:
+            assert _launches() > before

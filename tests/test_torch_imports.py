@@ -43,7 +43,15 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.storage.needle_map_sqlite",
        "seaweedfs_tpu_torch.storage.vacuum",
        "seaweedfs_tpu_torch.storage.scrubber",
-       "seaweedfs_tpu_torch.util.crashfs"}
+       "seaweedfs_tpu_torch.util.crashfs",
+       "seaweedfs_tpu_torch.pb", "seaweedfs_tpu_torch.pb.master_pb2",
+       "seaweedfs_tpu_torch.pb.volume_server_pb2",
+       "seaweedfs_tpu_torch.pb.filer_pb2",
+       "seaweedfs_tpu_torch.cluster",
+       "seaweedfs_tpu_torch.cluster.volume_server",
+       "seaweedfs_tpu_torch.util.glog", "seaweedfs_tpu_torch.util.security",
+       "seaweedfs_tpu_torch.util.tls", "seaweedfs_tpu_torch.util.httpserver",
+       "seaweedfs_tpu_torch.util.retry"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -57,9 +65,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     assert "bad: []" in out.stdout
     # every module of the slices so far was imported, the shell, Store,
     # Volume engine, the multi-device split, the config loader, the
-    # flight recorder, the needle maps, vacuum, the scrubber and the
-    # crash harness among them
-    assert int(out.stdout.split()[0]) >= 52
+    # flight recorder, the needle maps, vacuum, the scrubber, the crash
+    # harness, the pb copies, the volume server and its wire utilities
+    # among them
+    assert int(out.stdout.split()[0]) >= 62
     assert "missing: []" in out.stdout
 
 

@@ -752,24 +752,73 @@ def test_vacuum_and_fault_commands_equal_jax(tmp_path, fault_state):
     assert "crash.vacuum.midcommit" in port_points
 
 
+def _trip(retry_mod):
+    """Trip the breaker of a dead endpoint open; return it."""
+    brk = retry_mod.breaker_for("127.0.0.1:1")
+    for _ in range(brk.threshold):
+        brk.record_failure()
+    assert brk.to_dict()["state"] == "open"
+    return brk
+
+
 def test_fault_clear_breakers_is_refused_and_disarms_nothing(
-        tmp_path, fault_state, capsys):
-    """The port has no circuit breakers yet: ``fault.clear -breakers``
-    prints one ``error:`` line, exits 1, and leaves the armed point
-    armed; a bad spec is one ``error:`` line in both packages."""
-    from seaweedfs_tpu_torch.shell import cli as port_cli
+        tmp_path, fault_state):
+    """``fault.clear -breakers`` with a flag the command does not know is
+    refused before it acts, alike in both packages: one ``error:`` line,
+    exit 1, the armed point still armed and the tripped breaker still
+    open; a bad spec is one ``error:`` line in both packages."""
+    from seaweedfs_tpu.util import retry as jax_retry
+    from seaweedfs_tpu_torch.util import retry as port_retry
     d = tmp_path / "a"
     d.mkdir()
-    rc = port_cli.main(["-dir", str(d), "-device", "cpu", "-c",
-                        "fault.inject -point ec.shard_read -spec error; "
-                        "fault.clear -breakers"])
-    err = capsys.readouterr().err.splitlines()
-    assert rc == 1 and len(err) == 1
-    assert err[0].startswith("error: fault.clear: -breakers is not ported")
-    assert "cluster slice" in err[0]
-    assert [s["point"] for s in port_faults.specs()] == ["ec.shard_read"]
+    got = {}
+    for pkg, retry_mod, faults_mod in (("jax", jax_retry, jax_faults),
+                                       ("port", port_retry, port_faults)):
+        brk = _trip(retry_mod)
+        try:
+            got[pkg] = _main(pkg, ["-dir", str(d), "-c",
+                                   "fault.inject -point ec.shard_read "
+                                   "-spec error; fault.clear -breakers "
+                                   "-point"])
+            assert [s["point"] for s in faults_mod.specs()] == \
+                ["ec.shard_read"]
+            assert retry_mod.breaker_for("127.0.0.1:1") is brk
+            assert not brk.allow()
+        finally:
+            retry_mod.reset_breakers()
+    assert got["port"] == got["jax"]
+    rc, _lines, err = got["port"]
+    assert rc == 1 and len(err) == 1 and err[0].startswith("error:")
+    assert "fault.clear" in err[0]
     bad = {pkg: _main(pkg, ["-dir", str(d), "-c",
                             "fault.inject -point ec.shard_read -spec boom"])
            for pkg in ("jax", "port")}
     assert bad["port"] == bad["jax"]
     assert bad["port"][0] == 1 and "unknown fault action" in bad["port"][2][0]
+
+
+def test_fault_clear_breakers_resets_breakers_equal_jax(tmp_path,
+                                                        fault_state):
+    """The port's retry layer has circuit breakers, so ``fault.clear
+    -breakers`` is no longer refused. Through both packages' ``cli.main``
+    it disarms the armed point, resets the breakers each package's retry
+    layer holds (one tripped open beforehand) and prints the same
+    line."""
+    from seaweedfs_tpu.util import retry as jax_retry
+    from seaweedfs_tpu_torch.util import retry as port_retry
+    d = tmp_path / "a"
+    d.mkdir()
+    got = {}
+    for pkg, retry_mod in (("jax", jax_retry), ("port", port_retry)):
+        brk = _trip(retry_mod)
+        got[pkg] = _main(pkg, ["-dir", str(d), "-c",
+                               "fault.inject -point ec.shard_read "
+                               "-spec error; fault.clear -breakers"])
+        fresh = retry_mod.breaker_for("127.0.0.1:1")
+        assert fresh is not brk and fresh.allow()
+        retry_mod.reset_breakers()
+    assert got["port"] == got["jax"]
+    rc, lines, err = got["port"]
+    assert rc == 0 and err == []
+    assert lines[-1] == "fault.clear: all points disarmed + breakers reset"
+    assert port_faults.specs() == []

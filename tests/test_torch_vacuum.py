@@ -148,6 +148,36 @@ def test_shell_of_each_package_vacuums_alike(tmp_path, kind):
 # -- the JAX tests/test_vacuum.py cases, on the port ------------------------
 
 
+@pytest.mark.parametrize("backend", ["disk", "mmap"])
+def test_vacuum_on_each_backend(tmp_path, backend):
+    """Compaction on each ``.dat`` backend, with a write and a delete
+    between the snapshot and the commit: the files equal the JAX
+    package's on the same backend, and the volume keeps its backend
+    kind across the swap and serves reads at once."""
+    seed = tmp_path / "seed"
+    seed.mkdir()
+    want = _seed_volume(seed)
+    out = {}
+    for name, (vol_mod, vac, ndl, _st) in PKGS.items():
+        d = tmp_path / name
+        shutil.copytree(seed, d)
+        vol = vol_mod.Volume(d / "7", 7, backend=backend).load()
+        state = vac.compact(vol)
+        vol.write_needle(ndl.Needle(cookie=9, id=500, data=b"late" * 40,
+                                    append_at_ns=500))
+        vol.delete_needle(4)
+        vac.commit_compact(vol, state)
+        assert vol.backend_kind == backend
+        assert type(vol._dat).__name__ == \
+            ("MmapFile" if backend == "mmap" else "DiskFile")
+        assert vol.read_needle(500).data == b"late" * 40
+        for key in (1, 58):
+            assert vol.read_needle(key).data == want[key]
+        vol.close()
+        out[name] = _files(d / "7")
+    assert out["port"] == out["jax"]
+
+
 def test_vacuum_reclaims_space_and_preserves_reads(tmp_path):
     base = str(tmp_path / "1")
     vol, payloads = _fill(base)
