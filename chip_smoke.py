@@ -48,20 +48,32 @@ of which fails the run on any mismatch:
    seaweedfs_tpu_torch shell`` in its own process on a 16 MiB volume,
    held against an in-process encode; each command's wall seconds and
    GiB/s beside the direct call's;
-7. cluster (config 1 through two port volume servers, A and B, in this
-   process with no master, over localhost gRPC and HTTP): the path
-   phase's needles POSTed to A (.dat and .idx sha256-equal to the path
-   phase's; MiB/s), ``VolumeEcShardsGenerate`` (shards, .ecx and .vif
-   sha256-equal to the sealed ones, one launch per batch; GiB/s beside
-   the direct encode), every needle read by HTTP GET from A's shards (no
-   launch), ``VolumeEcShardsCopy`` of every shard to B (sha256-equal,
-   GiB/s) and one ``VolumeEcShardRead`` range, every needle read from B
-   with shards 0, 5, 11 and 13 deleted (reconstruct-on-read: needles/s,
-   p50, p99, launches, host-codec calls), ``VolumeEcShardsRebuild``
-   (sha256-equal), ``VolumeEcShardsToVolume`` after losing data shards 0
-   and 5 (.dat and .idx sha256-equal, every needle read back); then
-   ``python -m seaweedfs_tpu_torch volume`` in its own process (status,
-   one POST, one GET, SIGTERM);
+7. cluster (config 1 through a port master and two port volume servers,
+   A and B on one rack, in this process, over localhost gRPC and HTTP):
+   by RPC, the path phase's needles POSTed to A (.dat and .idx
+   sha256-equal to the path phase's; MiB/s), ``VolumeEcShardsGenerate``
+   (shards, .ecx and .vif sha256-equal to the sealed ones, one launch
+   per batch; GiB/s beside the direct encode), every needle read by HTTP
+   GET from A's shards (no launch), ``VolumeEcShardsCopy`` of every
+   shard to B (sha256-equal, GiB/s) and one ``VolumeEcShardRead`` range,
+   every needle read from B with shards 0, 5, 11 and 13 deleted on both
+   servers (reconstruct-on-read: needles/s, p50, p99, launches,
+   host-codec calls), ``VolumeEcShardsRebuild`` (sha256-equal),
+   ``VolumeEcShardsToVolume`` after losing data shards 0 and 5 (.dat and
+   .idx sha256-equal, every needle read back); then through the master:
+   64 needles of about 1 MiB by ``operation.submit`` with replication
+   001, each read back sha256-equal from A and from B (MiB/s, ms per
+   needle); the cluster shell in this process running ``lock; ec.encode;
+   ec.balance; volume.list; unlock`` on the restored volume (one launch
+   per batch, shards spread even/odd over A/B and sha256-equal to the
+   sealed ones; GiB/s beside the RPC-driven Generate); every needle read
+   by ``operation.download`` with shards 0, 5, 11 and 13 gone, each
+   server fetching what it lacks through ``ec_shard_peers`` (needles/s,
+   p50, p99, launches); the shell's ``ec.rebuild`` and ``ec.decode``
+   (sha256-equal; GiB/s); then ``python -m seaweedfs_tpu_torch master``,
+   ``volume`` joining it (status, one POST, one GET) and ``shell -master
+   ... -c volume.list`` naming it and an in-process server, each in its
+   own process (SIGTERM ends both servers);
 8. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
    a bulk decode of 4 lost shards through the kernels while 8 reader
    threads send 64 QPS of 4 KiB interval repairs, all checked;
@@ -947,44 +959,105 @@ def _http(conn, method: str, path: str, body=None) -> tuple:
     return r.status, r.read()
 
 
+#: The cluster phase's heartbeat pulse (master and servers), seconds.
+CLUSTER_PULSE = 1.0
+#: The replicated uploads of the cluster phase: 64 needles of about 1 MiB
+#: with replication 001 (A and B share a rack).
+REPLICATED_NEEDLES = 64
+
+
+def cluster_shell(master_url: str, script: str, what: str, expect: dict,
+                  launches: dict) -> tuple:
+    """The cluster shell's ``-c`` session in this process: one
+    ``ClusterEnv`` on the master, and each command of ``script`` through
+    ``run_cluster_command`` as ``shell -master ... -c`` runs it, each
+    driven with every launch count set to 0 just before it. ``expect``
+    maps a command to the kernels it must launch; every other command
+    must launch none. Returns the printed lines and each command's
+    (name, seconds, launches)."""
+    from seaweedfs_tpu_torch.shell.cluster_commands import (
+        ClusterEnv, run_cluster_command)
+
+    out, log = io.StringIO(), []
+    env = ClusterEnv(master_url=master_url, out=out)
+    try:
+        for line in filter(None, (x.strip() for x in script.split(";"))):
+            name = line.split()[0]
+            got = dict.fromkeys(launches, 0)
+            _, wall = drive(f"{what}: {line}",
+                            lambda: run_cluster_command(env, line),
+                            expect.get(name, dict.fromkeys(launches, False)),
+                            got)
+            log.append((name, wall, got))
+            for k, v in got.items():
+                launches[k] += v
+    finally:
+        env.close()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        say(f"  > {line}")
+    return lines, log
+
+
 def cluster_phase(dev, workdir: str, pres: dict, label: str,
                   launches: dict) -> dict:
-    """Config 1 through two port volume servers, A and B, in this process
-    on the card with no master (``master_url=""``), over localhost gRPC
-    and HTTP, this phase driving the choreography the shell would:
-    allocate on A, ingest the path phase's needles by HTTP POST, seal
-    with ``VolumeEcShardsGenerate``, read every needle from A's shards,
-    copy all shards to B, read every needle from B with shards 0, 5, 11
-    and 13 lost (reconstruct-on-read), rebuild them, decode with
-    ``VolumeEcShardsToVolume``; then ``python -m seaweedfs_tpu_torch
-    volume`` in its own process. The peer lookup through a master
-    (``ec_shard_peers``) is not driven here: the port has no master yet,
-    and it runs in tier-1 against the JAX master."""
+    """Config 1 through a port master and two port volume servers, A and
+    B (one rack), in this process on the card, over localhost gRPC and
+    HTTP. First this phase drives the choreography the shell would, by
+    RPC: allocate on A, ingest the path phase's needles by HTTP POST,
+    seal with ``VolumeEcShardsGenerate``, read every needle from A's
+    shards, copy all shards to B, read every needle from B with shards
+    0, 5, 11 and 13 lost everywhere (reconstruct-on-read), rebuild them,
+    decode with ``VolumeEcShardsToVolume``. Then through the master:
+    replicated uploads (``operation.submit``, replication 001) read back
+    from A and from B; the cluster shell's ``lock; ec.encode; ec.balance;
+    volume.list; unlock`` on the restored volume; degraded reads through
+    ``operation.download`` with shards 0, 5, 11 and 13 gone, served
+    through ``ec_shard_peers``; the shell's ``ec.rebuild`` and
+    ``ec.decode``. Last, ``python -m seaweedfs_tpu_torch master``,
+    ``volume`` (joining it) and ``shell -master ... -c volume.list`` in
+    their own processes."""
     import http.client
 
     import grpc
 
     from seaweedfs_tpu_torch import pb
+    from seaweedfs_tpu_torch.cluster import operation
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
     from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
                                                            _grpc_port,
                                                            free_port_pair)
+    from seaweedfs_tpu_torch.cluster.wdclient import MasterClient
     from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
     from seaweedfs_tpu_torch.storage.types import FileId
 
     t_phase = time.perf_counter()
     scheme = DEFAULT_SCHEME
+    total = scheme.total_shards
     vid = 1
     dat_size = os.path.getsize(pres["base"] + ".dat")
     gib = dat_size / GIB
+    shard_size = scheme.shard_file_size(dat_size)
     sealed = pres["sealed"]
     result = {}
+    phase_launches = {"rpc": dict.fromkeys(KERNELS, 0),
+                      "shell": dict.fromkeys(KERNELS, 0),
+                      "client": dict.fromkeys(KERNELS, 0)}
     dirs = {name: os.path.join(workdir, name) for name in "AB"}
+    master = MasterServer(port=free_port_pair(),
+                          pulse_seconds=CLUSTER_PULSE).start()
     servers, channels = {}, []
     for name, d in dirs.items():
         os.makedirs(d)
-        servers[name] = VolumeServer(store_mod.Store([d]),
-                                     port=free_port_pair(),
-                                     device=dev).start()
+        servers[name] = VolumeServer(
+            store_mod.Store([d]), port=free_port_pair(),
+            master_url=master.url, data_center="dc1", rack="r0",
+            pulse_seconds=CLUSTER_PULSE, device=dev).start()
+        servers[name].heartbeat_now()
+    check(sorted(master.topology.nodes) == sorted(
+        vs.url for vs in servers.values()),
+        f"port master {master.url}: A and B joined by heartbeat")
+    mc = MasterClient(master.url)
 
     def stub(name):
         ch = grpc.insecure_channel(
@@ -993,12 +1066,17 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
         channels.append(ch)
         return pb.volume_stub(ch)
 
+    def settle():
+        for vs in servers.values():
+            vs.heartbeat_now()
+
     a, b = stub("A"), stub("B")
     conns = {name: http.client.HTTPConnection("127.0.0.1", vs.port,
                                               timeout=300)
              for name, vs in servers.items()}
     abase = os.path.join(dirs["A"], str(vid))
     bbase = os.path.join(dirs["B"], str(vid))
+    rpc = phase_launches["rpc"]
     try:
         # 1-2: allocate on A, then the path phase's needles by HTTP POST
         a.AllocateVolume(vpb.AllocateVolumeRequest(volume_id=vid))
@@ -1047,7 +1125,7 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
                     if code != 200 or \
                             hashlib.sha256(body).digest() != digest:
                         raise SmokeError(f"{what}: GET {fid} gave {code}")
-            drive(what, run, expect, launches)
+            drive(what, run, expect, rpc)
             check(len(times) == len(written), f"{what}: all "
                   f"{len(written)} needles equal to the ones written")
             return times
@@ -1079,7 +1157,7 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
         _, wall = drive("VolumeEcShardsGenerate on A",
                         lambda: a.VolumeEcShardsGenerate(
                             vpb.VolumeEcShardsGenerateRequest(volume_id=vid)),
-                        {"transpose": True, "swar": False}, launches)
+                        {"transpose": True, "swar": False}, rpc)
         got = counts()["transpose"]
         check(got == batches, f"VolumeEcShardsGenerate: transpose kernel "
               f"launched {got} times, one per batch ({batches})")
@@ -1095,7 +1173,7 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
 
         # 4: mount, drop the .dat, read every needle from A's shards
         a.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
-            volume_id=vid, shard_ids=list(range(scheme.total_shards))))
+            volume_id=vid, shard_ids=list(range(total))))
         a.VolumeDelete(vpb.VolumeDeleteRequest(volume_id=vid))
         check(not os.path.exists(abase + ".dat"), "VolumeDelete: A's .dat "
               "gone, its shards mounted")
@@ -1110,7 +1188,7 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
         moved = sum(os.path.getsize(abase + n) for n in sealed)
         t0 = time.perf_counter()
         b.VolumeEcShardsCopy(vpb.VolumeEcShardsCopyRequest(
-            volume_id=vid, shard_ids=list(range(scheme.total_shards)),
+            volume_id=vid, shard_ids=list(range(total)),
             copy_ecx_file=True, copy_ecj_file=True, copy_vif_file=True,
             source_data_node=servers["A"].url))
         copy_s = time.perf_counter() - t0
@@ -1130,11 +1208,18 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
             check(got == f.read(size), f"VolumeEcShardRead of shard 3 "
                   f"[{off}, {off + size}) equal to the file's bytes")
         b.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
-            volume_id=vid, shard_ids=list(range(scheme.total_shards))))
+            volume_id=vid, shard_ids=list(range(total))))
 
-        # 6: lose 4 shards on B, reconstruct-on-read
-        b.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
-            volume_id=vid, shard_ids=list(LOST_READ)))
+        # 6: lose 4 shards on B and on A: the master names no holder of
+        # them, so B reconstructs them on read
+        for s in (a, b):
+            s.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+                volume_id=vid, shard_ids=list(LOST_READ)))
+        settle()
+        check(sorted(master.topology.lookup_ec_volume(vid)) ==
+              [s for s in range(total) if s not in LOST_READ],
+              f"the master's LookupEcVolume: shards {list(LOST_READ)} "
+              f"held nowhere")
         times = read_all("B", f"GET from B with shards {list(LOST_READ)} "
                          f"lost (reconstruct-on-read)",
                          {"transpose": True, "swar": False})
@@ -1155,12 +1240,11 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
             "VolumeEcShardsRebuild on B",
             lambda: b.VolumeEcShardsRebuild(
                 vpb.VolumeEcShardsRebuildRequest(volume_id=vid)),
-            {"transpose": True, "swar": False}, launches)
+            {"transpose": True, "swar": False}, rpc)
         check(list(resp.rebuilt_shard_ids) == list(LOST_READ)
               and sealed_digests(bbase) == sealed,
               f"VolumeEcShardsRebuild: {list(resp.rebuilt_shard_ids)} "
               f"rebuilt sha256-equal to the sealed shards")
-        shard_size = scheme.shard_file_size(dat_size)
         result["rebuild_gibps"] = len(LOST_READ) * shard_size / GIB / wall
         say(f"  VolumeEcShardsRebuild: {wall:.3f} s, "
             f"{result['rebuild_gibps']:.3f} GiB/s of rebuilt shards vs "
@@ -1173,7 +1257,7 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
             "VolumeEcShardsToVolume on B",
             lambda: b.VolumeEcShardsToVolume(
                 vpb.VolumeEcShardsToVolumeRequest(volume_id=vid)),
-            {"transpose": True, "swar": False}, launches)
+            {"transpose": True, "swar": False}, rpc)
         result["to_volume_gibps"] = gib / wall
         say(f"  VolumeEcShardsToVolume: {wall:.3f} s, {gib / wall:.3f} "
             f"GiB/s of .dat vs decode_volume {pres['decode_gibps']:.3f} "
@@ -1185,32 +1269,232 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
               "originals, the volume mounted again")
         read_all("B", "GET from B's decoded volume",
                  {"transpose": False, "swar": False})
+        # the shard files left on A and B go; the volume lives on B
+        for s in (a, b):
+            s.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+                volume_id=vid, shard_ids=list(range(total))))
+        settle()
+        check(not master.topology.lookup_ec_volume(vid) and
+              [n.url for n in master.topology.lookup_volume(vid)] ==
+              [servers["B"].url], f"the master: volume {vid} on B alone, "
+              f"no EC shards of it")
+        say(f"  launches of the RPC-driven steps: {json.dumps(rpc)}")
+
+        # 9: replicated uploads through the master (replication 001)
+        rng = np.random.default_rng(SEED + 9)
+        blobs = [rng.integers(0, 256, MIB + int(rng.integers(-4096, 4096)),
+                              dtype=np.uint8).tobytes()
+                 for _ in range(REPLICATED_NEEDLES)]
+        fids, up = [], []
+        for blob in blobs:
+            t0 = time.perf_counter()
+            fids += operation.submit(mc, [blob], replication="001")
+            up.append(time.perf_counter() - t0)
+        rvid = int(fids[0].split(",")[0])
+        check(sorted(loc["url"] for loc in mc.lookup(rvid)) ==
+              sorted(vs.url for vs in servers.values()),
+              f"operation.submit -replication 001: the master grew volume "
+              f"{rvid} on A and B")
+        # fresh connections: the ingress closes a keep-alive connection
+        # that idled through the RPC-driven steps
+        for c in conns.values():
+            c.close()
+        conns = {name: http.client.HTTPConnection("127.0.0.1", vs.port,
+                                                  timeout=300)
+                 for name, vs in servers.items()}
+        equal = sum(
+            hashlib.sha256(_http(conns[name], "GET", f"/{fid}")[1]).digest()
+            == hashlib.sha256(blob).digest()
+            for name in "AB" for fid, blob in zip(fids, blobs))
+        check(equal == 2 * len(fids), f"{len(fids)} replicated needles: "
+              f"{equal} GETs from A and B sha256-equal to the uploads")
+        up_mib = sum(len(x) for x in blobs) / MIB
+        result["replicated_upload"] = {
+            "needles": len(fids), "seconds": sum(up),
+            "mib_per_s": up_mib / sum(up),
+            "ms_per_needle": 1e3 * sum(up) / len(up),
+            "p99_ms": float(np.percentile(np.asarray(up) * 1e3, 99))}
+        say(f"  replicated upload (001, A and B) on {label}: "
+            f"{json.dumps(result['replicated_upload'])}")
+
+        # 10: the cluster shell seals the restored volume on B and
+        # spreads its shards over A and B
+        shell = phase_launches["shell"]
+        lines, log = cluster_shell(
+            master.url, f"lock; ec.encode -volumeId {vid}; ec.balance; "
+            f"volume.list; unlock", "shell",
+            {"ec.encode": {"transpose": True, "swar": False}}, shell)
+        enc = next(e for e in log if e[0] == "ec.encode")
+        check(enc[2]["transpose"] == batches,
+              f"shell ec.encode: transpose kernel launched "
+              f"{enc[2]['transpose']} times, one per batch ({batches})")
+        settle()
+        held = {name: sorted(vs.store.ec_mounts[("", vid)].shard_ids)
+                for name, vs in servers.items()
+                if ("", vid) in vs.store.ec_mounts}
+        check(held == {"A": list(range(0, total, 2)),
+                       "B": list(range(1, total, 2))},
+              f"shell ec.encode: shards spread A {held.get('A')}, "
+              f"B {held.get('B')}, as the JAX shell's rack spread puts "
+              f"them")
+        digests = {}
+        for name, sids in held.items():
+            base = os.path.join(dirs[name], str(vid))
+            digests.update({ec_files.shard_ext(s): sha256_file(
+                ec_files.shard_path(base, s)) for s in sids})
+            for ext in (".ecx", ".vif"):
+                check(sha256_file(base + ext) == sealed[ext],
+                      f"shell ec.encode: {name}'s {ext} sha256-equal to "
+                      f"the path phase's")
+        check(digests == {k: v for k, v in sealed.items()
+                          if k.startswith(".ec") and k != ".ecx"},
+              "shell ec.encode: the 14 shards over A and B sha256-equal "
+              "to the path phase's sealed files")
+        check(not servers["B"].store.has_volume(vid)
+              and any(f"ec volume {vid}" in line for line in lines),
+              "shell ec.encode: the source volume dropped; volume.list "
+              "shows the EC volume")
+        result["shell_encode_gibps"] = gib / enc[1]
+        say(f"  shell ec.encode: {gib / enc[1]:.3f} GiB/s of .dat in "
+            f"{enc[1]:.3f} s (Generate, then 7 shards copied to A) vs "
+            f"VolumeEcShardsGenerate {result['generate_gibps']:.3f} GiB/s "
+            f"on {label}; commands "
+            f"{json.dumps([(n, round(s, 3), c) for n, s, c in log])}")
+
+        # 11: shards 0, 5, 11 and 13 gone; degraded reads through the
+        # master: each server has the shards it lacks from the other
+        # (ec_shard_peers asks the master) and reconstructs the rest
+        for name, vs in servers.items():
+            gone = [s for s in held[name] if s in LOST_READ]
+            (a if name == "A" else b).VolumeEcShardsDelete(
+                vpb.VolumeEcShardsDeleteRequest(volume_id=vid,
+                                                shard_ids=gone))
+        settle()
+        check(sorted(master.topology.lookup_ec_volume(vid)) ==
+              [s for s in range(total) if s not in LOST_READ],
+              f"the master: shards {list(LOST_READ)} held nowhere")
+        mc.invalidate()
+        repaired0 = sum(vs.metrics.counter("ec_intervals_repaired").value
+                        for vs in servers.values())
+        times = []
+
+        def download_all():
+            for fid, digest in written.items():
+                t0 = time.perf_counter()
+                body = operation.download(mc, fid)
+                times.append(time.perf_counter() - t0)
+                if hashlib.sha256(body).digest() != digest:
+                    raise SmokeError(f"operation.download {fid}: bytes "
+                                     f"differ from the .dat's")
+        drive("operation.download with shards "
+              f"{list(LOST_READ)} gone (ec_shard_peers through the master)",
+              download_all, {"transpose": True, "swar": False},
+              phase_launches["client"])
+        check(len(times) == len(written), f"operation.download: all "
+              f"{len(written)} needles equal to the .dat's")
+        ms = np.asarray(times) * 1e3
+        result["master_degraded_read"] = {
+            "needles_per_s": len(times) / sum(times),
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "launches": counts(),
+            "host_codec_calls": rs_native.apply_gf_matrix.calls,
+            "intervals_repaired": sum(
+                vs.metrics.counter("ec_intervals_repaired").value
+                for vs in servers.values()) - repaired0}
+        say(f"  degraded operation.download through the master on "
+            f"{label}: {json.dumps(result['master_degraded_read'])}")
+
+        # 12: the shell rebuilds the lost shards, then decodes
+        lines, log = cluster_shell(
+            master.url, "ec.rebuild", "shell",
+            {"ec.rebuild": {"transpose": True, "swar": False}}, shell)
+        check(any(f"rebuilt {list(LOST_READ)}" in line for line in lines),
+              f"shell ec.rebuild: shards {list(LOST_READ)} rebuilt")
+        settle()
+        for name, vs in servers.items():
+            base = os.path.join(dirs[name], str(vid))
+            for s in vs.store.ec_mounts[("", vid)].shard_ids:
+                if sha256_file(ec_files.shard_path(base, s)) != \
+                        sealed[ec_files.shard_ext(s)]:
+                    raise SmokeError(f"shell ec.rebuild: {name}'s shard "
+                                     f"{s} differs from the sealed one")
+        check(sorted(master.topology.lookup_ec_volume(vid)) ==
+              list(range(total)), "shell ec.rebuild: every shard held "
+              "again, each sha256-equal to the sealed one")
+        wall = log[0][1]
+        result["shell_rebuild_gibps"] = \
+            len(LOST_READ) * shard_size / GIB / wall
+        say(f"  shell ec.rebuild: {wall:.3f} s, "
+            f"{result['shell_rebuild_gibps']:.3f} GiB/s of rebuilt shards "
+            f"(survivors fetched from the other server first) vs "
+            f"VolumeEcShardsRebuild {result['rebuild_gibps']:.3f} on "
+            f"{label}")
+        lines, log = cluster_shell(
+            master.url, f"ec.decode -volumeId {vid}", "shell", {}, shell)
+        settle()
+        back = [name for name, vs in servers.items()
+                if vs.store.has_volume(vid)]
+        check(len(back) == 1, f"shell ec.decode: volume {vid} restored on "
+              f"{back}")
+        base = os.path.join(dirs[back[0]], str(vid))
+        check(sha256_file(base + ".dat") == pres["dat_sha"]
+              and sha256_file(base + ".idx") == pres["idx_sha"],
+              "shell ec.decode: .dat and .idx sha256-equal to the "
+              "originals")
+        wall = log[0][1]
+        result["shell_decode_gibps"] = gib / wall
+        say(f"  shell ec.decode: {wall:.3f} s, {gib / wall:.3f} GiB/s of "
+            f".dat (missing shards copied first; every data shard "
+            f"present, so no product) vs VolumeEcShardsToVolume "
+            f"{result['to_volume_gibps']:.3f} on {label}")
+        say(f"  launches of the shell-driven steps: {json.dumps(shell)}; "
+            f"of operation.download: "
+            f"{json.dumps(phase_launches['client'])}")
     finally:
+        mc.close()
         for c in conns.values():
             c.close()
         for ch in channels:
             ch.close()
         for vs in servers.values():
             vs.stop()
+        master.stop()
     shutil.rmtree(dirs["A"])
     shutil.rmtree(dirs["B"])
+    for part in phase_launches.values():
+        for name, n in part.items():
+            launches[name] += n
+    result["launches"] = phase_launches
 
-    # 9: the volume server as an operator runs it, in its own process
+    # 13: the master, a volume server joining it and the shell, as an
+    # operator runs them, each in its own process
     c = os.path.join(workdir, "C")
     os.makedirs(c)
-    port = free_port_pair()
+    mport, port = free_port_pair(), free_port_pair()
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join(
                    [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "seaweedfs_tpu_torch", "volume", "-dir", c,
-         "-mserver", "", "-port", str(port)],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+    procs = {}
+    for name, args in (
+            ("master", ["master", "-port", str(mport),
+                        "-pulseSeconds", str(CLUSTER_PULSE)]),
+            ("volume", ["volume", "-dir", c, "-mserver",
+                        f"127.0.0.1:{mport}", "-port", str(port),
+                        "-pulseSeconds", str(CLUSTER_PULSE)])):
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch"] + args,
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    d_dir = os.path.join(workdir, "D")
+    os.makedirs(d_dir)
+    d_server = None
+    outs = {}
     try:
         conn = None
-        while time.perf_counter() - t0 < 180 and proc.poll() is None:
+        while time.perf_counter() - t0 < 180 and all(
+                p.poll() is None for p in procs.values()):
             try:
                 conn = http.client.HTTPConnection("127.0.0.1", port,
                                                   timeout=30)
@@ -1236,20 +1520,50 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
               "python -m seaweedfs_tpu_torch volume: one POST and one GET "
               "of 3 MiB, equal bytes")
         conn.close()
+        d_server = VolumeServer(
+            store_mod.Store([d_dir]), port=free_port_pair(),
+            master_url=f"127.0.0.1:{mport}", pulse_seconds=CLUSTER_PULSE,
+            device=dev).start()
+        d_server.heartbeat_now()
+        t1 = time.perf_counter()
+        want = (f"DataNode 127.0.0.1:{port} volumes=1/",
+                f"DataNode {d_server.url} volumes=0/")
+        listed = ""
+        while time.perf_counter() - t1 < 120:
+            sh = subprocess.run(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
+                 "-master", f"127.0.0.1:{mport}", "-c", "volume.list"],
+                cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=120)
+            listed = sh.stdout
+            if sh.returncode == 0 and all(w in listed for w in want):
+                break
+            time.sleep(CLUSTER_PULSE)
+        for line in listed.splitlines():
+            say(f"  $ {line}")
+        check(all(w in listed for w in want),
+              f"python -m seaweedfs_tpu_torch shell -master -c volume.list "
+              f"names the volume subprocess and the in-process server "
+              f"({time.perf_counter() - t1:.1f} s)")
     finally:
-        proc.terminate()
-        try:
-            out, err = proc.communicate(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-    for line in (out + err).splitlines()[-5:]:
-        say(f"  $ {line}")
-    check(proc.returncode == 0, f"the volume subprocess stopped on SIGTERM "
-          f"with exit {proc.returncode} after "
-          f"{time.perf_counter() - t0:.1f} s")
+        if d_server is not None:
+            d_server.stop()
+        for name in ("volume", "master"):
+            proc = procs[name]
+            proc.terminate()
+            try:
+                outs[name] = proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                outs[name] = proc.communicate()
+    for name, (out, err) in outs.items():
+        for line in (out + err).splitlines()[-3:]:
+            say(f"  $ [{name}] {line}")
+        check(procs[name].returncode == 0, f"the {name} subprocess "
+              f"stopped on SIGTERM with exit {procs[name].returncode}")
     result["subprocess_s"] = time.perf_counter() - t0
     shutil.rmtree(c)
+    shutil.rmtree(d_dir)
     result["seconds"] = time.perf_counter() - t_phase
     say(f"  cluster phase: {result['seconds']:.1f} s")
     return result
@@ -2189,7 +2503,8 @@ def main() -> int:
         say("phase shell (config 1 through the admin shell):")
         shell_phase(dev, os.path.join(workdir, "shell"), pres, label,
                     launches)
-        say("phase cluster (config 1 through two port volume servers):")
+        say("phase cluster (config 1 through a port master and two port "
+            "volume servers):")
         cluster_phase(dev, os.path.join(workdir, "cluster"), pres, label,
                       launches)
         say("phase repair under load (config 5):")

@@ -1,13 +1,18 @@
 """Top-level CLI dispatcher — the `weed` binary analog.
 
-The port of ``seaweedfs_tpu/__main__.py``, with two subcommands so far:
+The port of ``seaweedfs_tpu/__main__.py``, with these subcommands so far:
 
-    python -m seaweedfs_tpu_torch shell  -dir ... [-device cuda|cpu]
+    python -m seaweedfs_tpu_torch master -port 9333 [-peers a,b,c]
     python -m seaweedfs_tpu_torch volume -dir d -mserver host:port \
         [-device cuda|cpu]
+    python -m seaweedfs_tpu_torch shell  -master host:port | -dir ... \
+        [-device cuda|cpu]
+    python -m seaweedfs_tpu_torch upload -master host:port file...
+    python -m seaweedfs_tpu_torch download -master host:port fid...
+    python -m seaweedfs_tpu_torch delete -master host:port fid...
 
-The other subcommands (master, filer, ...) come with later slices of the
-port.
+The other subcommands (filer, s3, benchmark, ...) come with later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -25,9 +30,25 @@ def _run_volume(argv: list[str]) -> int:
     return main(argv)
 
 
+def _run_master(argv: list[str]) -> int:
+    from .cluster.master import main
+    return main(argv)
+
+
+def _run_client(name: str):
+    def run(argv: list[str]) -> int:
+        from . import cli_tools
+        return getattr(cli_tools, f"run_{name}")(argv)
+    return run
+
+
 COMMANDS = {
     "shell": _run_shell,
     "volume": _run_volume,
+    "master": _run_master,
+    "upload": _run_client("upload"),
+    "download": _run_client("download"),
+    "delete": _run_client("delete"),
 }
 
 

@@ -9,10 +9,13 @@ shards over ``VolumeEcShardRead``), fans replicated writes out to peer
 replicas, and executes the shell's EC choreography rpcs — generate (the
 seal, on the card's GF(2^8) kernels), rebuild, copy (via ``CopyFile``
 streaming from the source node), mount, unmount, to-volume. A
-background thread streams heartbeat snapshots to the master (§3.4); the
-port has no master yet, so its servers join the JAX package's master,
-or run with no master at all (``master_url=""``), when the caller
-drives the choreography itself.
+background thread streams heartbeat snapshots to the master (§3.4): the
+port's own (``cluster/master.py``) or the JAX package's, which speak
+the same wire. Both ``ec_shard_peers`` (the shard lookup of the EC read
+path and of rebuild, ``LookupEcVolume``) and the replica fan-out
+(``LookupVolume``) ask that master. A server may also run with no
+master at all (``master_url=""``), when the caller drives the
+choreography itself.
 
 ``device`` (None = the card; raises when there is none, before any port
 is bound) is where every encode, rebuild, decode and reconstructing

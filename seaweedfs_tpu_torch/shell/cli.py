@@ -1,24 +1,29 @@
 """Shell entry point: REPL or one-shot command execution.
 
-The port of ``seaweedfs_tpu/shell/cli.py`` for its offline mode: with
-``-dir`` the commands operate directly on local disk locations. ``-c``
-runs a command — or a ``;``-separated sequence sharing one session — and
-exits. ``-device`` picks where the EC pipelines run: ``cuda`` (the
-default, which fails without a card) or ``cpu`` (the plain PyTorch
-codec). ``-config F`` loads a TOML file and applies its ``[pipeline]``,
-``[mesh]`` and ``[flight]`` sections for the session (restored when
-``main`` returns); a file that cannot be read, an unknown key or a
-``[mesh]`` that cannot tile the ``-device`` type's devices is refused
-with one ``error:`` line and exit status 1 before any volume is
+The port of ``seaweedfs_tpu/shell/cli.py``: with ``-master`` the
+commands drive a live cluster over gRPC (``cluster_commands.py``; the EC
+work runs inside the volume servers, on each server's device); with
+``-dir`` they operate directly on local disk locations. ``-c`` runs a
+command — or a ``;``-separated sequence sharing one session, so a held
+``lock`` covers the later commands — and exits. ``-device`` picks where
+the offline EC pipelines run: ``cuda`` (the default, which fails without
+a card) or ``cpu`` (the plain PyTorch codec). ``-config F`` loads a TOML
+file and applies its ``[pipeline]``, ``[mesh]`` and ``[flight]``
+sections for the session (restored when ``main`` returns); with
+``-master`` its JWT signing key signs the volume-server rpcs and its
+``[grpc.tls]`` secures them. A file that cannot be read, an unknown key
+or a ``[mesh]`` that cannot tile the ``-device`` type's devices is
+refused with one ``error:`` line and exit status 1 before any volume is
 touched:
 
+    python -m seaweedfs_tpu_torch shell -master 127.0.0.1:9333 \
+        -c "lock; ec.encode -volumeId 3; ec.balance; unlock"
     python -m seaweedfs_tpu_torch shell -dir /data -c "ec.encode -volumeId 3"
     python -m seaweedfs_tpu_torch shell -dir /a -dir /b -device cpu
     python -m seaweedfs_tpu_torch shell -dir /data -config ec.toml \
         -c "ec.encode -volumeId 3; pipeline.status; pipeline.analyze"
 
-Not ported yet: ``-master`` (the cluster shell) and ``-filer`` (ROADMAP
-Queue 1).
+Not ported yet: ``-filer`` and ``fs.*`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import sys
 from ..storage.store import Store, StoreError
 from ..storage.volume import VolumeError
 from ..util import config as config_mod
+from ..util import tls as tls_mod
+from .cluster_commands import ClusterEnv, run_cluster_command
 from .commands import CommandEnv, ShellError, run_command
 
 
@@ -108,10 +115,11 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("-dir", action="append", default=None,
                    help="local disk location (repeatable; offline mode)")
     p.add_argument("-master", default=None,
-                   help="master ip:port (cluster mode; not ported yet)")
+                   help="master ip:port (cluster mode)")
     p.add_argument("-config", default="",
                    help="TOML file whose [pipeline], [mesh] and [flight] "
-                        "sections tune the EC pipelines")
+                        "sections tune the EC pipelines; with -master, "
+                        "its jwt.signing.key and [grpc.tls]")
     p.add_argument("-maxVolumes", type=int, default=8)
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="where the EC pipelines run (default: the card)")
@@ -124,39 +132,45 @@ def main(argv: list[str] | None = None) -> int:
         print("error: exactly one of -dir / -master is required",
               file=sys.stderr)
         return 2
-    if args.master:
-        print("error: -master (the cluster shell) is not ported yet; "
-              "use -dir", file=sys.stderr)
-        return 2
 
     with contextlib.ExitStack() as stack:
-        if args.config:
-            try:
+        conf: dict = {}
+        try:
+            if args.config:
                 if not os.path.isfile(args.config):
                     raise OSError(f"-config {args.config}: no such file")
-                _apply_config(stack, config_mod.load(args.config),
-                             args.device)
-            except (OSError, TypeError, ValueError, RuntimeError) as e:
-                # refused before any volume is touched
-                print(f"error: {e}", file=sys.stderr)
-                return 1
-        return _session(args)
+                conf = config_mod.load(args.config)
+                _apply_config(stack, conf, args.device)
+            if args.master:
+                tls_mod.install_from_config(conf)
+        except (OSError, TypeError, ValueError, RuntimeError) as e:
+            # refused before any volume is touched
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        return _session(args, conf)
 
 
-def _session(args) -> int:
-    try:
-        env = build_env(args.dir, args.maxVolumes, args.device)
-    except (StoreError, VolumeError, OSError) as e:
-        # e.g. a tiered volume: the S3 tier is not ported yet
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+def _session(args, conf: dict) -> int:
+    if args.master:
+        env = ClusterEnv(
+            master_url=args.master,
+            secret=config_mod.lookup(conf, "jwt.signing.key", ""))
+        run, cleanup = run_cluster_command, env.close
+    else:
+        try:
+            env = build_env(args.dir, args.maxVolumes, args.device)
+        except (StoreError, VolumeError, OSError) as e:
+            # e.g. a tiered volume: the S3 tier is not ported yet
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        run, cleanup = run_command, env.store.close
     try:
         if args.oneshot is not None:
             for line in args.oneshot.split(";"):
                 if not line.strip():
                     continue
                 try:
-                    run_command(env, line.strip())
+                    run(env, line.strip())
                 except ShellError as e:
                     print(f"error: {e}", file=sys.stderr)
                     return 1
@@ -169,9 +183,9 @@ def _session(args) -> int:
                           file=sys.stderr)
                     return 1
             return 0
-        return _repl(run_command, env)
+        return _repl(run, env)
     finally:
-        env.store.close()
+        cleanup()
 
 
 if __name__ == "__main__":

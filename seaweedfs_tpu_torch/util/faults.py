@@ -44,6 +44,9 @@ CATALOG = (
     "volume.read",     # client GET of a needle from a volume server
     "volume.write",    # client POST of a needle
     "volume.delete",   # client DELETE of a needle
+    "master.assign",   # fid assignment through the master
+    "master.rpc",      # raft vote/append-entries between masters
+    "master.proxy",    # follower-master HTTP proxy to the leader
     "replica.push",    # volume server fanning a write to a replica
     "ec.shard_read",   # one shard-interval read (pipeline/read.py)
     # Crashpoints: named commit-path instants where a `crash` spec kills

@@ -23,6 +23,7 @@ from seaweedfs_tpu_torch.pipeline.scheme import EcScheme
 from seaweedfs_tpu_torch.storage import ec_files
 from seaweedfs_tpu_torch.storage.superblock import SuperBlock
 from seaweedfs_tpu_torch.storage.volume import dat_path
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 # Small blocks so multi-row striping happens at test sizes.
 GEOMETRY = dict(large_block_size=64 * 1024, small_block_size=8 * 1024)

@@ -15,6 +15,7 @@ from seaweedfs_tpu.ops import bitslice as jax_bitslice, rs_jax
 from seaweedfs_tpu.ops import xor_cse as jax_xor_cse
 from seaweedfs_tpu_torch.ops import bitslice, gf256, xor_cse
 from seaweedfs_tpu_torch.ops.rs_ref import ReferenceEncoder
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 
 def _i32(words: np.ndarray) -> torch.Tensor:

@@ -35,6 +35,7 @@ from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.types import FileId
 
 from test_cluster_integration import _free_port_pair
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 PULSE = 0.2
 

@@ -8,6 +8,7 @@ import pytest
 
 from seaweedfs_tpu.util import config as jax_config
 from seaweedfs_tpu_torch.util import config
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 SECTIONS = ("pipeline", "mesh", "flight")
 

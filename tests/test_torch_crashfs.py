@@ -31,6 +31,7 @@ from seaweedfs_tpu_torch.storage.volume import (Volume,
                                                 generate_synthetic_volume)
 from seaweedfs_tpu_torch.util import faults
 from seaweedfs_tpu_torch.util.crashfs import CrashRecorder, SimulatedCrash
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 SCHEME = EcScheme(data_shards=10, parity_shards=4,
                   large_block_size=2048, small_block_size=256)

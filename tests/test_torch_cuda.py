@@ -626,3 +626,97 @@ def test_volume_server_get_repairs_on_the_card(card_server):
             assert r.read() == n.data
         if k == 1:
             assert _launches() > before
+
+
+@pytest.mark.cuda
+def test_master_driven_ec_lifecycle_on_the_card(tmp_path):
+    """A port master and two port servers on the card: the cluster
+    shell's ``ec.encode`` launches once per batch, ``operation.download``
+    with shards 0, 5, 11 and 13 gone reconstructs on the card (the
+    server fetching the shards it lacks through ``ec_shard_peers``),
+    ``ec.rebuild`` restores the lost shards byte-equal and ``ec.decode``
+    the original ``.dat``."""
+    _need_card()
+    import hashlib
+    import io
+
+    from seaweedfs_tpu_torch.cluster import operation
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
+                                                           free_port_pair)
+    from seaweedfs_tpu_torch.cluster.wdclient import MasterClient
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.shell.cluster_commands import (
+        ClusterEnv, run_cluster_command)
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    lost = [0, 5, 11, 13]
+    ms = MasterServer(port=free_port_pair(), pulse_seconds=0.5).start()
+    servers = []
+    for name in "ab":
+        d = tmp_path / name
+        d.mkdir()
+        servers.append(VolumeServer(
+            Store([d]), port=free_port_pair(), master_url=ms.url,
+            rack="r0", pulse_seconds=0.5).start())
+        servers[-1].heartbeat_now()
+    mc = MasterClient(ms.url)
+    env = ClusterEnv(master_url=ms.url, out=io.StringIO())
+
+    def settle():
+        for vs in servers:
+            vs.heartbeat_now()
+
+    try:
+        rng = np.random.default_rng(10)
+        blobs = [rng.integers(0, 256, 700_000, dtype=np.uint8).tobytes()
+                 for _ in range(40)]
+        fids = operation.submit(mc, blobs)
+        vid = int(fids[0].split(",")[0])
+        keep = [(f, b) for f, b in zip(fids, blobs)
+                if int(f.split(",")[0]) == vid]
+        owner = next(vs for vs in servers if vs.store.has_volume(vid))
+        vol = owner.store.get_volume(vid)
+        vol.sync()
+        dat = volume.dat_path(vol.base)
+        dat_size = dat.stat().st_size
+        dat_sha = hashlib.sha256(dat.read_bytes()).hexdigest()
+        batches = len(list(encode.plan_batches(
+            dat_size, DEFAULT_SCHEME, pipe.current().batch_bytes)))
+        n = rs_cuda.apply_gf_matrix_transpose.launches
+        run_cluster_command(env, f"ec.encode -volumeId {vid}")
+        assert rs_cuda.apply_gf_matrix_transpose.launches - n == batches
+        settle()
+        for vs in servers:
+            m = vs.store.ec_mounts[("", vid)]
+            gone = sorted(set(m.shard_ids) & set(lost))
+            stub_env = ClusterEnv(master_url=ms.url)
+            stub_env.volume(vs.url).VolumeEcShardsDelete(
+                vpb.VolumeEcShardsDeleteRequest(volume_id=vid,
+                                                shard_ids=gone))
+            stub_env.close()
+        settle()
+        mc.invalidate()
+        before = _launches()
+        for fid, blob in keep:
+            assert operation.download(mc, fid) == blob
+        assert _launches() > before
+        n = rs_cuda.apply_gf_matrix_transpose.launches
+        run_cluster_command(env, "ec.rebuild")
+        assert rs_cuda.apply_gf_matrix_transpose.launches > n
+        assert f"rebuilt {lost}" in env.out.getvalue()
+        settle()
+        assert sorted(ms.topology.lookup_ec_volume(vid)) == list(range(14))
+        run_cluster_command(env, f"ec.decode -volumeId {vid}")
+        settle()
+        back = [vs for vs in servers if vs.store.has_volume(vid)]
+        assert len(back) == 1
+        got = volume.dat_path(back[0].store.get_volume(vid).base)
+        assert hashlib.sha256(got.read_bytes()).hexdigest() == dat_sha
+    finally:
+        env.close()
+        mc.close()
+        for vs in servers:
+            vs.stop()
+        ms.stop()

@@ -17,6 +17,7 @@ import torch
 from seaweedfs_tpu.ops import rs_jax
 from seaweedfs_tpu.ops import rs_native as jax_native
 from seaweedfs_tpu_torch.ops import rs_native, rs_ref, rs_torch
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 CUDA = torch.device("cuda")
 CPU = torch.device("cpu")

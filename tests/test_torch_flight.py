@@ -24,6 +24,7 @@ from seaweedfs_tpu.util import stats as jax_stats
 from seaweedfs_tpu_torch.pipeline import flight, pipe
 from seaweedfs_tpu_torch.shell import commands
 from seaweedfs_tpu_torch.util import stats
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 PACKAGES = {"port": (flight, pipe, commands),
             "jax": (jax_flight, jax_pipe, jax_commands)}

@@ -51,7 +51,15 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.cluster.volume_server",
        "seaweedfs_tpu_torch.util.glog", "seaweedfs_tpu_torch.util.security",
        "seaweedfs_tpu_torch.util.tls", "seaweedfs_tpu_torch.util.httpserver",
-       "seaweedfs_tpu_torch.util.retry"}
+       "seaweedfs_tpu_torch.util.retry",
+       "seaweedfs_tpu_torch.cluster.master",
+       "seaweedfs_tpu_torch.cluster.topology",
+       "seaweedfs_tpu_torch.cluster.sequence",
+       "seaweedfs_tpu_torch.cluster.ha",
+       "seaweedfs_tpu_torch.cluster.wdclient",
+       "seaweedfs_tpu_torch.cluster.operation",
+       "seaweedfs_tpu_torch.shell.cluster_commands",
+       "seaweedfs_tpu_torch.cli_tools"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -66,9 +74,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # every module of the slices so far was imported, the shell, Store,
     # Volume engine, the multi-device split, the config loader, the
     # flight recorder, the needle maps, vacuum, the scrubber, the crash
-    # harness, the pb copies, the volume server and its wire utilities
-    # among them
-    assert int(out.stdout.split()[0]) >= 62
+    # harness, the pb copies, the volume server and its wire utilities,
+    # the master, its clients and the cluster shell among them
+    assert int(out.stdout.split()[0]) >= 70
     assert "missing: []" in out.stdout
 
 
@@ -88,3 +96,32 @@ def test_entry_points_refuse_the_cpu_without_cuda(tmp_path):
             call()
     # nothing was written on the CPU instead
     assert not list(tmp_path.glob("v.ec*"))
+
+
+@pytest.mark.parametrize("section", ["tracing", "profiler", "usage", "slo",
+                                     "jobs"])
+def test_master_refuses_unported_config_sections(tmp_path, capsys,
+                                                 section):
+    """``master -config`` with a section of a plane the port lacks exits
+    2 with one ``error:`` line, before anything binds."""
+    from seaweedfs_tpu_torch.cluster import master
+    assert section in master.UNPORTED_SECTIONS
+    conf = tmp_path / "m.toml"
+    conf.write_text(f"[retry]\nmax_attempts = 2\n\n[{section}]\n"
+                    f"enabled = true\n")
+    assert master.main(["-port", "1", "-config", str(conf)]) == 2
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and err[0].startswith("error:")
+    assert f"[{section}]" in err[0] and "not ported" in err[0]
+
+
+def test_shell_master_runs_cluster_commands(capsys):
+    """``shell -master`` no longer exits 2: it runs the cluster
+    commands (``help`` needs no connection)."""
+    from seaweedfs_tpu_torch.shell import cli
+    assert cli.main(["-master", "127.0.0.1:1", "-c", "help"]) == 0
+    listed = capsys.readouterr().out.split()
+    assert {"ec.encode", "ec.rebuild", "ec.decode", "ec.balance",
+            "volume.list", "volume.vacuum", "volume.grow",
+            "collection.list", "cluster.status", "lock",
+            "unlock"} == set(listed)

@@ -32,6 +32,7 @@ from seaweedfs_tpu_torch.pipeline import rebuild as rebuild_mod
 from seaweedfs_tpu_torch.pipeline.scheme import EcScheme
 from seaweedfs_tpu_torch.storage import ec_files
 from seaweedfs_tpu_torch.storage.superblock import SuperBlock
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 CPU8 = [torch.device("cpu")] * 8
 SCHEME = EcScheme(10, 4, large_block_size=8192, small_block_size=2048)

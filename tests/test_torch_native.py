@@ -14,6 +14,7 @@ import torch
 from seaweedfs_tpu.ops import rs_native as jax_native
 from seaweedfs_tpu.ops.rs_ref import ReferenceEncoder
 from seaweedfs_tpu_torch.ops import rs_cuda, rs_native, rs_torch
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 GEOMETRIES = [(10, 4), (6, 3), (12, 4), (3, 1)]
 RAGGED = (1, 31, 64, 4097, 100_001)

@@ -23,6 +23,7 @@ from seaweedfs_tpu_torch.storage import needle_map_sqlite, vacuum
 from seaweedfs_tpu_torch.storage import volume as port_volume
 from seaweedfs_tpu_torch.storage.idx import CompactMap, IndexEntry
 from seaweedfs_tpu_torch.storage.types import TOMBSTONE_FILE_SIZE
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 
 def _entries(m) -> list:

@@ -10,6 +10,7 @@ import pytest
 
 from seaweedfs_tpu.pipeline import pipe as jax_pipe
 from seaweedfs_tpu_torch.pipeline import pipe
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 WATCHDOG = 60
 

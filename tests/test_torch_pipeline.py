@@ -24,6 +24,7 @@ from seaweedfs_tpu_torch.pipeline import decode, encode, pipe, rebuild
 from seaweedfs_tpu_torch.pipeline import stripe
 from seaweedfs_tpu_torch.pipeline.scheme import EcScheme
 from seaweedfs_tpu_torch.storage import ec_files, idx as idx_mod, volume
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 GEOMETRY = dict(large_block_size=8192, small_block_size=2048)
 SCHEME = EcScheme(10, 4, **GEOMETRY)

@@ -28,6 +28,7 @@ from seaweedfs_tpu_torch.pipeline import read, repair, repair_bench
 from seaweedfs_tpu_torch.pipeline.scheme import EcScheme
 from seaweedfs_tpu_torch.storage import ec_files, needle, volume
 from seaweedfs_tpu_torch.util import faults, retry
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 GEOMETRY = dict(large_block_size=64 * 1024, small_block_size=8 * 1024)
 SCHEME = EcScheme(10, 4, **GEOMETRY)

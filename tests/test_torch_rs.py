@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from seaweedfs_tpu.ops import rs_jax, rs_pallas
 from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_torch
 from seaweedfs_tpu_torch.ops.rs_ref import ReferenceEncoder
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 LOST = (2, 7, 11, 13)
 PRESENT = [i for i in range(14) if i not in LOST]

@@ -28,6 +28,7 @@ from seaweedfs_tpu_torch.ops import rs_native, rs_torch
 from seaweedfs_tpu_torch.pipeline.scheme import EcScheme
 from seaweedfs_tpu_torch.storage import ec_files, scrubber
 from seaweedfs_tpu_torch.storage import volume as port_volume
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 GEOMETRY = dict(data_shards=10, parity_shards=4, large_block_size=2048,
                 small_block_size=256)

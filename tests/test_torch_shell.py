@@ -25,6 +25,7 @@ from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
 from seaweedfs_tpu_torch.shell import commands
 from seaweedfs_tpu_torch.storage import ec_files
 from seaweedfs_tpu_torch.storage import store as port_store
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -26,6 +26,7 @@ from seaweedfs_tpu_torch.storage import ec_files, needle
 from seaweedfs_tpu_torch.storage import store as port_store
 from seaweedfs_tpu_torch.storage import volume as port_volume
 from seaweedfs_tpu_torch.util import faults as port_faults
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 PKGS = {"jax": (jax_volume, jax_store, jax_needle),
         "port": (port_volume, port_store, needle)}

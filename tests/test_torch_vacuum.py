@@ -33,6 +33,7 @@ from seaweedfs_tpu_torch.storage.volume import (Volume, VolumeError,
                                                 dat_path,
                                                 generate_synthetic_volume,
                                                 idx_path)
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 PKGS = {"jax": (jax_volume, jax_vacuum, jax_needle, jax_store),
         "port": (port_volume, vacuum_mod, port_needle, port_store)}

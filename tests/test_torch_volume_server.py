@@ -50,6 +50,7 @@ from seaweedfs_tpu_torch.storage.types import FileId
 from seaweedfs_tpu_torch.util.stats import EXPOSITION_CONTENT_TYPE
 
 from test_cluster_integration import _free_port_pair
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 PULSE = 0.2
 REPO = Path(__file__).resolve().parent.parent

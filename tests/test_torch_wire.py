@@ -23,6 +23,7 @@ from seaweedfs_tpu.util import tls as jax_tls
 from seaweedfs_tpu_torch import pb
 from seaweedfs_tpu_torch.util import (durability, faults, httpserver, retry,
                                       security, tls)
+from torch_teardown import collect_jax_garbage  # noqa: F401
 
 PKGS = {"jax": dict(pb=jax_pb, security=jax_security, retry=jax_retry,
                     durability=jax_durability,
