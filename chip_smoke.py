@@ -39,7 +39,7 @@ of which fails the run on any mismatch:
    written through ``Store.write_needle`` into a store of two disk
    locations (.dat and .idx sha256-equal to the path phase's; the
    ingest rate of the write_needle calls alone printed, with
-   ``Needle.to_bytes`` timed apart on the same needles), then ``shell.cli.main`` in this process with
+   ``Needle.to_bytes`` timed apart on every 4th of the same needles), then ``shell.cli.main`` in this process with
    ``ec.encode; ec.balance; volume.list`` (shards, .ecx and .vif held
    against the path phase's, spread over both locations, one launch per
    batch), ``ec.rebuild`` after losing 2 shards in each location, and
@@ -74,15 +74,33 @@ of which fails the run on any mismatch:
    ``volume`` joining it (status, one POST, one GET) and ``shell -master
    ... -c volume.list`` naming it and an in-process server, each in its
    own process (SIGTERM ends both servers);
-8. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
+8. jobs (the jobs plane, config 1's volume): a port master (lease 5 s,
+   checkpoint in its meta dir) and two port volume servers, A and B on
+   two racks, both on the card and set up through the ``volume
+   -config`` code (``[jobs] poll_seconds = 0.2``, ``[storage.scrub]``
+   unpaced), with copies of the path phase's volume in their stores;
+   the cluster shell's ``ec.encode -distributed -collection sweep
+   -parallel 2`` over 4 of them (both workers on the card at once: the
+   job done with a task on each, every volume's shards and .ecx
+   sha256-equal to the path phase's seal, one launch per batch counted
+   per worker, the master's topology and ``/metrics``; GiB/s beside
+   each task's seconds), ``-volumeId 15 -mesh 1,1`` (done, sha256-equal,
+   one launch per batch), ``-mesh 2,2`` on a small volume (the job
+   failed after ``max_attempts`` claims by its only holder, with the
+   ``MeshConfigError`` text, no launch, in bounded time), and the scrub
+   job on one sealed volume: its baseline (one parity-proof launch per
+   4 MiB chunk), then one byte of shard 3 rotten, quarantined and
+   rebuilt to its sealed sha256 (GiB/s and launches beside the storage
+   phase's direct ``scrub_ec``);
+9. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
    a bulk decode of 4 lost shards through the kernels while 8 reader
    threads send 64 QPS of 4 KiB interval repairs, all checked;
-9. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
+10. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
    shards rebuilt, and the volume decoded after losing data shards 0 and
    3, all sha256-checked, parity against ``rs_ref`` on sampled rows;
-10. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
+11. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
    normal routing, the shell's ``ec.encode -mesh 1,1`` in turns with the
-   unsplit ``ec.encode`` (a warm-up, then A, B, B, A twice) on config 1's
+   unsplit ``ec.encode`` (a warm-up, then A, B, B, A) on config 1's
    volume, shards and .ecx sha256-equal and launches equal (one per
    batch), then ``ec.rebuild -mesh 1,1`` after losing 4 shards (one
    launch per chunk); (b) the dry-run twin (``parallel/dryrun.run``)
@@ -91,7 +109,7 @@ of which fails the run on any mismatch:
    grid (B pads to 26, S splits in two: 4 launches), byte-equal to the
    unsplit path and to ``rs_ref`` on sampled rows; (c) ``-mesh 2,2``
    refused on one card with no file changed;
-11. config (the shell's ``-config``): on config 1's volume through
+12. config (the shell's ``-config``): on config 1's volume through
    ``shell.cli.main``, (a) a TOML of ``[pipeline] double_buffer``,
    ``[mesh]`` 1 x 1 and ``[flight]``: ``ec.encode -keepSource;
    pipeline.status; pipeline.analyze; pipeline.dump -trace`` (shards,
@@ -104,7 +122,7 @@ of which fails the run on any mismatch:
    ``pipeline.analyze``), each a warm-up of each side then A, B, B, A
    with both medians and their ratio, launches checked on every encode
    and the files sha256-checked on one of each side;
-12. storage (the engine at rest, on config 1's volume): (a) a seeded
+13. storage (the engine at rest, on config 1's volume): (a) a seeded
    .idx of 1,000,000 needles with 10% deleted loaded by the memory,
    native and sqlite needle maps (equal live entries and counters, the
    native library built), with each load's seconds; (b) every third
@@ -120,9 +138,9 @@ of which fails the run on any mismatch:
    4 MiB chunk, then one byte flipped in shards 3 and 12 and both
    quarantined and rebuilt to their sealed sha256; (e) ``scrub_volume``
    repairing one rotten needle from an intact copy, needles/s;
-13. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+14. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
-   ``batch.encode_packed`` over the same with every parity span checked
+   ``batch.encode_packed`` over 200 of them with every parity span checked
    whole against ``rs_ref`` and the batch census printed, 200 volumes on the
    SWAR kernel, and 200 under ``SEAWEEDFS_TORCH_HOST_DISPATCH=auto``
    (the probe's two rates, its verdict and the route taken); then 32
@@ -182,6 +200,8 @@ MIB = 1 << 20
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: The deployment's volume: a 1 GiB .dat, RS(10,4), 1 GiB / 1 MiB blocks.
 VOLUME_BYTES = 1 << 30
+#: The shell phase times ``Needle.to_bytes`` apart on every 4th needle.
+TO_BYTES_EVERY = 4
 LOST_REBUILD = (2, 7, 11, 13)
 LOST_DECODE = (0, 5)
 #: The read phase's and config 5's lost shards: two data, two parity.
@@ -192,8 +212,9 @@ READ_THREADS = 8
 SWEEP_S = 200_037
 GIB = 1 << 30
 #: BASELINE config 3: 1000 volumes of 30 MiB sealed in one job, payloads
-#: from a seeded pool of 8 distinct buffers; the SWAR and auto passes run
-#: 200 of them; the file-level pass seals 32 volumes of real needles.
+#: from a seeded pool of 8 distinct buffers; the checked, SWAR and auto
+#: passes run 200 of them; the file-level pass seals 32 volumes of real
+#: needles.
 C3_VOLUMES = 1000
 C3_VOLUME_BYTES = 30 * MIB
 C3_POOL = 8
@@ -746,22 +767,25 @@ def shell_phase(dev, workdir: str, pres: dict, label: str,
     # write_needle calls are timed; making each needle and hashing it
     # for the check are not. Needle.to_bytes (the CRC32-C and the
     # record's assembly, which write_needle runs too) is timed on its
-    # own on the same needles, outside the write_needle window.
+    # own on every TO_BYTES_EVERY-th needle (a sample keeps the script
+    # in its time budget), outside the write_needle window.
     store = store_mod.Store([a, b])
     vol = store.create_volume(vid)
     version = vol.super_block.version
     needles = volume_mod.synthetic_needles(avg_size=MIB, seed=SEED)
     written = {}
     write_s = to_bytes_s = 0.0
+    timed = 0
     while vol.dat_size < VOLUME_BYTES:
         n = next(needles)
-        t0 = time.perf_counter()
-        n.to_bytes(version)
+        if n.id % TO_BYTES_EVERY == 0:
+            t0 = time.perf_counter()
+            n.to_bytes(version)
+            to_bytes_s += time.perf_counter() - t0
+            timed += 1
         t1 = time.perf_counter()
         store.write_needle(vid, n)
-        t2 = time.perf_counter()
-        to_bytes_s += t1 - t0
-        write_s += t2 - t1
+        write_s += time.perf_counter() - t1
         written[n.id] = (n.cookie, hashlib.sha256(n.data).digest())
     store.close()
     vbase = os.path.join(os.path.dirname(vol.base), str(vid))
@@ -771,7 +795,8 @@ def shell_phase(dev, workdir: str, pres: dict, label: str,
         "mib_per_s": dat_size / MIB / write_s,
         "to_bytes_s": to_bytes_s,
         "ms_per_needle": 1e3 * write_s / len(written),
-        "to_bytes_ms_per_needle": 1e3 * to_bytes_s / len(written),
+        "to_bytes_needles": timed,
+        "to_bytes_ms_per_needle": 1e3 * to_bytes_s / timed,
         "fsyncs": 2 * len(written)}
     say(f"  ingest through Store.write_needle on {label}: "
         f"{json.dumps(result['ingest'])}")
@@ -1570,6 +1595,294 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
 
 
 # --------------------------------------------------------------------------
+# jobs phase: ec.encode -distributed and the scrub job on two workers
+# --------------------------------------------------------------------------
+
+#: The jobs phase's master pulse and lease, in seconds. The servers
+#: heartbeat at the same pulse and their workers poll at JOBS_CONFIG's
+#: ``poll_seconds``.
+JOBS_PULSE = 0.5
+JOBS_LEASE = 5.0
+#: The volume servers' -config: poll for tasks every 0.2 s, scrub
+#: unpaced.
+JOBS_CONFIG = ("[jobs]\npoll_seconds = 0.2\n\n"
+               "[storage.scrub]\nrate_bytes_per_second = 0\n")
+#: The jobs phase's volumes, each a copy of the path phase's 1 GiB
+#: volume: (server, collection, volume id). Collection ``sweep`` is the
+#: distributed sweep's; 15 is the mesh step's.
+JOBS_VOLUMES = (("A", "sweep", 11), ("A", "sweep", 12),
+                ("B", "sweep", 13), ("B", "sweep", 14), ("B", "mesh", 15))
+#: The volume of a few needles the mesh 2,2 step fails on, on A.
+JOBS_FAULT_VID = 16
+
+
+def _digests(paths: list) -> list:
+    """sha256 of several files at once (hashlib releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(sha256_file, paths))
+
+
+def jobs_phase(dev, workdir: str, pres: dict, label: str,
+               launches: dict) -> dict:
+    """The jobs plane on the card: a port master and two port volume
+    servers, A and B (racks r0 and r1), in this process, both on
+    ``dev``, set up through the same ``-config`` code that ``python -m
+    seaweedfs_tpu_torch volume -config`` and ``master -config`` run.
+    Copies of the path phase's 1 GiB volume go into their stores first.
+    Then through the cluster shell: ``ec.encode -distributed -collection
+    sweep -parallel 2`` (4 volumes, both workers on the one card at
+    once), ``-volumeId 15 -mesh 1,1``, ``-mesh 2,2`` on a small volume
+    (fails within ``max_attempts`` claims, no launch), and the scrub job
+    on volume 11 before and after one byte of its shard 3 rots."""
+    import urllib.request
+
+    from seaweedfs_tpu_torch.cluster import master as master_mod
+    from seaweedfs_tpu_torch.cluster import volume_server as vs_mod
+    from seaweedfs_tpu_torch.shell.cluster_commands import (
+        ClusterEnv, run_cluster_command)
+    from seaweedfs_tpu_torch.util import config as config_mod
+
+    t_phase = time.perf_counter()
+    scheme = DEFAULT_SCHEME
+    total = scheme.total_shards
+    src = pres["base"]
+    dat_size = os.path.getsize(src + ".dat")
+    shard_len = scheme.shard_file_size(dat_size)
+    gib = dat_size / GIB
+    want = {n: pres["sealed"][n] for n in
+            [ec_files.shard_ext(i) for i in range(total)] + [".ecx"]}
+    batches = len(list(encode.plan_batches(dat_size, scheme,
+                                           pipe.current().batch_bytes)))
+    result = {}
+    os.makedirs(workdir)
+    need = len(JOBS_VOLUMES) * (dat_size + total * shard_len) + (4 << 30)
+    free = shutil.disk_usage(workdir).free
+    check(free > need, f"free disk {free} bytes > the {need} this phase "
+          f"may put there")
+    dirs = {name: os.path.join(workdir, name) for name in "AB"}
+    for d in dirs.values():
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    for name, col, vid in JOBS_VOLUMES:
+        dst = os.path.join(dirs[name], store_mod.volume_base_name(vid, col))
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(src + ext, dst + ext)
+    volume_mod.generate_synthetic_volume(
+        os.path.join(dirs["A"], store_mod.volume_base_name(
+            JOBS_FAULT_VID, "fault")), JOBS_FAULT_VID, 8, avg_size=4096,
+        seed=SEED).close()
+    say(f"  set-up: {len(JOBS_VOLUMES)} copies of the path phase's "
+        f"volume in {time.perf_counter() - t0:.1f} s")
+
+    conf_path = os.path.join(workdir, "volume.toml")
+    with open(conf_path, "w") as f:
+        f.write(JOBS_CONFIG)
+    server_kw = vs_mod.apply_config(config_mod.load(conf_path))
+    check(server_kw["job_poll_seconds"] == 0.2
+          and scrubber.configured_rate() == 0,
+          f"volume -config: {json.dumps(server_kw)}, scrub rate "
+          f"{scrubber.configured_rate()}")
+    mconf = {"jobs": {"lease_seconds": JOBS_LEASE}}
+    master_mod.apply_config(mconf)
+    master = master_mod.MasterServer(
+        port=vs_mod.free_port_pair(), pulse_seconds=JOBS_PULSE,
+        meta_dir=os.path.join(workdir, "meta"))
+    master_mod.configure_jobs(master, mconf)
+    master.start()
+    servers = {}
+    env = None
+    try:
+        for i, (name, d) in enumerate(dirs.items()):
+            st = store_mod.Store([d])
+            st.load_existing()
+            servers[name] = vs_mod.VolumeServer(
+                st, port=vs_mod.free_port_pair(), master_url=master.url,
+                data_center="dc1", rack=f"r{i}", pulse_seconds=JOBS_PULSE,
+                device=dev, **server_kw).start()
+            servers[name].heartbeat_now()
+        a, b = servers["A"], servers["B"]
+        check(sorted(master.topology.nodes) == sorted(
+            vs.url for vs in servers.values())
+            and master.jobs.lease_seconds == JOBS_LEASE,
+            f"port master {master.url} (lease {JOBS_LEASE} s): A and B "
+            f"joined, workers polling every "
+            f"{a.job_worker.poll_seconds} s")
+
+        def settle():
+            for vs in servers.values():
+                vs.heartbeat_now()
+
+        def job(job_id):
+            return next(j for j in master.jobs.to_map()["jobs"]
+                        if j["jobId"] == job_id)
+
+        def finished(kind, vids):
+            return {name: [f for f in vs.job_worker.finished
+                           if f["kind"] == kind and f["volumeId"] in vids]
+                    for name, vs in servers.items()}
+
+        def base_of(name, col, vid):
+            return os.path.join(dirs[name],
+                                store_mod.volume_base_name(vid, col))
+
+        def sealed_equal(name, col, vid) -> bool:
+            base = base_of(name, col, vid)
+            got = _digests([base + n for n in want])
+            return dict(zip(want, got)) == want
+
+        def shell_step(script, what, kernel_cmd):
+            _, log = cluster_shell(
+                master.url, script, what,
+                {kernel_cmd: {"transpose": True, "swar": False}}, launches)
+            return next((w, g) for name, w, g in log if name == kernel_cmd)
+
+        # 1. the sweep: 4 volumes, two workers sharing the card
+        sweep = [vid for _n, col, vid in JOBS_VOLUMES if col == "sweep"]
+        say(f"  page cache before the sweep: {_dirty_mib()}")
+        wall, got = shell_step(
+            "lock; ec.encode -distributed -collection sweep -parallel 2; "
+            "unlock", "jobs sweep", "ec.encode")
+        j1 = job("j1")
+        workers = sorted({t["worker"] for t in j1["tasks"]})
+        check(j1["state"] == "done" and j1["total"] == 4
+              and workers == sorted([a.url, b.url]),
+              f"sweep job j1 {j1['state']}: {j1['total']} tasks, workers "
+              f"{workers}")
+        per = finished("ec_encode", sweep)
+        for name, fs in per.items():
+            check(len(fs) == 2 and all(
+                f["ok"] and f["launches"] == {"transpose": batches}
+                for f in fs),
+                f"worker {name}: volumes {[f['volumeId'] for f in fs]}, "
+                f"launches {[f['launches'] for f in fs]} ({batches} "
+                f"batches each)")
+        check(got["transpose"] == 4 * batches,
+              f"sweep: {got['transpose']} transpose launches = 4 x "
+              f"{batches}")
+        for name, col, vid in JOBS_VOLUMES:
+            if col == "sweep":
+                check(sealed_equal(name, col, vid),
+                      f"volume {vid} on {name}: 14 shards and .ecx "
+                      f"sha256-equal to the path phase's seal")
+        settle()
+        check(all(vid in master.topology.ec_locations for vid in sweep),
+              "the master's topology shows the 4 EC volumes")
+        with urllib.request.urlopen(f"http://{master.url}/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        check('seaweed_jobs_tasks{kind="ec_encode",state="done"} 4'
+              in text, "master /metrics: seaweed_jobs_tasks"
+              "{kind=\"ec_encode\",state=\"done\"} 4")
+        result["sweep"] = {
+            "gibps": 4 * gib / wall, "wall_s": wall,
+            "task_s": {name: [f["seconds"] for f in fs]
+                       for name, fs in per.items()}}
+        say(f"  sweep: {4 * gib / wall:.3f} GiB/s of .dat over two "
+            f"workers sharing {label} ({wall:.3f} s from submit to done, "
+            f"as the shell saw it); task seconds "
+            f"{json.dumps(result['sweep']['task_s'])}; the path phase's "
+            f"single encode {pres['encode_overlapped_gibps']:.3f} GiB/s")
+
+        # 2. the mesh: -mesh 1,1 on B's volume 15
+        wall, got = shell_step(
+            "lock; ec.encode -distributed -collection mesh -volumeId 15 "
+            "-mesh 1,1; unlock", "jobs mesh", "ec.encode")
+        check(job("j2")["state"] == "done" and got["transpose"] == batches
+              and finished("ec_encode", [15])["B"][0]["launches"]
+              == {"transpose": batches},
+              f"mesh 1,1 job j2 done: {got['transpose']} launches on the "
+              f"one cell")
+        check(sealed_equal("B", "mesh", 15), "volume 15: shards and .ecx "
+              "sha256-equal to the path phase's seal")
+        task_s = finished("ec_encode", [15])["B"][0]["seconds"]
+        result["mesh"] = {"wall_s": wall, "task_s": task_s}
+        say(f"  mesh 1,1: {gib / wall:.3f} GiB/s of .dat from submit to "
+            f"done ({wall:.3f} s), the task {task_s:.3f} s on {label}")
+
+        # 3. the repaired fault: -mesh 2,2 cannot tile one card
+        env = ClusterEnv(master_url=master.url, out=io.StringIO())
+        reset_counts()
+        t0 = time.perf_counter()
+        err = ""
+        try:
+            run_cluster_command(env, "ec.encode -distributed -collection "
+                                f"fault -volumeId {JOBS_FAULT_VID} "
+                                f"-mesh 2,2")
+        except shell_commands.ShellError as e:
+            err = str(e)
+        wall = time.perf_counter() - t0
+        got = counts()
+        t = job("j3")["tasks"][0]
+        check(err == "job j3 failed", f"-mesh 2,2: the shell says {err!r}")
+        check(t["state"] == "failed"
+              and t["attempts"] == master.jobs.max_attempts
+              and t["excluded"] == [a.url]
+              and t["error"].startswith("MeshConfigError: "),
+              f"-mesh 2,2 task failed after {t['attempts']} claims by A "
+              f"(max_attempts {master.jobs.max_attempts}): "
+              f"{t['error'][:90]}")
+        check(sum(got.values()) == 0 and wall < 60,
+              f"-mesh 2,2: {got} launches, failed in {wall:.3f} s (the "
+              f"reference's task would stay pending and the shell wait "
+              f"600 s)")
+        result["mesh_fault_s"] = wall
+
+        # 4. the scrub job on volume 11, its EC form only (its plain
+        # copy dropped, as the shell's ec.encode drops its source)
+        a.store.delete_volume(11, "sweep")
+        settle()
+        b11 = base_of("A", "sweep", 11)
+        proof = -(-shard_len // SCRUB_CHUNK)
+        say(f"  page cache before the scrub job: {_dirty_mib()}")
+        for step in ("baseline", "repair"):
+            if step == "repair":
+                _flip_byte(str(ec_files.shard_path(b11, 3)),
+                           shard_len // 2)
+            wall, got = shell_step(
+                "scrub.start -collection sweep -volumeId 11 -wait; "
+                "scrub.status -collection sweep", f"jobs scrub ({step})",
+                "scrub.start")
+            f = finished("scrub", [11])["A"][-1]
+            check(f["ok"] and f["launches"] == {
+                k: n for k, n in got.items() if n},
+                f"scrub job ({step}) on A: {got} launches")
+            if step == "baseline":
+                check(got["transpose"] == proof,
+                      f"scrub baseline: parity proven with {proof} "
+                      f"launches = ceil({shard_len} / {SCRUB_CHUNK})")
+            result[f"scrub_{step}"] = {
+                "gibps": total * shard_len / GIB / f["seconds"],
+                "task_s": f["seconds"], "wall_s": wall,
+                "launches": got}
+        q = scrubber.quarantine_dir(b11)
+        check(sealed_equal("A", "sweep", 11)
+              and any(p.startswith(os.path.basename(b11) + ".ec03")
+                      for p in os.listdir(q)),
+              "shard 3 quarantined and rebuilt to its sealed sha256, the "
+              "other shards untouched")
+        say(f"  scrub job, GiB/s of the 14 x {shard_len} shard bytes "
+            f"(task seconds on the worker): "
+            f"{json.dumps({k: result[k] for k in ('scrub_baseline', 'scrub_repair')})}"
+            f" on {label}")
+        result["disk_bytes"] = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _d, fs in os.walk(workdir) for f in fs)
+        say(f"  bytes the phase put on disk: {result['disk_bytes']}")
+    finally:
+        if env is not None:
+            env.close()
+        for vs in servers.values():
+            vs.stop()
+        master.stop()
+        scrubber.configure(scrubber.DEFAULT_RATE_BYTES_PER_SECOND)
+        shutil.rmtree(workdir, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    say(f"  jobs phase: {result['seconds']:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
 # config 4: RS(6,3) and RS(12,4) on the 1 GiB volume
 # --------------------------------------------------------------------------
 
@@ -1655,12 +1968,12 @@ def mesh_phase(dev, workdir: str, pres: dict, label: str,
             os.link(pres["base"] + ext, os.path.join(d, f"{vid}{ext}"))
     result = {"encode_s": {name: [] for name in dirs}}
 
-    # (a) a warm-up, then A, B, B, A twice: each run seals the same
+    # (a) a warm-up, then A, B, B, A (one round keeps the script in its
+    # time budget): each run seals the same
     # volume into a directory with no shards (the previous run's removed
     # untimed). The host allocator caches the pinned pool buffers a run
     # frees, so only the first run pays for pinning them.
-    for name in ("unsplit",) + ("unsplit", "mesh 1,1", "mesh 1,1",
-                                "unsplit") * 2:
+    for name in ("unsplit", "unsplit", "mesh 1,1", "mesh 1,1", "unsplit"):
         d = dirs[name]
         for f in os.listdir(d):
             if not f.endswith((".dat", ".idx")):
@@ -2293,9 +2606,11 @@ def storage_phase(dev, workdir: str, pres: dict, label: str,
 
 def config3_phase(dev, label: str, launches: dict) -> dict:
     """1000 volumes of 30 MiB through ``batch.encode_many`` (timed, with
-    no sink), then through ``batch.encode_packed`` with every parity span
-    checked against the numpy oracle; then 200 volumes on the SWAR kernel
-    and 200 under the ``auto`` link rule, both checked."""
+    no sink), then 200 of them through ``batch.encode_packed`` with every
+    parity span checked against the numpy oracle and the batch census
+    taken; then 200 volumes on the SWAR kernel and 200 under the ``auto``
+    link rule, both checked. (200 cover the same 8 payloads and batch
+    shape as 1000, in a fifth of the script's time.)"""
     scheme = DEFAULT_SCHEME
     k, m = scheme.data_shards, scheme.parity_shards
     vol = f"{C3_VOLUME_BYTES // MIB} MiB"
@@ -2373,14 +2688,14 @@ def config3_phase(dev, label: str, launches: dict) -> dict:
 
     enc.encode_parity_host = census_single
     try:
-        res, st = run(f"encode_packed ({C3_VOLUMES} x {vol}, checked)",
-                      C3_VOLUMES, {"transpose": True, "swar": False}, True)
+        res, st = run(f"encode_packed ({C3_SHORT} x {vol}, checked)",
+                      C3_SHORT, {"transpose": True, "swar": False}, True)
     finally:
         del enc.encode_parity_host
     res["census"] = {str(k_): v for k_, v in census.items()}
     rows_cap = batch.max_rows_per_batch(k, MIB,
                                         pipe.current().batch_bytes)
-    rows = C3_VOLUMES * scheme.shard_file_size(C3_VOLUME_BYTES) // MIB
+    rows = C3_SHORT * scheme.shard_file_size(C3_VOLUME_BYTES) // MIB
     want = {(rows_cap, k, MIB): rows // rows_cap}
     if rows % rows_cap:
         want[(rows % rows_cap, k, MIB)] = 1
@@ -2507,6 +2822,10 @@ def main() -> int:
             "volume servers):")
         cluster_phase(dev, os.path.join(workdir, "cluster"), pres, label,
                       launches)
+        say("phase jobs (ec.encode -distributed and the scrub job on two "
+            "workers):")
+        jres = jobs_phase(dev, os.path.join(workdir, "jobs"), pres, label,
+                          launches)
         say("phase repair under load (config 5):")
         repair_phase(dev, os.path.join(workdir, "config5"),
                      DEFAULT_SCHEME.shard_file_size(VOLUME_BYTES), launches)
@@ -2519,8 +2838,15 @@ def main() -> int:
         config_phase(dev, os.path.join(workdir, "config"), pres, label,
                      launches)
         say("phase storage (needle maps, vacuum, crash, scrub):")
-        storage_phase(dev, os.path.join(workdir, "storage"), pres, label,
-                      launches)
+        sres = storage_phase(dev, os.path.join(workdir, "storage"), pres,
+                             label, launches)
+        for step in ("baseline", "repair"):
+            say(f"  scrub {step}: the jobs phase's scrub job "
+                f"{jres[f'scrub_{step}']['gibps']:.3f} GiB/s with "
+                f"{json.dumps(jres[f'scrub_{step}']['launches'])} launches, "
+                f"the storage phase's direct scrub_ec "
+                f"{sres[f'scrub_ec_{step}']['gibps']:.3f} GiB/s with "
+                f"{json.dumps(sres[f'scrub_ec_{step}']['launches'])}")
         say("phase config 3 (1000 x 30 MiB volumes, coalesced):")
         config3_phase(dev, label, launches)
         say("phase config 3, file level:")

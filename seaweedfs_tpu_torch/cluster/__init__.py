@@ -5,6 +5,8 @@ master (``master.py`` over ``topology.py``, ``sequence.py`` and the
 Raft-lite election of ``ha.py``), its clients (``wdclient.py``,
 ``operation.py``) and the volume server (``volume_server.py``), which
 owns a Store, executes data-plane HTTP plus admin gRPC (the EC rpc
-family) and streams its heartbeat to a master. Not ported yet (ROADMAP
-Queue 1): the filer and the jobs, telemetry and usage planes.
+family) and streams its heartbeat to a master, and the maintenance
+plane (``jobs.py``: the master's leased work-lists and the volume
+servers' job workers). Not ported yet (ROADMAP Queue 1): the filer, the
+jobs policy engine and the telemetry and usage planes.
 """

@@ -12,15 +12,24 @@ targets off the topology and calls ``AllocateVolume`` on each
 master is always leader. The wire is the reference's, so JAX and port
 volume servers, clients and masters mix.
 
-Not ported yet, each named in ROADMAP Queue 1: the observability and
-maintenance planes the JAX master carries — the trace collector, the
-SLO engine, the usage registry, the jobs manager and policy engine, the
-cache-invalidation hub, the telemetry registry (so replicas are ranked
-by heartbeat age alone, as the JAX master ranks them before any
-telemetry arrives), their ``/cluster/*`` routes, ``/debug/*`` and the
-sections of ``-config`` that set them (refused, exit 2). Heartbeat
-fields of those planes (``telemetry``, ``usage``, ``job_progress``) are
-accepted and ignored.
+The maintenance plane rides along (``jobs.py``): the leader's
+:class:`JobManager` holds the leased work-lists that the volume servers'
+job workers pull (``/cluster/jobs/*``, ``/cluster/scrub``), renews
+leases from ``Heartbeat.job_progress``, expires them from the reap loop
+and checkpoints to ``<meta_dir>/jobs.json``. ``/cluster/status`` keeps
+the JAX master's keys: the JAX master serves the jobs summary
+(``JobManager.summary``) on ``/debug/vars``, which comes with the
+observability plane.
+
+Not ported yet, each named in ROADMAP Queue 1: the observability planes
+the JAX master carries — the trace collector, the SLO engine, the usage
+registry, the jobs policy engine, the telemetry registry (so replicas
+are ranked by heartbeat age alone, as the JAX master ranks them before
+any telemetry arrives), their ``/cluster/*`` routes, ``/debug/*`` and the
+sections and keys of ``-config`` that set them (refused, exit 2) — and
+the cache-invalidation hub that job commits fan out to (it comes with
+the S3 gateway). Heartbeat fields of those planes (``telemetry``,
+``usage``) are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -43,13 +52,14 @@ from ..util import glog, httpserver, retry, security
 from ..util import tls as tls_mod
 from ..util.stats import EXPOSITION_CONTENT_TYPE, Metrics
 from . import ha as ha_mod
+from . import jobs as jobs_mod
 from .ha import NotLeaderError
 from .sequence import MemorySequencer
 from .topology import Topology, TopologyError, VolumeInfo
 
 #: ``-config`` sections the JAX master reads for planes the port lacks:
 #: a file that sets one is refused rather than half applied.
-UNPORTED_SECTIONS = ("tracing", "profiler", "usage", "slo", "jobs")
+UNPORTED_SECTIONS = ("tracing", "profiler", "usage", "slo")
 
 
 def _grpc_port(http_port: int) -> int:
@@ -128,6 +138,17 @@ class MasterServer:
         self._ttl_thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._grow_lock = threading.Lock()
+        #: Maintenance plane: durable per-volume task queues pulled by
+        #: volume servers under leases renewed on the heartbeat.
+        #: Leader-only like the other /cluster/* planes; the checkpoint
+        #: keeps sweeps resumable across master restarts. No commit
+        #: hook: the cache-invalidation fan-out comes with the S3
+        #: gateway's hub (ROADMAP Queue 1).
+        self.jobs = jobs_mod.JobManager(
+            topology=self.topology,
+            checkpoint_path=(Path(meta_dir) / "jobs.json")
+            if meta_dir else None,
+            clock=clock)
 
     # ------------- HA plumbing -------------
 
@@ -228,6 +249,10 @@ class MasterServer:
             for url in self.topology.reap_dead_nodes():
                 glog.warning("master: data node %s missed heartbeats, "
                              "removed from topology", url)
+                # Reaped workers hand their leased tasks back now
+                # rather than sitting out the rest of the lease.
+                self.jobs.forget_worker(url)
+            self.jobs.expire()
             if self.is_leader and tick % ttl_every == 0 \
                     and (self._ttl_thread is None or
                          not self._ttl_thread.is_alive()):
@@ -248,6 +273,28 @@ class MasterServer:
                 self._vacuum_thread.start()
 
     # ------------- maintenance -------------
+
+    def job_candidate_volumes(self, kind: str,
+                              collection: str = "") -> list[int]:
+        """Enumerate the work-list for a whole-collection submission
+        (``job.submit ec.encode -collection X`` names no volumes):
+        ec_encode targets plain volumes not yet EC'd, ec_rebuild
+        targets EC volumes, scrub both forms (integrity is universal),
+        the rest every plain volume."""
+        plain: set[int] = set()
+        for _node, vols, _ec in self.topology.snapshot_holdings():
+            for v in vols:
+                if v.collection == collection:
+                    plain.add(v.id)
+        ec = {vid for vid, col in list(
+            self.topology.ec_collections.items()) if col == collection}
+        if kind == "ec_rebuild":
+            return sorted(ec)
+        if kind == "scrub":
+            return sorted(plain | ec)
+        if kind == "ec_encode":
+            plain -= set(self.topology.ec_locations)
+        return sorted(plain)
 
     def _reap_ttl_safe(self) -> None:
         try:
@@ -518,9 +565,10 @@ class MasterServer:
     # ------------- heartbeat ingestion -------------
 
     def ingest_heartbeat(self, hb) -> master_pb2.HeartbeatResponse:
-        """One heartbeat through the full ingestion path. The
-        ``telemetry``, ``usage`` and ``job_progress`` fields belong to
-        planes the port does not have yet and are ignored."""
+        """One heartbeat through the full ingestion path. Its
+        ``job_progress`` renews the leases of the tasks it names; the
+        ``telemetry`` and ``usage`` fields belong to planes the port
+        does not have yet and are ignored."""
         url = f"{hb.ip}:{hb.port}"
         volumes = [VolumeInfo(
             id=v.id, collection=v.collection, size=v.size,
@@ -545,6 +593,10 @@ class MasterServer:
             glog.v(1, "master: heartbeat from %s changed topology "
                    "(%d volumes, %d ec entries)", url, len(volumes),
                    len(ec))
+        if hb.HasField("job_progress"):
+            # The heartbeat IS the lease renewal for every task the
+            # worker still reports in flight.
+            self.jobs.renew(url, hb.job_progress)
         if hb.max_file_key:
             self.sequencer.set_max(hb.max_file_key)
         return master_pb2.HeartbeatResponse(
@@ -747,9 +799,34 @@ def _make_http_handler(ms: MasterServer):
                                 "Topology": ms.topology.to_map()})
                 elif u.path == "/metrics":
                     self._send(200, (ms.metrics.render()
+                                     + ms.jobs.metrics.render()
                                      + retry.METRICS.render()
                                      + httpserver.METRICS.render()
                                      ).encode(), EXPOSITION_CONTENT_TYPE)
+                elif u.path == "/cluster/jobs":
+                    # Jobs live on the leader (claims/completions and
+                    # heartbeat renewals land there), so read there.
+                    if self._proxy_to_leader():
+                        return
+                    doc = ms.jobs.to_map(
+                        with_tasks=q.get("tasks", "1") != "0",
+                        limit=int(q.get("limit", 1000)) or None)
+                    doc["policy"] = jobs_mod.policy_payload()
+                    self._json(doc)
+                elif u.path == "/cluster/scrub":
+                    # Scrub-plane view: the scrub jobs (a filtered
+                    # /cluster/jobs) plus the candidate volume count.
+                    if self._proxy_to_leader():
+                        return
+                    doc = ms.jobs.to_map(
+                        with_tasks=q.get("tasks", "1") != "0",
+                        limit=int(q.get("limit", 1000)) or None)
+                    self._json({
+                        "enabled": doc["enabled"],
+                        "jobs": [j for j in doc["jobs"]
+                                 if j["kind"] == "scrub"],
+                        "candidates": len(ms.job_candidate_volumes(
+                            "scrub", q.get("collection", "")))})
                 else:
                     self._json({"error": "not found"}, 404)
             except NotLeaderError as e:
@@ -797,17 +874,84 @@ def _make_http_handler(ms: MasterServer):
                     self._json({"error": str(e), "leader": e.leader}, 503)
                 except (TopologyError, ValueError) as e:
                     self._json({"error": str(e)}, 500)
+            elif u.path.startswith("/cluster/jobs/"):
+                # Maintenance-job control plane: all writes go to the
+                # leader (whose JobManager owns the work-lists).
+                if self._proxy_to_leader():
+                    return
+                try:
+                    self._jobs_action(u.path[len("/cluster/jobs/"):], q)
+                except KeyError as e:
+                    self._json({"error": str(e.args[0])}, 404)
+                except (ValueError, OSError) as e:
+                    self._json({"error": str(e)}, 400)
+            elif u.path == "/cluster/scrub":
+                # Convenience submit: a scrub job over the named
+                # volumes (or every plain + EC volume of the
+                # collection when none are named).
+                if self._proxy_to_leader():
+                    return
+                try:
+                    body = self._body()
+                    col = str(body.get("collection", ""))
+                    vids = body.get("volumes") or \
+                        ms.job_candidate_volumes("scrub", col)
+                    params = dict(body.get("params") or {})
+                    if body.get("rate_bytes_per_second") is not None:
+                        params["rate_bytes_per_second"] = int(
+                            body["rate_bytes_per_second"])
+                    self._json({"job": ms.jobs.submit(
+                        "scrub", vids, collection=col, params=params,
+                        parallel=int(body.get("parallel", 0)),
+                        submitted_by=str(
+                            body.get("submittedBy", "http")))})
+                except (ValueError, OSError) as e:
+                    self._json({"error": str(e)}, 400)
             else:
                 self.do_GET()
+
+        def _body(self) -> dict:
+            n = int(self.headers.get("Content-Length", 0) or 0)
+            return json.loads(self.rfile.read(n) or b"{}")
+
+        def _jobs_action(self, action: str, q: dict) -> None:
+            body = self._body()
+            if action == "submit":
+                kind = str(body.get("kind", ""))
+                vids = body.get("volumes") or []
+                if not vids:
+                    vids = ms.job_candidate_volumes(
+                        kind, str(body.get("collection", "")))
+                self._json({"job": ms.jobs.submit(
+                    kind, vids,
+                    collection=str(body.get("collection", "")),
+                    params=body.get("params") or {},
+                    parallel=int(body.get("parallel", 0)),
+                    submitted_by=str(body.get("submittedBy", "http")))})
+            elif action == "claim":
+                self._json({"task": ms.jobs.claim(q.get("worker", ""))})
+            elif action == "complete":
+                self._json(ms.jobs.complete(
+                    str(body.get("worker", "")),
+                    str(body.get("taskId", "")),
+                    bool(body.get("ok")), str(body.get("error", ""))))
+            elif action in ("pause", "resume", "cancel"):
+                job_id = q.get("job", "") or str(body.get("jobId", ""))
+                self._json({"job": getattr(ms.jobs, action)(job_id)})
+            else:
+                self._json({"error": "not found"}, 404)
 
     return httpserver.admission_gate(Handler)
 
 
 def apply_config(conf: dict) -> str:
-    """Apply a loaded ``-config`` TOML: the JWT signing key (returned),
-    ``[grpc.tls]``, ``[retry]``, ``[faults]`` and ``[ingress]``. A
-    section of a plane the port lacks (:data:`UNPORTED_SECTIONS`)
-    raises ``ValueError`` before anything is applied."""
+    """Apply a loaded ``-config`` TOML's process-wide settings: the JWT
+    signing key (returned), ``[grpc.tls]``, ``[retry]``, ``[faults]``,
+    ``[ingress]`` and the ``[jobs]`` kill switch. A section of a plane
+    the port lacks (:data:`UNPORTED_SECTIONS`), or a ``[jobs]`` key of
+    the policy engine (``jobs.POLICY_KEYS``), raises ``ValueError``
+    before anything is applied. :func:`configure_jobs` applies the rest
+    of ``[jobs]`` to a master."""
     from ..util import config as config_mod
     from ..util import faults
 
@@ -817,12 +961,34 @@ def apply_config(conf: dict) -> str:
         raise ValueError(
             f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1); "
             f"remove it from the file")
+    jsec = config_mod.lookup(conf, "jobs")
+    policy = [k for k in jobs_mod.POLICY_KEYS
+              if isinstance(jsec, dict) and k in jsec]
+    if policy:
+        raise ValueError(
+            f"[jobs] {policy[0]} is not ported yet: the policy engine "
+            f"comes with the observability plane (ROADMAP Queue 1); "
+            f"remove it from the file")
     secret = config_mod.lookup(conf, "jwt.signing.key", "")
     tls_mod.install_from_config(conf)
     retry.configure_from(conf)
     faults.configure_from(conf)
     httpserver.configure_from(conf)
+    jobs_mod.configure_from(conf)
     return secret
+
+
+def configure_jobs(ms: MasterServer, conf: dict) -> None:
+    """Apply ``[jobs] lease_seconds`` and ``max_attempts`` to ``ms``'s
+    JobManager."""
+    from ..util import config as config_mod
+
+    jsec = config_mod.lookup(conf, "jobs")
+    if isinstance(jsec, dict):
+        ms.jobs.lease_seconds = float(
+            jsec.get("lease_seconds", ms.jobs.lease_seconds))
+        ms.jobs.max_attempts = int(
+            jsec.get("max_attempts", ms.jobs.max_attempts))
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -851,7 +1017,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                    help="meta dir persisting raft state + sequence")
     p.add_argument("-config", default="",
                    help="TOML: the JWT signing key, [grpc.tls], [retry], "
-                        "[faults], [ingress]")
+                        "[faults], [ingress], [jobs]")
     args = p.parse_args(argv)
     try:
         conf = config_mod.load(args.config) if args.config else {}
@@ -867,6 +1033,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                       meta_dir=args.mdir or None,
                       metrics_address=args.metricsAddress,
                       metrics_interval_seconds=args.metricsIntervalSeconds)
+    configure_jobs(ms, conf)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())

@@ -1,7 +1,7 @@
 """Client SDK: assign -> upload -> lookup -> delete, and submit.
 
 The port of ``seaweedfs_tpu/cluster/operation.py``, with its fault
-points and without its tracing spans (ROADMAP Queue 1 item 4). Mirrors
+points and without its tracing spans (ROADMAP Queue 1, observability). Mirrors
 weed/operation (SURVEY.md §2 "Operation client lib", §3.2 write call
 stack): ``assign`` asks the master for a file id + target server,
 ``upload`` POSTs the bytes (with the master-issued JWT), ``submit`` does

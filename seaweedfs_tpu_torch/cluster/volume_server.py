@@ -15,7 +15,10 @@ the same wire. Both ``ec_shard_peers`` (the shard lookup of the EC read
 path and of rebuild, ``LookupEcVolume``) and the replica fan-out
 (``LookupVolume``) ask that master. A server may also run with no
 master at all (``master_url=""``), when the caller drives the
-choreography itself.
+choreography itself. With a master, a :class:`~.jobs.JobWorker` pulls
+the master's leased maintenance tasks (``ec.encode -distributed``,
+scrub, vacuum, rebuild, replicate, replica drop) and runs them here,
+naming the task in-flight on every heartbeat.
 
 ``device`` (None = the card; raises when there is none, before any port
 is bound) is where every encode, rebuild, decode and reconstructing
@@ -25,8 +28,8 @@ to the host codec by the routing rule, not as a fallback.)
 
 Not ported yet, each named in ROADMAP Queue 1: the post-decode chunk
 cache and ``/cache/invalidate`` (every EC read decodes), the telemetry
-and usage collectors and their heartbeat fields (left unset), the jobs
-worker, tracing spans and their push, ``/debug/traces``,
+and usage collectors and their heartbeat fields (left unset), tracing
+spans and their push, ``/debug/traces``,
 ``/debug/profile`` and ``/debug/vars`` (404), image resizing on
 ``width``/``height`` (501), and the S3 tier RPCs (``UNIMPLEMENTED``).
 """
@@ -63,15 +66,13 @@ from ..storage.volume import dat_path, idx_path
 from ..util import durability, faults, glog, httpserver, retry, security
 from ..util import tls as tls_mod
 from ..util.stats import EXPOSITION_CONTENT_TYPE, Metrics
+from . import jobs as jobs_mod
 
 _COPY_CHUNK = 1024 * 1024
 
 #: ``-config`` sections of planes the port does not have yet: a file
-#: that sets one is refused rather than half applied. ``storage.scrub``
-#: sets the rate of the scrub job's pacer, and the job comes with
-#: ``[jobs]``.
-UNPORTED_SECTIONS = ("tracing", "telemetry", "usage", "jobs", "profiler",
-                     "storage.scrub")
+#: that sets one is refused rather than half applied.
+UNPORTED_SECTIONS = ("tracing", "telemetry", "usage", "profiler")
 
 
 def _grpc_port(http_port: int) -> int:
@@ -142,7 +143,8 @@ class VolumeServer:
                  port: int = 8080, master_url: str = "",
                  public_url: str = "", data_center: str = "",
                  rack: str = "", pulse_seconds: float = 5.0,
-                 secret: str = "", device=None):
+                 secret: str = "", device=None,
+                 job_poll_seconds: Optional[float] = None):
         #: where encode, rebuild, decode and EC reads run; resolved
         #: first, so a server asked for a missing card binds nothing
         self.device = rs_torch.resolve_device(device)
@@ -169,6 +171,11 @@ class VolumeServer:
         self._ec_loc_cache: dict[int, tuple[float, dict[int, list[str]]]] = {}
         self._metrics_pusher = None
         self._lock = threading.RLock()
+        #: Maintenance-plane worker: started with the server when it
+        #: has a master; claims leased tasks from it and executes them
+        #: through the same servicer the shell drives, on ``device``.
+        self.job_poll_seconds = job_poll_seconds
+        self.job_worker: Optional[jobs_mod.JobWorker] = None
 
     # ------------- lifecycle -------------
 
@@ -201,12 +208,16 @@ class VolumeServer:
         if self.master_url:
             threading.Thread(target=self._heartbeat_loop, daemon=True,
                              name=f"volume-hb-{self.port}").start()
+            self.job_worker = jobs_mod.JobWorker(
+                self, poll_seconds=self.job_poll_seconds).start()
         glog.info("volume server started at %s (grpc %d, device %s)",
                   self.url, _grpc_port(self.port), self.device)
         return self
 
     def stop(self) -> None:
         self._stop.set()
+        if self.job_worker is not None:
+            self.job_worker.stop()
         if self._grpc_server:
             self._grpc_server.stop(grace=0.5)
         if self._http_server:
@@ -318,8 +329,11 @@ class VolumeServer:
             hb.ec_shards.add(id=s["id"], collection=s["collection"],
                              ec_index_bits=s["ec_index_bits"])
         hb.max_file_key = max_key
-        # the telemetry, usage and job_progress fields stay unset: those
-        # planes are not ported yet (ROADMAP Queue 1)
+        if jobs_mod.enabled() and self.job_worker is not None:
+            # Naming an in-flight task here renews its lease.
+            hb.job_progress.CopyFrom(self.job_worker.progress_proto())
+        # the telemetry and usage fields stay unset: those planes are
+        # not ported yet (ROADMAP Queue 1)
         return hb
 
     def _heartbeat_loop(self) -> None:
@@ -990,7 +1004,7 @@ def _make_http_handler(vs: VolumeServer):
                 return
             if u.path.startswith("/debug/"):
                 # traces, profile and vars: not ported yet (ROADMAP
-                # Queue 1 item 4)
+                # Queue 1, observability)
                 self._json({"error": f"{u.path} is not ported yet"}, 404)
                 return
             t0 = time.perf_counter()
@@ -1143,11 +1157,14 @@ def _replicate_http(peer_url: str, fid: str, body: Optional[bytes],
                        point="replica.push", jwt=jwt, timeout=30)
 
 
-def apply_config(conf: dict) -> str:
-    """Apply a loaded ``-config`` TOML: the JWT signing key (returned),
-    ``[grpc.tls]``, ``[retry]``, ``[faults]``, ``[storage]`` (the fsync
-    policy), ``[ingress]``, ``[pipeline]``, ``[flight]`` and ``[mesh]``.
-    A section of a plane the port lacks (:data:`UNPORTED_SECTIONS`)
+def apply_config(conf: dict) -> dict:
+    """Apply a loaded ``-config`` TOML: ``[grpc.tls]``, ``[retry]``,
+    ``[faults]``, ``[storage]`` (the fsync policy), ``[storage.scrub]``
+    (the scrub pacer's rate), ``[ingress]``, ``[pipeline]``,
+    ``[flight]``, ``[mesh]`` and the ``[jobs]`` kill switch. Returns the
+    :class:`VolumeServer` keywords the file sets: ``secret`` (the JWT
+    signing key) and ``job_poll_seconds`` (``[jobs] poll_seconds``). A
+    section of a plane the port lacks (:data:`UNPORTED_SECTIONS`)
     raises ``ValueError`` before anything is applied."""
     from ..util import config as config_mod
 
@@ -1162,7 +1179,9 @@ def apply_config(conf: dict) -> str:
     retry.configure_from(conf)
     faults.configure_from(conf)
     durability.configure_from(conf)
+    scrubber_mod.configure_from(conf)
     httpserver.configure_from(conf)
+    jobs_mod.configure_from(conf)
     if config_mod.lookup(conf, "pipeline") is not None:
         from ..pipeline import pipe as pipe_mod
         pipe_mod.configure_from(conf)
@@ -1171,7 +1190,10 @@ def apply_config(conf: dict) -> str:
     if config_mod.lookup(conf, "mesh") is not None:
         from ..parallel import mesh as mesh_mod
         mesh_mod.configure_from(conf)
-    return secret
+    job_poll = config_mod.lookup(conf, "jobs.poll_seconds")
+    return {"secret": secret,
+            "job_poll_seconds": (float(job_poll)
+                                 if job_poll is not None else None)}
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -1208,15 +1230,15 @@ def main(argv: Optional[list[str]] = None) -> int:
                    help=".dat storage backend")
     p.add_argument("-config", default="",
                    help="TOML: the JWT signing key, [grpc.tls], [retry], "
-                        "[faults], [storage], [ingress], "
-                        "[pipeline], [flight], [mesh]")
+                        "[faults], [storage], [storage.scrub], [ingress], "
+                        "[pipeline], [flight], [mesh], [jobs]")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="where encode, rebuild, decode and EC reads run "
                         "(default: the card)")
     args = p.parse_args(argv)
     try:
         conf = config_mod.load(args.config) if args.config else {}
-        secret = apply_config(conf)
+        server_kw = apply_config(conf)
     except (OSError, TypeError, ValueError) as e:
         print(f"error: -config {args.config}: {e}", file=sys.stderr)
         return 2
@@ -1236,8 +1258,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     vs = VolumeServer(store, ip=args.ip, port=args.port,
                       master_url=args.mserver, public_url=args.publicUrl,
                       data_center=args.dataCenter, rack=args.rack,
-                      pulse_seconds=args.pulseSeconds, secret=secret,
-                      device=args.device)
+                      pulse_seconds=args.pulseSeconds,
+                      device=args.device, **server_kw)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())

@@ -1,7 +1,7 @@
 """Master client with a vid -> locations cache.
 
 The port of ``seaweedfs_tpu/cluster/wdclient.py``, without the
-chunk-cache counters and the tracing spans (ROADMAP Queue 1 item 4).
+chunk-cache counters and the tracing spans (ROADMAP Queue 1, observability).
 Mirrors weed/wdclient (SURVEY.md §2 "Master client"): clients keep a
 cached volume-id -> server-locations map, refreshed through the master's
 LookupVolume, so repeated reads don't hit the master. It speaks the

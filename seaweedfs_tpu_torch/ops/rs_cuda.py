@@ -34,7 +34,9 @@ CUDA tensor it launches its kernel or raises; nothing falls back. Each
 wrapper counts its launches in its ``launches`` attribute, a plain
 integer that a caller may reset to 0; the count is taken under a lock
 (:func:`count_launch`), since the read path launches from several
-threads at once.
+threads at once. :func:`thread_launches` says how many of them the
+calling thread made, which attributes launches to one of several
+callers sharing the card (the job workers of two volume servers).
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ BUILD_LOG = ""
 _lib = None
 _lib_lock = threading.Lock()
 _launches_lock = threading.Lock()
+_thread_counts = threading.local()
 
 
 class KernelBuildError(RuntimeError):
@@ -321,6 +324,17 @@ def count_launch(counted) -> None:
     launching at once would otherwise lose."""
     with _launches_lock:
         counted.launches += 1
+    mine = getattr(_thread_counts, "by_kernel", None)
+    if mine is None:
+        mine = _thread_counts.by_kernel = {}
+    name = getattr(counted, "kernel", "")
+    mine[name] = mine.get(name, 0) + 1
+
+
+def thread_launches() -> dict:
+    """Launches the calling thread has made, by kernel name: a copy
+    that only ever grows, so a caller subtracts two readings."""
+    return dict(getattr(_thread_counts, "by_kernel", None) or {})
 
 
 def apply_gf_matrix_transpose(coefs: np.ndarray,
@@ -349,6 +363,8 @@ def apply_gf_matrix_swar(coefs: np.ndarray,
 
 apply_gf_matrix_transpose.launches = 0
 apply_gf_matrix_swar.launches = 0
+apply_gf_matrix_transpose.kernel = "transpose"
+apply_gf_matrix_swar.kernel = "swar"
 
 
 def kernel() -> str:

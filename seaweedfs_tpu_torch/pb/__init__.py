@@ -18,7 +18,7 @@ copies' descriptor bytes ever differ from the JAX package's, importing
 both packages in one process fails.
 
 Not ported yet: the tracing wrappers the JAX package puts around each
-handler (ROADMAP Queue 1 item 4).
+handler (ROADMAP Queue 1, observability).
 """
 
 from __future__ import annotations

@@ -10,11 +10,14 @@ servers. The EC work itself runs inside the volume servers, on each
 server's device. Shares the registry protocol with commands.py: each
 command is ``fn(env: ClusterEnv, argv)``.
 
-Ported: ``ec.encode`` (without ``-distributed``, which needs the jobs
-plane), ``ec.rebuild``, ``ec.decode``, ``ec.balance``, ``volume.list``,
-``volume.vacuum``, ``volume.grow``, ``collection.list``,
-``cluster.status``, ``lock`` and ``unlock``. The other cluster commands,
-the filer and ``fs.*`` come with later slices (ROADMAP Queue 1).
+Ported: ``ec.encode`` (with ``-distributed -parallel -mesh``, a leased
+sweep on the master's jobs plane), ``ec.rebuild``, ``ec.decode``,
+``ec.balance``, ``volume.list``, ``volume.vacuum``, ``volume.grow``,
+``collection.list``, ``cluster.status``, ``lock``, ``unlock``,
+``job.submit``, ``job.status``, ``job.pause``, ``job.resume``,
+``job.cancel``, ``scrub.start`` and ``scrub.status``. The other cluster
+commands, the filer and ``fs.*`` come with later slices (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -332,24 +335,60 @@ def _spread_targets(nodes: list[EcNode], total: int) -> list[EcNode]:
 def cmd_ec_encode(env: ClusterEnv, argv: list[str]) -> None:
     """Full §3.1 choreography: mark readonly -> generate on the owning
     server -> spread shards rack-aware (copy+mount, delete moved) ->
-    delete the source volume."""
+    delete the source volume. With ``-distributed`` the shell only
+    submits a JobManager sweep — every volume server encodes its own
+    volumes in parallel under leases, on its own device — and waits."""
     p = _parser("ec.encode")
     p.add_argument("-volumeId", type=int, default=0)
     p.add_argument("-collection", default="")
     p.add_argument("-dataShards", type=int, default=0)
     p.add_argument("-parityShards", type=int, default=0)
+    p.add_argument("-distributed", action="store_true",
+                   help="run as a leased job sweep on the workers")
+    p.add_argument("-parallel", type=int, default=0,
+                   help="with -distributed: max concurrent tasks")
     p.add_argument("-mesh", default="",
-                   help="refused: a mesh composes only with the "
-                        "distributed encode of the jobs plane")
+                   help="with -distributed: each worker encodes its "
+                        "volumes on a dp,sp device mesh (or 'auto'); "
+                        "dp*sp must equal the worker's device count")
     args = p.parse_args(argv)
     vid, col = args.volumeId, args.collection
-    if args.mesh:
+    if args.mesh and not args.distributed:
         raise ShellError(
             "ec.encode: -mesh composes with -distributed (the mesh "
             "lives on the worker running the encode; the plain cluster "
             "path generates shards over gRPC)")
+    if args.distributed:
+        params = {}
+        if args.dataShards and args.parityShards:
+            params = {"data_shards": args.dataShards,
+                      "parity_shards": args.parityShards}
+        if args.mesh:
+            # syntax check here (cheap, fail fast); the device-count
+            # validation happens on the claiming worker, whose device
+            # inventory is what the spec must tile
+            from ..parallel import mesh as mesh_mod
+            try:
+                mesh_mod.parse_spec(args.mesh)
+            except mesh_mod.MeshConfigError as e:
+                raise ShellError(str(e)) from e
+            params["mesh"] = args.mesh
+        doc = env._master_http(
+            "/cluster/jobs/submit", method="POST",
+            body={"kind": "ec_encode", "collection": col,
+                  "volumes": [vid] if vid else [],
+                  "params": params, "parallel": args.parallel,
+                  "submittedBy": "shell"})
+        job = doc["job"]
+        env.println(f"job {job['jobId']}: distributed ec.encode over "
+                    f"{job['total']} volume(s)")
+        job = _wait_for_job(env, job["jobId"])
+        if job["state"] != "done":
+            raise ShellError(f"job {job['jobId']} {job['state']}")
+        return
     if not vid:
-        raise ShellError("ec.encode: -volumeId required")
+        raise ShellError("ec.encode: -volumeId required "
+                         "(or use -distributed)")
 
     locs = env.volume_locations(vid)
     if not locs:
@@ -735,6 +774,198 @@ def cmd_unlock(env: ClusterEnv, argv: list[str]) -> None:
         return
     env.admin_unlock()
     env.println("unlocked")
+
+
+def _job_kind(name: str) -> str:
+    """Shell spelling (``ec.encode``) -> manager kind (``ec_encode``)."""
+    return name.replace(".", "_")
+
+
+def _wait_for_job(env: ClusterEnv, job_id: str,
+                  timeout: float = 600.0,
+                  poll_seconds: float = 0.5) -> dict:
+    """Poll /cluster/jobs until ``job_id`` reaches a terminal state,
+    printing progress transitions as they happen."""
+    deadline = time.monotonic() + timeout
+    last = ""
+    while True:
+        doc = env._master_http("/cluster/jobs?tasks=0")
+        jobs = {j["jobId"]: j for j in doc.get("jobs", ())}
+        job = jobs.get(job_id)
+        if job is None:
+            raise ShellError(f"job {job_id} vanished from the master")
+        counts = job.get("taskCounts", {})
+        line = (f"{job['state']}: " + ", ".join(
+            f"{n} {s}" for s, n in sorted(counts.items())))
+        if line != last:
+            env.println(f"job {job_id} {line}")
+            last = line
+        if job["state"] in ("done", "failed", "cancelled"):
+            return job
+        if time.monotonic() > deadline:
+            raise ShellError(f"job {job_id} still {job['state']} after "
+                             f"{timeout:.0f}s")
+        time.sleep(poll_seconds)
+
+
+@cluster_command("job.submit")
+def cmd_job_submit(env: ClusterEnv, argv: list[str]) -> None:
+    """Queue a maintenance sweep on the master's JobManager — volume
+    servers pull the per-volume tasks under leases.
+    ``job.submit ec.encode -collection X -parallel N`` sweeps the
+    whole collection; ``-volumeId 3,7`` names volumes explicitly."""
+    p = _parser("job.submit")
+    p.add_argument("kind",
+                   help="ec.encode | ec.rebuild | vacuum | replicate "
+                        "| replica.drop")
+    p.add_argument("-collection", default="")
+    p.add_argument("-volumeId", default="",
+                   help="comma-separated ids; default: every candidate "
+                        "volume of the collection")
+    p.add_argument("-parallel", type=int, default=0,
+                   help="max concurrently leased tasks (0 = unlimited)")
+    p.add_argument("-wait", action="store_true",
+                   help="block until the job reaches a terminal state")
+    args = p.parse_args(argv)
+    vols = [int(x) for x in args.volumeId.split(",") if x]
+    doc = env._master_http(
+        "/cluster/jobs/submit", method="POST",
+        body={"kind": _job_kind(args.kind), "collection": args.collection,
+              "volumes": vols, "parallel": args.parallel,
+              "submittedBy": "shell"})
+    job = doc["job"]
+    env.println(f"job {job['jobId']}: {job['total']} "
+                f"{job['kind']} task(s) queued")
+    if args.wait:
+        job = _wait_for_job(env, job["jobId"])
+        if job["state"] != "done":
+            raise ShellError(f"job {job['jobId']} {job['state']}")
+
+
+@cluster_command("job.status")
+def cmd_job_status(env: ClusterEnv, argv: list[str]) -> None:
+    """Show the maintenance plane: every job's task counts, plus the
+    policy engine's state (disarmed on a port master)."""
+    p = _parser("job.status")
+    p.add_argument("-job", default="", help="show one job's tasks")
+    args = p.parse_args(argv)
+    doc = env._master_http("/cluster/jobs")
+    if args.job:
+        jobs = [j for j in doc.get("jobs", ())
+                if j["jobId"] == args.job]
+        if not jobs:
+            raise ShellError(f"unknown job {args.job}")
+        for t in jobs[0].get("tasks", ()):
+            err = f"  {t['error']}" if t["error"] else ""
+            env.println(
+                f"{t['taskId']}: {t['kind']} volume {t['volumeId']} "
+                f"{t['state']} ({t['fraction']:.0%} on "
+                f"{t['worker'] or '-'}, attempt {t['attempts']}){err}")
+        return
+    jobs = doc.get("jobs", ())
+    if not jobs:
+        env.println("no jobs")
+    for j in jobs:
+        counts = ", ".join(f"{n} {s}" for s, n in
+                           sorted(j.get("taskCounts", {}).items()))
+        env.println(f"{j['jobId']}: {j['kind']} "
+                    f"[{j['collection'] or 'default'}] {j['state']} "
+                    f"({counts or 'empty'})")
+    pol = doc.get("policy", {})
+    env.println(f"policy: {'on' if pol.get('enabled') else 'off'}, "
+                f"{pol.get('ticks', 0)} tick(s), "
+                f"{len(pol.get('actions', ()))} recent action(s)")
+
+
+def _job_control(env: ClusterEnv, verb: str, argv: list[str]) -> None:
+    p = _parser(f"job.{verb}")
+    p.add_argument("-job", required=True)
+    args = p.parse_args(argv)
+    job = env._master_http(f"/cluster/jobs/{verb}?job={args.job}",
+                           method="POST")["job"]
+    env.println(f"job {job['jobId']} {job['state']}")
+
+
+@cluster_command("job.pause")
+def cmd_job_pause(env: ClusterEnv, argv: list[str]) -> None:
+    """Stop handing out a job's pending tasks (in-flight leases
+    finish); job.resume continues it."""
+    _job_control(env, "pause", argv)
+
+
+@cluster_command("job.resume")
+def cmd_job_resume(env: ClusterEnv, argv: list[str]) -> None:
+    _job_control(env, "resume", argv)
+
+
+@cluster_command("job.cancel")
+def cmd_job_cancel(env: ClusterEnv, argv: list[str]) -> None:
+    """Terminally stop a job: pending tasks are never handed out
+    again; a task already leased still reports its completion."""
+    _job_control(env, "cancel", argv)
+
+
+@cluster_command("scrub.start")
+def cmd_scrub_start(env: ClusterEnv, argv: list[str]) -> None:
+    """Start a paced integrity scrub: every targeted volume's live
+    needles are CRC-walked and its EC shards hash-verified on the
+    server that holds them, with corrupt data quarantined and
+    auto-repaired from replicas / parity. Defaults to every plain + EC
+    volume of the collection."""
+    p = _parser("scrub.start")
+    p.add_argument("-collection", default="")
+    p.add_argument("-volumeId", default="",
+                   help="comma-separated ids; default: every volume "
+                        "of the collection")
+    p.add_argument("-rate", type=int, default=0,
+                   help="byte read rate cap per task "
+                        "(0 = [storage.scrub] configured rate)")
+    p.add_argument("-parallel", type=int, default=0,
+                   help="max concurrently leased tasks (0 = unlimited)")
+    p.add_argument("-wait", action="store_true",
+                   help="block until the scrub reaches a terminal "
+                        "state")
+    args = p.parse_args(argv)
+    body = {"collection": args.collection,
+            "volumes": [int(x) for x in args.volumeId.split(",") if x],
+            "parallel": args.parallel, "submittedBy": "shell"}
+    if args.rate > 0:
+        body["rate_bytes_per_second"] = args.rate
+    doc = env._master_http("/cluster/scrub", method="POST", body=body)
+    job = doc["job"]
+    env.println(f"scrub {job['jobId']}: {job['total']} volume(s) "
+                f"queued")
+    if args.wait:
+        job = _wait_for_job(env, job["jobId"])
+        if job["state"] != "done":
+            raise ShellError(f"scrub {job['jobId']} {job['state']}")
+
+
+@cluster_command("scrub.status")
+def cmd_scrub_status(env: ClusterEnv, argv: list[str]) -> None:
+    """Show the scrub plane: each scrub job's per-volume task states
+    and the candidate count still uncovered."""
+    p = _parser("scrub.status")
+    p.add_argument("-collection", default="")
+    args = p.parse_args(argv)
+    doc = env._master_http(
+        f"/cluster/scrub?collection={args.collection}")
+    jobs = doc.get("jobs", ())
+    if not jobs:
+        env.println("no scrub jobs")
+    for j in jobs:
+        counts = ", ".join(f"{n} {s}" for s, n in
+                           sorted(j.get("taskCounts", {}).items()))
+        env.println(f"{j['jobId']}: [{j['collection'] or 'default'}] "
+                    f"{j['state']} ({counts or 'empty'})")
+        for t in j.get("tasks", ()):
+            if t["state"] in ("leased", "failed"):
+                err = f"  {t['error']}" if t["error"] else ""
+                env.println(
+                    f"  {t['taskId']}: volume {t['volumeId']} "
+                    f"{t['state']} ({t['fraction']:.0%} on "
+                    f"{t['worker'] or '-'}){err}")
+    env.println(f"candidate volumes: {doc.get('candidates', 0)}")
 
 
 def run_cluster_command(env: ClusterEnv, line: str) -> None:

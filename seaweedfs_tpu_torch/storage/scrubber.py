@@ -28,15 +28,14 @@ away. This module walks the data at rest *proactively*:
   hash.
 
 Scrubbing is paced: a token-bucket :class:`RatePacer` caps the byte
-read rate (8 MiB/s unless the caller names another) so a background
-scrub never steals the disk from foreground reads. The counters go to
-:data:`METRICS` (the ``seaweed_scrub_*`` family). Not ported yet
-(ROADMAP Queue 1): ``configure`` / ``configure_from`` and
-``debug_payload``, which come with the volume server that reads the
-``[storage.scrub]`` section and serves the payload; the cluster's
-``scrub`` job, the master's ``/cluster/scrub`` and the shell's
-``scrub.*`` commands; and the refusal to repair a tiered read-only
-volume (the port loads no tiered volume).
+read rate (the ``[storage.scrub] rate_bytes_per_second`` the volume
+server's ``-config`` sets through :func:`configure_from`, 8 MiB/s
+unless set, or the rate the caller names) so a background scrub never
+steals the disk from foreground reads. The cluster drives it through the
+``scrub`` job (``cluster/jobs.py``). The counters go to :data:`METRICS`
+(the ``seaweed_scrub_*`` family). Not ported yet (ROADMAP Queue 1): the
+refusal to repair a tiered read-only volume (the port loads no tiered
+volume, which comes with the S3 tier).
 """
 
 from __future__ import annotations
@@ -64,9 +63,28 @@ METRICS = Metrics(namespace="seaweed")
 #: Bytes hashed/reconstructed per EC verify step (also the pacer grain).
 EC_CHUNK_BYTES = 4 * 1024 * 1024
 
-#: A pacer's rate when its caller names none (the JAX package's
-#: ``[storage.scrub] rate_bytes_per_second`` default).
+#: The ``[storage.scrub] rate_bytes_per_second`` default (the JAX
+#: package's).
 DEFAULT_RATE_BYTES_PER_SECOND = 8 * 1024 * 1024
+_RATE_BYTES_PER_SECOND = DEFAULT_RATE_BYTES_PER_SECOND
+
+
+def configure(rate_bytes_per_second: Optional[int] = None) -> None:
+    global _RATE_BYTES_PER_SECOND
+    if rate_bytes_per_second is not None:
+        _RATE_BYTES_PER_SECOND = int(rate_bytes_per_second)
+
+
+def configure_from(conf: dict) -> None:
+    """Apply a ``[storage.scrub]`` config-file section."""
+    s = conf.get("storage") if isinstance(conf, dict) else None
+    sc = s.get("scrub") if isinstance(s, dict) else None
+    if isinstance(sc, dict):
+        configure(rate_bytes_per_second=sc.get("rate_bytes_per_second"))
+
+
+def configured_rate() -> int:
+    return _RATE_BYTES_PER_SECOND
 
 
 class RatePacer:
@@ -78,8 +96,7 @@ class RatePacer:
 
     def __init__(self, bytes_per_second: Optional[int] = None,
                  clock=time.monotonic, sleep=time.sleep):
-        self.rate = (DEFAULT_RATE_BYTES_PER_SECOND
-                     if bytes_per_second is None
+        self.rate = (_RATE_BYTES_PER_SECOND if bytes_per_second is None
                      else int(bytes_per_second))
         self._clock = clock
         self._sleep = sleep
@@ -407,3 +424,7 @@ def scrub_ec(base: str | Path, scheme, pacer: Optional[RatePacer] = None,
     if progress is not None:
         progress(1.0)
     return res
+
+
+def debug_payload() -> dict:
+    return {"rate_bytes_per_second": _RATE_BYTES_PER_SECOND}

@@ -10,7 +10,7 @@ The port's copy of ``seaweedfs_tpu/util/glog.py``, logging under the
 ``seaweedfs_tpu_torch.glog`` logger (not the package's own logger, whose
 children the port's modules log to: this one does not propagate). Not ported yet: the `` trace=<id>
 span=<id>`` suffix a line gets inside an active tracing span (the port
-has no spans; ROADMAP Queue 1 item 4).
+has no spans; ROADMAP Queue 1, observability).
 """
 
 from __future__ import annotations

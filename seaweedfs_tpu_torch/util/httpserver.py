@@ -28,13 +28,13 @@ drop-in replacement that turns overload into policy:
 
 Every decision is observable in the ``seaweed_ingress_*`` metrics
 (rendered on ``/metrics`` next to the retry plane's); the ``ingress``
-payload of ``/debug/vars`` comes with that page (ROADMAP Queue 1 item
-4). Config lives in an ``[ingress]`` TOML block.
+payload of ``/debug/vars`` comes with that page (ROADMAP Queue 1,
+observability). Config lives in an ``[ingress]`` TOML block.
 
 The port's copy of ``seaweedfs_tpu/util/httpserver.py`` up to its
 per-tenant QoS (``QosEngine`` and friends), which serves only the S3
 gateway and comes with it. Shed decisions are counted but tag no trace
-span: the port has no tracing yet (ROADMAP Queue 1 item 4).
+span: the port has no tracing yet (ROADMAP Queue 1, observability).
 """
 
 from __future__ import annotations
@@ -170,7 +170,7 @@ def _count_shed(reason: str, cls_name: str) -> None:
     METRICS.counter("ingress_shed_total", reason=reason,
                     **{"class": cls_name}).inc()
     # the JAX package tags the active tracing span with shed=<reason>
-    # here; the port has no spans yet (ROADMAP Queue 1 item 4)
+    # here; the port has no spans yet (ROADMAP Queue 1, observability)
 
 
 # --------------------------------------------------------------------------

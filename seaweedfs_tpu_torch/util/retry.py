@@ -32,7 +32,7 @@ EC decode) calls :func:`record_degraded`.
 Config lives in a ``[retry]`` TOML block.
 
 The port's copy of ``seaweedfs_tpu/util/retry.py``. Not ported yet
-(ROADMAP Queue 1 item 4): the trace context :func:`inject` stamps beside
+(ROADMAP Queue 1, observability): the trace context :func:`inject` stamps beside
 the deadline, and the span tag :func:`record_degraded` sets; the port
 has no tracing. :func:`degraded_counts` reads the degraded-read counts
 by stage without parsing the metrics text.
@@ -218,7 +218,7 @@ def deadline_from_headers(headers) -> Optional[Deadline]:
 
 def inject(headers: dict, deadline: Optional[Deadline] = None) -> dict:
     """Stamp the remaining deadline onto outgoing headers (the JAX
-    package stamps the trace context too; ROADMAP Queue 1 item 4)."""
+    package stamps the trace context too; ROADMAP Queue 1, observability)."""
     dl = deadline or current_deadline()
     if dl is not None:
         headers[DEADLINE_HEADER] = dl.header_value()

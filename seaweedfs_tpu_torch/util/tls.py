@@ -25,7 +25,7 @@ missing.
 The port's copy of ``seaweedfs_tpu/util/tls.py``, minus the client
 tools' ``-securityConfig`` flag helpers (the port has no client tool
 yet). Channels carry no trace context: the port has no tracing yet
-(ROADMAP Queue 1 item 4).
+(ROADMAP Queue 1, observability).
 """
 
 from __future__ import annotations

@@ -363,8 +363,9 @@ def test_ec_encode_mesh_and_bad_flags_fail_as_in_jax(tmp_path):
                 except Exception as e:  # noqa: BLE001 — compare messages
                     errs[pkg].append(str(e))
             env.close()
-        assert errs["port"][:3] == errs["jax"][:3]
-        assert errs["port"][3] == "ec.encode: -volumeId required"
+        assert errs["port"][:4] == errs["jax"][:4]
+        assert errs["port"][3] == "ec.encode: -volumeId required " \
+            "(or use -distributed)"
         assert "not found" in errs["port"][4] and \
             "not found" in errs["jax"][4]
     finally:

@@ -720,3 +720,54 @@ def test_master_driven_ec_lifecycle_on_the_card(tmp_path):
         for vs in servers:
             vs.stop()
         ms.stop()
+
+
+@pytest.mark.cuda
+def test_job_worker_ec_encode_launches_the_transpose_kernel(tmp_path):
+    """``ec.encode -distributed`` through a port master to one port
+    server on the card: the job worker's seal launches the transpose
+    kernel once per batch on its own thread, and the parity equals
+    ``rs_ref``'s."""
+    _need_card()
+    import io
+
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
+                                                           free_port_pair)
+    from seaweedfs_tpu_torch.ops import rs_ref
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.shell.cluster_commands import (
+        ClusterEnv, run_cluster_command)
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    d = tmp_path / "a"
+    d.mkdir()
+    volume.generate_synthetic_volume(d / "jobs_3", 3, 24, avg_size=400_000,
+                                     seed=3).close()
+    ms = MasterServer(port=free_port_pair(), pulse_seconds=0.5).start()
+    st = Store([d])
+    st.load_existing()
+    vs = VolumeServer(st, port=free_port_pair(), master_url=ms.url,
+                      pulse_seconds=0.5, job_poll_seconds=0.1).start()
+    vs.heartbeat_now()
+    env = ClusterEnv(master_url=ms.url, out=io.StringIO())
+    try:
+        base = vs.store.get_volume(3, "jobs").base
+        dat_size = volume.dat_path(base).stat().st_size
+        batches = len(list(encode.plan_batches(
+            dat_size, DEFAULT_SCHEME, pipe.current().batch_bytes)))
+        n = rs_cuda.apply_gf_matrix_transpose.launches
+        run_cluster_command(env, "ec.encode -distributed -collection jobs")
+        assert rs_cuda.apply_gf_matrix_transpose.launches - n == batches
+        [task] = vs.job_worker.finished
+        assert task["ok"] and task["launches"] == {"transpose": batches}
+        k = DEFAULT_SCHEME.data_shards
+        shards = [np.fromfile(ec_files.shard_path(base, i), dtype=np.uint8)
+                  for i in range(DEFAULT_SCHEME.total_shards)]
+        ref = rs_ref.ReferenceEncoder(k, DEFAULT_SCHEME.parity_shards)
+        assert np.array_equal(ref.encode_parity(np.stack(shards[:k])),
+                              np.stack(shards[k:]))
+    finally:
+        env.close()
+        vs.stop()
+        ms.stop()

@@ -58,6 +58,7 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.cluster.ha",
        "seaweedfs_tpu_torch.cluster.wdclient",
        "seaweedfs_tpu_torch.cluster.operation",
+       "seaweedfs_tpu_torch.cluster.jobs",
        "seaweedfs_tpu_torch.shell.cluster_commands",
        "seaweedfs_tpu_torch.cli_tools"}
 print("missing:", sorted(new - set(names)))
@@ -75,7 +76,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # Volume engine, the multi-device split, the config loader, the
     # flight recorder, the needle maps, vacuum, the scrubber, the crash
     # harness, the pb copies, the volume server and its wire utilities,
-    # the master, its clients and the cluster shell among them
+    # the master, its clients, the cluster shell and the jobs plane
+    # among them
     assert int(out.stdout.split()[0]) >= 70
     assert "missing: []" in out.stdout
 
@@ -103,12 +105,18 @@ def test_entry_points_refuse_the_cpu_without_cuda(tmp_path):
 def test_master_refuses_unported_config_sections(tmp_path, capsys,
                                                  section):
     """``master -config`` with a section of a plane the port lacks exits
-    2 with one ``error:`` line, before anything binds."""
-    from seaweedfs_tpu_torch.cluster import master
-    assert section in master.UNPORTED_SECTIONS
+    2 with one ``error:`` line, before anything binds. ``[jobs]`` itself
+    is ported; its policy-engine keys are what the port lacks there."""
+    from seaweedfs_tpu_torch.cluster import jobs, master
+    if section == "jobs":
+        assert "policy" in jobs.POLICY_KEYS
+        key = "policy"
+    else:
+        assert section in master.UNPORTED_SECTIONS
+        key = "enabled"
     conf = tmp_path / "m.toml"
     conf.write_text(f"[retry]\nmax_attempts = 2\n\n[{section}]\n"
-                    f"enabled = true\n")
+                    f"{key} = true\n")
     assert master.main(["-port", "1", "-config", str(conf)]) == 2
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and err[0].startswith("error:")
@@ -124,4 +132,6 @@ def test_shell_master_runs_cluster_commands(capsys):
     assert {"ec.encode", "ec.rebuild", "ec.decode", "ec.balance",
             "volume.list", "volume.vacuum", "volume.grow",
             "collection.list", "cluster.status", "lock",
-            "unlock"} == set(listed)
+            "unlock", "job.submit", "job.status", "job.pause",
+            "job.resume", "job.cancel", "scrub.start",
+            "scrub.status"} == set(listed)
