@@ -53,21 +53,21 @@ of which fails the run on any mismatch:
    by RPC, the path phase's needles POSTed to A (.dat and .idx
    sha256-equal to the path phase's; MiB/s), ``VolumeEcShardsGenerate``
    (shards, .ecx and .vif sha256-equal to the sealed ones, one launch
-   per batch; GiB/s beside the direct encode), every needle read by HTTP
-   GET from A's shards (no launch), ``VolumeEcShardsCopy`` of every
+   per batch; GiB/s beside the direct encode), every 4th needle read by
+   HTTP GET from A's shards (no launch), ``VolumeEcShardsCopy`` of every
    shard to B (sha256-equal, GiB/s) and one ``VolumeEcShardRead`` range,
-   every needle read from B with shards 0, 5, 11 and 13 deleted on both
-   servers (reconstruct-on-read: needles/s, p50, p99, launches,
+   every 2nd needle read from B with shards 0, 5, 11 and 13 deleted on
+   both servers (reconstruct-on-read: needles/s, p50, p99, launches,
    host-codec calls), ``VolumeEcShardsRebuild`` (sha256-equal),
    ``VolumeEcShardsToVolume`` after losing data shards 0 and 5 (.dat and
-   .idx sha256-equal, every needle read back); then through the master:
+   .idx sha256-equal, every 4th needle read back); then through the master:
    64 needles of about 1 MiB by ``operation.submit`` with replication
    001, each read back sha256-equal from A and from B (MiB/s, ms per
    needle); the cluster shell in this process running ``lock; ec.encode;
    ec.balance; volume.list; unlock`` on the restored volume (one launch
    per batch, shards spread even/odd over A/B and sha256-equal to the
-   sealed ones; GiB/s beside the RPC-driven Generate); every needle read
-   by ``operation.download`` with shards 0, 5, 11 and 13 gone, each
+   sealed ones; GiB/s beside the RPC-driven Generate); every 2nd needle
+   read by ``operation.download`` with shards 0, 5, 11 and 13 gone, each
    server fetching what it lacks through ``ec_shard_peers`` (needles/s,
    p50, p99, launches); the shell's ``ec.rebuild`` and ``ec.decode``
    (sha256-equal; GiB/s); then ``python -m seaweedfs_tpu_torch master``,
@@ -92,13 +92,29 @@ of which fails the run on any mismatch:
    4 MiB chunk), then one byte of shard 3 rotten, quarantined and
    rebuilt to its sealed sha256 (GiB/s and launches beside the storage
    phase's direct ``scrub_ec``);
-9. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
+9. filer (the filer stack with its chunk cache): a port master, two port
+   volume servers A and B (64 MiB post-decode caches each) and one port
+   filer (the default ``[cache]``, 64 MiB), in this process: 64 files of
+   seeded sizes over 1-8 MiB (about 288 MiB) PUT through the filer's HTTP
+   into collection ``filer`` (4 MiB chunks, on two volumes), ``fs.ls``,
+   ``fs.du`` and ``volume.fsck`` (0 orphans, 0 missing) through ``shell
+   -master ... -filer ...``, ``ec.encode`` of both volumes over A and B,
+   shards 0, 5, 11 and 13 deleted everywhere and every file read back
+   through the filer sha256-equal (repairs on the card: files/s, MiB/s,
+   p50, p99, launches, host-codec calls), the hot set (the last files
+   read, at most 32 MiB) again from the filer's cache (no launch, no
+   volume-server read), again with the filer's cache cleared from the
+   servers' post-decode caches (no launch, each server's hits),
+   ``ec.rebuild`` dropping every cached entry of both volumes and the hot
+   set read back with no launch; then ``python -m seaweedfs_tpu_torch
+   filer`` in its own process (one PUT and one GET, SIGTERM);
+10. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
    a bulk decode of 4 lost shards through the kernels while 8 reader
    threads send 64 QPS of 4 KiB interval repairs, all checked;
-10. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
+11. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
    shards rebuilt, and the volume decoded after losing data shards 0 and
    3, all sha256-checked, parity against ``rs_ref`` on sampled rows;
-11. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
+12. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
    normal routing, the shell's ``ec.encode -mesh 1,1`` in turns with the
    unsplit ``ec.encode`` (a warm-up, then A, B, B, A) on config 1's
    volume, shards and .ecx sha256-equal and launches equal (one per
@@ -109,7 +125,7 @@ of which fails the run on any mismatch:
    grid (B pads to 26, S splits in two: 4 launches), byte-equal to the
    unsplit path and to ``rs_ref`` on sampled rows; (c) ``-mesh 2,2``
    refused on one card with no file changed;
-12. config (the shell's ``-config``): on config 1's volume through
+13. config (the shell's ``-config``): on config 1's volume through
    ``shell.cli.main``, (a) a TOML of ``[pipeline] double_buffer``,
    ``[mesh]`` 1 x 1 and ``[flight]``: ``ec.encode -keepSource;
    pipeline.status; pipeline.analyze; pipeline.dump -trace`` (shards,
@@ -122,7 +138,7 @@ of which fails the run on any mismatch:
    ``pipeline.analyze``), each a warm-up of each side then A, B, B, A
    with both medians and their ratio, launches checked on every encode
    and the files sha256-checked on one of each side;
-13. storage (the engine at rest, on config 1's volume): (a) a seeded
+14. storage (the engine at rest, on config 1's volume): (a) a seeded
    .idx of 1,000,000 needles with 10% deleted loaded by the memory,
    native and sqlite needle maps (equal live entries and counters, the
    native library built), with each load's seconds; (b) every third
@@ -138,7 +154,7 @@ of which fails the run on any mismatch:
    4 MiB chunk, then one byte flipped in shards 3 and 12 and both
    quarantined and rebuilt to their sealed sha256; (e) ``scrub_volume``
    repairing one rotten needle from an intact copy, needles/s;
-14. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+15. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
    ``batch.encode_packed`` over 200 of them with every parity span checked
    whole against ``rs_ref`` and the batch census printed, 200 volumes on the
@@ -986,6 +1002,13 @@ def _http(conn, method: str, path: str, body=None) -> tuple:
 
 #: The cluster phase's heartbeat pulse (master and servers), seconds.
 CLUSTER_PULSE = 1.0
+#: The cluster phase GETs every 4th needle from A's local shards and
+#: from B's decoded volume (no launch either; it read all of them
+#: before the filer phase came).
+LOCAL_GET_EVERY = 4
+#: ... and every 2nd needle with shards lost, from B and through
+#: ``operation.download`` (it read all of them before the filer phase).
+DEGRADED_GET_EVERY = 2
 #: The replicated uploads of the cluster phase: 64 needles of about 1 MiB
 #: with replication 001 (A and B share a rack).
 REPLICATED_NEEDLES = 64
@@ -1136,14 +1159,16 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
               f"{len(written)} needles POSTed to A: .dat and .idx "
               f"sha256-equal to the path phase's volume")
 
-        def read_all(name: str, what: str, expect: dict) -> list:
-            """GET every needle from server ``name`` with the launch
-            counts set to 0 just before; each body held against the
-            written one; returns each GET's seconds."""
+        def read_all(name: str, what: str, expect: dict,
+                     every: int = 1) -> list:
+            """GET every ``every``-th needle from server ``name`` with
+            the launch counts set to 0 just before; each body held
+            against the written one; returns each GET's seconds."""
             times = []
+            wanted = list(written.items())[::every]
 
             def run():
-                for fid, digest in written.items():
+                for fid, digest in wanted:
                     t0 = time.perf_counter()
                     code, body = _http(conns[name], "GET", f"/{fid}")
                     times.append(time.perf_counter() - t0)
@@ -1151,8 +1176,9 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
                             hashlib.sha256(body).digest() != digest:
                         raise SmokeError(f"{what}: GET {fid} gave {code}")
             drive(what, run, expect, rpc)
-            check(len(times) == len(written), f"{what}: all "
-                  f"{len(written)} needles equal to the ones written")
+            check(len(times) == len(wanted), f"{what}: "
+                  f"{len(wanted)} of {len(written)} needles equal to the "
+                  f"ones written")
             return times
 
         # 3: seal on A, one launch per batch. Its baseline is a direct
@@ -1203,7 +1229,8 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
         check(not os.path.exists(abase + ".dat"), "VolumeDelete: A's .dat "
               "gone, its shards mounted")
         times = read_all("A", "GET from A's local shards",
-                         {"transpose": False, "swar": False})
+                         {"transpose": False, "swar": False},
+                         every=LOCAL_GET_EVERY)
         result["local_read_needles_per_s"] = len(times) / sum(times)
         say(f"  GET from A's shards: {len(times) / sum(times):.1f} "
             f"needles/s, host-codec calls "
@@ -1247,7 +1274,8 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
               f"held nowhere")
         times = read_all("B", f"GET from B with shards {list(LOST_READ)} "
                          f"lost (reconstruct-on-read)",
-                         {"transpose": True, "swar": False})
+                         {"transpose": True, "swar": False},
+                         every=DEGRADED_GET_EVERY)
         ms = np.asarray(times) * 1e3
         result["degraded_read"] = {
             "needles_per_s": len(times) / sum(times),
@@ -1293,7 +1321,8 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
               "VolumeEcShardsToVolume: .dat and .idx sha256-equal to the "
               "originals, the volume mounted again")
         read_all("B", "GET from B's decoded volume",
-                 {"transpose": False, "swar": False})
+                 {"transpose": False, "swar": False},
+                 every=LOCAL_GET_EVERY)
         # the shard files left on A and B go; the volume lives on B
         for s in (a, b):
             s.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
@@ -1403,8 +1432,10 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
                         for vs in servers.values())
         times = []
 
+        wanted = list(written.items())[::DEGRADED_GET_EVERY]
+
         def download_all():
-            for fid, digest in written.items():
+            for fid, digest in wanted:
                 t0 = time.perf_counter()
                 body = operation.download(mc, fid)
                 times.append(time.perf_counter() - t0)
@@ -1415,8 +1446,8 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
               f"{list(LOST_READ)} gone (ec_shard_peers through the master)",
               download_all, {"transpose": True, "swar": False},
               phase_launches["client"])
-        check(len(times) == len(written), f"operation.download: all "
-              f"{len(written)} needles equal to the .dat's")
+        check(len(times) == len(wanted), f"operation.download: "
+              f"{len(wanted)} of {len(written)} needles equal to the .dat's")
         ms = np.asarray(times) * 1e3
         result["master_degraded_read"] = {
             "needles_per_s": len(times) / sum(times),
@@ -1879,6 +1910,337 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
         shutil.rmtree(workdir, ignore_errors=True)
     result["seconds"] = time.perf_counter() - t_phase
     say(f"  jobs phase: {result['seconds']:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
+# filer phase: the filer stack with its chunk cache, on a sealed volume
+# --------------------------------------------------------------------------
+
+#: The filer phase's files: FILER_FILES of seeded sizes uniform over
+#: 1-8 MiB (about 288 MiB), PUT through the filer into one collection and
+#: cut into FILER_CHUNK_MB chunks; the hot set is the last files read,
+#: at most FILER_HOT_BYTES in all, so it fits the filer's 64 MiB cache
+#: and each volume server's 64 MiB post-decode cache.
+FILER_FILES = 64
+FILER_CHUNK_MB = 4
+FILER_HOT_BYTES = 32 * MIB
+FILER_COLLECTION = "filer"
+FILER_PULSE = 0.5
+
+
+def filer_phase(dev, workdir: str, label: str, launches: dict) -> dict:
+    """The filer stack in this process on the card: a port master, two
+    port volume servers A and B (their default 64 MiB post-decode
+    caches) and one port filer (the default ``[cache]``, 64 MiB). 64
+    files PUT through the filer's HTTP; ``fs.ls``, ``fs.du`` and
+    ``volume.fsck`` through ``shell -master ... -filer ...``; the
+    collection sealed with ``ec.encode`` over A and B; shards 0, 5, 11
+    and 13 deleted everywhere and every file read back through the filer
+    (repairs on the card); the hot set read again from the filer's cache
+    (no launch, no volume-server read), then from the volume servers'
+    post-decode caches (no launch); ``ec.rebuild`` drops every cached
+    entry of the volumes, and the hot set reads back with no launch; last
+    ``python -m seaweedfs_tpu_torch filer`` in its own process."""
+    import http.client
+    import signal
+    import urllib.error
+    import urllib.request
+
+    from seaweedfs_tpu_torch import cache as cache_mod
+    from seaweedfs_tpu_torch.cluster.filer_server import FilerServer
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
+                                                           free_port_pair)
+    from seaweedfs_tpu_torch.filer import Filer
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.shell.cluster_commands import ClusterEnv
+
+    t_phase = time.perf_counter()
+    result = {}
+    rng = np.random.default_rng(SEED + 12)
+    sizes = [int(x) for x in rng.integers(MIB, 8 * MIB + 1, FILER_FILES)]
+    files = {f"/{FILER_COLLECTION}/f{i:02d}.bin": rng.bytes(n)
+             for i, n in enumerate(sizes)}
+    digests = {p: hashlib.sha256(b).digest() for p, b in files.items()}
+    total = sum(sizes)
+    say(f"  {FILER_FILES} files of {total} bytes ({total / MIB:.1f} MiB), "
+        f"sizes seeded over 1-8 MiB, {FILER_CHUNK_MB} MiB chunks")
+    # the process's chunk cache as `filer` starts it: the [cache] defaults
+    cache_mod.configure_global()
+    fcache = cache_mod.global_chunk_cache()
+    check(fcache.stats()["memory_capacity"] == 64 * MIB,
+          "the filer's chunk cache: the [cache] default of 64 MiB")
+    master = MasterServer(port=free_port_pair(),
+                          pulse_seconds=FILER_PULSE).start()
+    servers, filer, env, conn = {}, None, None, None
+    try:
+        for name in "AB":
+            d = os.path.join(workdir, name)
+            os.makedirs(d)
+            servers[name] = VolumeServer(
+                store_mod.Store([d]), port=free_port_pair(),
+                master_url=master.url, data_center="dc1", rack="r0",
+                pulse_seconds=FILER_PULSE, device=dev).start()
+            servers[name].heartbeat_now()
+        a, b = servers["A"], servers["B"]
+        check(a.chunk_cache.stats()["memory_capacity"] == 64 * MIB,
+              "volume servers A and B: post-decode caches of 64 MiB")
+        filer = FilerServer(Filer(), port=free_port_pair(),
+                            master_url=master.url).start()
+
+        def settle():
+            for vs in servers.values():
+                vs.heartbeat_now()
+
+        def vs_reads() -> int:
+            return sum(int(vs.metrics.counter("read_requests",
+                                              code=c).value)
+                       for vs in servers.values() for c in ("200", "206"))
+
+        # 1. writes through the filer's HTTP, one volume grown on each
+        # server first so the files spread over both
+        vids = sorted(master.grow_volume(FILER_COLLECTION)
+                      for _ in range(2))
+        settle()
+        conn = http.client.HTTPConnection("127.0.0.1", filer.port,
+                                          timeout=300)
+        put_s = 0.0
+        for path, data in files.items():
+            t0 = time.perf_counter()
+            code, body = _http(conn, "PUT", f"{path}?collection="
+                               f"{FILER_COLLECTION}&maxMB={FILER_CHUNK_MB}",
+                               data)
+            put_s += time.perf_counter() - t0
+            if code != 201:
+                raise SmokeError(f"PUT {path}: {code} {body[:200]!r}")
+        chunks = {p: filer.filer.find_entry(p).chunks for p in files}
+        used = sorted({int(c.file_id.split(",")[0])
+                       for cs in chunks.values() for c in cs})
+        n_chunks = sum(len(cs) for cs in chunks.values())
+        check(used == vids and n_chunks == sum(
+            -(-n // (FILER_CHUNK_MB * MIB)) for n in sizes),
+            f"{FILER_FILES} files in {n_chunks} chunks of at most "
+            f"{FILER_CHUNK_MB} MiB on volumes {used}")
+        result["put"] = {"files_per_s": FILER_FILES / put_s,
+                         "mib_per_s": total / MIB / put_s, "s": put_s}
+        say(f"  PUT through the filer on {label}: "
+            f"{json.dumps(result['put'])}")
+        settle()
+
+        # 2. listing and fsck through shell -master ... -filer ...
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            (rc,), _ = drive(
+                "shell -filer: fs.ls, fs.du, volume.fsck",
+                lambda: (cli.main(["-master", master.url, "-filer",
+                                   filer.url, "-c",
+                                   f"fs.ls -l /{FILER_COLLECTION}; "
+                                   f"fs.du /{FILER_COLLECTION}; "
+                                   "volume.fsck"]),),
+                dict.fromkeys(KERNELS, False), launches)
+        # drive's own "ok:" lines went to the same buffer
+        lines = [x for x in out.getvalue().splitlines()
+                 if not x.startswith("  ok: ")]
+        for line in lines[-3:]:
+            say(f"  > {line}")
+        check(rc == 0 and f"total {FILER_FILES}" in lines
+              and f"{total} bytes, {FILER_FILES} files, 0 dirs under "
+              f"/{FILER_COLLECTION}" in lines,
+              f"fs.ls -l lists {FILER_FILES} files, fs.du {total} bytes")
+        check(lines[-1].startswith("volume.fsck: 2 volumes, 0 orphan "
+                                   "needles (0 bytes), 0 missing chunks"),
+              f"volume.fsck: 0 orphans, 0 missing chunks ({lines[-1]})")
+
+        # 3. seal the collection over A and B
+        _, seal_log = cluster_shell(
+            master.url, "lock; " + "; ".join(
+                f"ec.encode -volumeId {v} -collection {FILER_COLLECTION}"
+                for v in vids) + "; unlock", "filer seal",
+            {"ec.encode": {"transpose": True, "swar": False}}, launches)
+        settle()
+        held = {name: sorted(v for (_c, v) in vs.store.ec_mounts)
+                for name, vs in servers.items()}
+        check(all(h == vids for h in held.values()) and not any(
+            vs.store.has_volume(v, FILER_COLLECTION)
+            for vs in servers.values() for v in vids),
+            f"ec.encode: volumes {vids} sealed, shards on A and B "
+            f"({sum(w for n, w, _ in seal_log if n == 'ec.encode'):.3f} s)")
+
+        # 4. lose shards 0, 5, 11, 13 everywhere; read every file
+        env = ClusterEnv(master_url=master.url, out=io.StringIO())
+        for vs in servers.values():
+            for (col, v), m in list(vs.store.ec_mounts.items()):
+                gone = [s for s in m.shard_ids if s in LOST_READ]
+                if gone:
+                    env.volume(vs.url).VolumeEcShardsDelete(
+                        vpb.VolumeEcShardsDeleteRequest(
+                            volume_id=v, collection=col, shard_ids=gone))
+        settle()
+        check(all(sorted(master.topology.lookup_ec_volume(v)) ==
+                  [s for s in range(DEFAULT_SCHEME.total_shards)
+                   if s not in LOST_READ] for v in vids),
+              f"shards {list(LOST_READ)} of volumes {vids} held nowhere")
+        time.sleep(1.1)    # the servers' shard-location caches expire
+
+        def get_all(paths, what, expect):
+            times = []
+
+            def run():
+                for p in paths:
+                    t0 = time.perf_counter()
+                    code, body = _http(conn, "GET", p)
+                    times.append(time.perf_counter() - t0)
+                    if code != 200 or \
+                            hashlib.sha256(body).digest() != digests[p]:
+                        raise SmokeError(f"{what}: GET {p} gave {code}")
+            drive(what, run, expect, launches)
+            return times
+
+        order = list(files)
+        times = get_all(order, f"filer GET, shards {list(LOST_READ)} lost",
+                        {"transpose": True, "swar": False})
+        got = counts()
+        ms = np.asarray(times) * 1e3
+        result["degraded"] = {
+            "files_per_s": len(times) / sum(times),
+            "mib_per_s": total / MIB / sum(times),
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "launches": got,
+            "host_codec_calls": rs_native.apply_gf_matrix.calls}
+        check(len(times) == FILER_FILES, f"filer GET: all {FILER_FILES} "
+              f"files sha256-equal to what was PUT")
+        say(f"  degraded filer GET on {label}: "
+            f"{json.dumps(result['degraded'])}")
+
+        # 5. the hot set again: the filer's cache answers
+        hot, hot_bytes = [], 0
+        for p in reversed(order):
+            if hot_bytes + len(files[p]) > FILER_HOT_BYTES:
+                break
+            hot.insert(0, p)
+            hot_bytes += len(files[p])
+        reads0 = vs_reads()
+        times = get_all(hot, "filer GET of the hot set (filer cache)",
+                        dict.fromkeys(KERNELS, False))
+        check(vs_reads() == reads0, f"hot set ({len(hot)} files, "
+              f"{hot_bytes} bytes): no volume-server read request")
+        result["filer_cache"] = {"files": len(hot), "bytes": hot_bytes,
+                                 "mib_per_s": hot_bytes / MIB / sum(times),
+                                 "hits": fcache.hits}
+        say(f"  hot set from the filer's cache: "
+            f"{json.dumps(result['filer_cache'])}")
+
+        # 6. the filer's cache cleared: the servers' caches answer
+        fcache.clear()
+        hits0 = {n: vs.chunk_cache.hits for n, vs in servers.items()}
+        reads0 = vs_reads()
+        times = get_all(hot, "filer GET of the hot set (post-decode "
+                        "caches)", dict.fromkeys(KERNELS, False))
+        hits = {n: vs.chunk_cache.hits - hits0[n]
+                for n, vs in servers.items()}
+        n_hot_chunks = sum(len(chunks[p]) for p in hot)
+        check(sum(hits.values()) == n_hot_chunks
+              and vs_reads() - reads0 == n_hot_chunks,
+              f"hot set: {n_hot_chunks} chunk reads, all post-decode "
+              f"cache hits ({hits})")
+        result["vs_cache"] = {"mib_per_s": hot_bytes / MIB / sum(times),
+                              "hits": hits,
+                              "per_volume": {n: vs.chunk_cache
+                                             .per_volume_counts()
+                                             for n, vs in servers.items()}}
+        say(f"  hot set from the volume servers' caches: "
+            f"{json.dumps(result['vs_cache'])}")
+
+        # 7. ec.rebuild drops every cached entry of the volumes
+        _, log = cluster_shell(master.url, f"lock; ec.rebuild -collection "
+                      f"{FILER_COLLECTION}; unlock", "filer rebuild",
+                      {"ec.rebuild": {"transpose": True, "swar": False}},
+                      launches)
+        settle()
+        result["rebuild_s"] = sum(w for n, w, _ in log if n == "ec.rebuild")
+        result["seal_s"] = sum(w for n, w, _ in seal_log
+                               if n == "ec.encode")
+        say(f"  ec.encode of volumes {vids}: {result['seal_s']:.3f} s, "
+            f"ec.rebuild: {result['rebuild_s']:.3f} s on {label}")
+        left = {n: vs.chunk_cache.stats()["memory_entries"]
+                for n, vs in servers.items()}
+        check(all(n == 0 for n in left.values())
+              and all(c.invalidate_volume(v) == 0
+                      for c in [fcache] + [vs.chunk_cache
+                                           for vs in servers.values()]
+                      for v in vids),
+              f"ec.rebuild: every cached entry of volumes {vids} dropped "
+              f"(servers' entries {left}; per-volume counts "
+              f"{json.dumps({n: vs.chunk_cache.per_volume_counts() for n, vs in servers.items()})})")
+        deadline = time.time() + 30
+        while time.time() < deadline and not all(
+                vs.ec_shard_peers(v, s) for vs in servers.values()
+                for v in vids for s in LOST_READ):
+            time.sleep(0.2)
+        times = get_all(hot, "filer GET of the hot set after ec.rebuild",
+                        dict.fromkeys(KERNELS, False))
+        check(len(times) == len(hot), "hot set after ec.rebuild: "
+              "byte-equal, no launch")
+
+        # 8. python -m seaweedfs_tpu_torch filer in its own process
+        t_sub = time.perf_counter()
+        port = free_port_pair()
+        penv = dict(os.environ, PYTHONPATH=REPO)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "filer",
+             "-port", str(port), "-master", master.url],
+            cwd=REPO, env=penv, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            url = f"http://127.0.0.1:{port}"
+            deadline = time.time() + 60
+            while True:
+                try:
+                    urllib.request.urlopen(url + "/", timeout=2)
+                    break
+                except urllib.error.HTTPError:
+                    break
+                except OSError:
+                    if time.time() > deadline or proc.poll() is not None:
+                        raise SmokeError("the filer subprocess did not "
+                                         "come up")
+                    time.sleep(0.2)
+            blob = rng.bytes(MIB + 3)
+            req = urllib.request.Request(url + "/sub/blob.bin", data=blob,
+                                         method="PUT")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                put_code = r.status
+            with urllib.request.urlopen(url + "/sub/blob.bin",
+                                        timeout=60) as r:
+                back = r.read()
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+        result["subprocess_s"] = time.perf_counter() - t_sub
+        check(put_code == 201 and back == blob and rc == 0,
+              f"python -m seaweedfs_tpu_torch filer: PUT {put_code}, GET "
+              f"byte-equal, exit {rc} on SIGTERM "
+              f"({result['subprocess_s']:.1f} s)")
+    finally:
+        if conn is not None:
+            conn.close()
+        if env is not None:
+            env.close()
+        if filer is not None:
+            filer.stop()
+        for vs in servers.values():
+            vs.stop()
+        master.stop()
+        cache_mod.configure_global()
+        shutil.rmtree(workdir, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    say(f"  filer phase: {result['seconds']:.1f} s")
     return result
 
 
@@ -2826,6 +3188,9 @@ def main() -> int:
             "workers):")
         jres = jobs_phase(dev, os.path.join(workdir, "jobs"), pres, label,
                           launches)
+        say("phase filer (the filer stack with its chunk cache, on a "
+            "sealed volume):")
+        filer_phase(dev, os.path.join(workdir, "filer"), label, launches)
         say("phase repair under load (config 5):")
         repair_phase(dev, os.path.join(workdir, "config5"),
                      DEFAULT_SCHEME.shard_file_size(VOLUME_BYTES), launches)

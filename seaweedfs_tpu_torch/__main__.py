@@ -5,14 +5,16 @@ The port of ``seaweedfs_tpu/__main__.py``, with these subcommands so far:
     python -m seaweedfs_tpu_torch master -port 9333 [-peers a,b,c]
     python -m seaweedfs_tpu_torch volume -dir d -mserver host:port \
         [-device cuda|cpu]
-    python -m seaweedfs_tpu_torch shell  -master host:port | -dir ... \
-        [-device cuda|cpu]
+    python -m seaweedfs_tpu_torch filer -master host:port [-port 8888] \
+        [-db meta.sqlite]
+    python -m seaweedfs_tpu_torch shell  -master host:port [-filer h:p] \
+        | -dir ... [-device cuda|cpu]
     python -m seaweedfs_tpu_torch upload -master host:port file...
     python -m seaweedfs_tpu_torch download -master host:port fid...
     python -m seaweedfs_tpu_torch delete -master host:port fid...
 
-The other subcommands (filer, s3, benchmark, ...) come with later slices
-of the port.
+The other subcommands (s3, benchmark, ...) come with later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ def _run_master(argv: list[str]) -> int:
     return main(argv)
 
 
+def _run_filer(argv: list[str]) -> int:
+    from .cluster.filer_server import main
+    return main(argv)
+
+
 def _run_client(name: str):
     def run(argv: list[str]) -> int:
         from . import cli_tools
@@ -46,6 +53,7 @@ COMMANDS = {
     "shell": _run_shell,
     "volume": _run_volume,
     "master": _run_master,
+    "filer": _run_filer,
     "upload": _run_client("upload"),
     "download": _run_client("download"),
     "delete": _run_client("delete"),

@@ -7,6 +7,7 @@ Raft-lite election of ``ha.py``), its clients (``wdclient.py``,
 owns a Store, executes data-plane HTTP plus admin gRPC (the EC rpc
 family) and streams its heartbeat to a master, and the maintenance
 plane (``jobs.py``: the master's leased work-lists and the volume
-servers' job workers). Not ported yet (ROADMAP Queue 1): the filer, the
-jobs policy engine and the telemetry and usage planes.
+servers' job workers), and the filer's server and client
+(``filer_server.py``, ``filer_client.py``). Not ported yet (ROADMAP
+Queue 1): the jobs policy engine and the telemetry and usage planes.
 """

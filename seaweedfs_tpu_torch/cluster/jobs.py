@@ -38,11 +38,10 @@ ends. Here an exclusion is a preference: when no live worker outside
 Attempts still count, so ``max_attempts`` ends it as ``failed``. While
 another eligible worker is live, the excluded one stays excluded.
 
-Not ported yet, each named in ROADMAP Queue 1: ``PolicyEngine``, which
-reads the telemetry registry (it comes with the observability plane;
-:func:`policy_payload` stands in for its disarmed payload), and the
-master's commit hook that fans cache invalidations out (it comes with
-the S3 gateway's cache-invalidation hub; ``on_commit`` is accepted).
+The master passes ``on_commit`` (its cache-invalidation fan-out). Not
+ported yet, named in ROADMAP Queue 1: ``PolicyEngine``, which reads the
+telemetry registry (it comes with the observability plane;
+:func:`policy_payload` stands in for its disarmed payload).
 """
 
 from __future__ import annotations

@@ -25,11 +25,17 @@ Not ported yet, each named in ROADMAP Queue 1: the observability planes
 the JAX master carries — the trace collector, the SLO engine, the usage
 registry, the jobs policy engine, the telemetry registry (so replicas
 are ranked by heartbeat age alone, as the JAX master ranks them before
-any telemetry arrives), their ``/cluster/*`` routes, ``/debug/*`` and the
-sections and keys of ``-config`` that set them (refused, exit 2) — and
-the cache-invalidation hub that job commits fan out to (it comes with
-the S3 gateway). Heartbeat fields of those planes (``telemetry``,
-``usage``) are accepted and ignored.
+any telemetry arrives), their ``/cluster/*`` routes, ``/debug/*`` (the
+JAX ``/debug/vars`` also carries the hub's ``cache_hub`` map, here
+``MasterServer.cache_hub.to_map()``) and the sections and keys of
+``-config`` that set them (refused, exit 2). Heartbeat fields of those
+planes (``telemetry``, ``usage``) are accepted and ignored.
+
+The cache-invalidation hub (``cache/invalidation.ClusterInvalidationHub``)
+is ported: filers subscribe with ``POST /cluster/cache_subscribe``, and a
+committed job task that changed a volume's bytes fans
+``POST /cache/invalidate`` out to every subscriber and every other
+volume server (``_job_task_committed``).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from .. import pb
+from ..cache import invalidation as invalidation_mod
 from ..pb import master_pb2, volume_server_pb2
 from ..storage.superblock import ReplicaPlacement, Ttl
 from ..storage.types import FileId
@@ -141,14 +148,17 @@ class MasterServer:
         #: Maintenance plane: durable per-volume task queues pulled by
         #: volume servers under leases renewed on the heartbeat.
         #: Leader-only like the other /cluster/* planes; the checkpoint
-        #: keeps sweeps resumable across master restarts. No commit
-        #: hook: the cache-invalidation fan-out comes with the S3
-        #: gateway's hub (ROADMAP Queue 1).
+        #: keeps sweeps resumable across master restarts.
         self.jobs = jobs_mod.JobManager(
             topology=self.topology,
             checkpoint_path=(Path(meta_dir) / "jobs.json")
             if meta_dir else None,
-            clock=clock)
+            clock=clock,
+            on_commit=self._job_task_committed)
+        #: Cluster cache-invalidation fan-out: gateways subscribe via
+        #: POST /cluster/cache_subscribe; job commits that mutate a
+        #: volume's bytes publish to subscribers + all volume servers.
+        self.cache_hub = invalidation_mod.ClusterInvalidationHub()
 
     # ------------- HA plumbing -------------
 
@@ -252,6 +262,7 @@ class MasterServer:
                 # Reaped workers hand their leased tasks back now
                 # rather than sitting out the rest of the lease.
                 self.jobs.forget_worker(url)
+                self.cache_hub.forget(url)
             self.jobs.expire()
             if self.is_leader and tick % ttl_every == 0 \
                     and (self._ttl_thread is None or
@@ -273,6 +284,19 @@ class MasterServer:
                 self._vacuum_thread.start()
 
     # ------------- maintenance -------------
+
+    def _job_task_committed(self, task) -> None:
+        """JobManager on_commit hook: a task that changed what a
+        volume's bytes mean (EC seal/rebuild, vacuum, replica drop)
+        fans a cache-invalidation event out to every subscribed
+        gateway plus every other volume server, so remote chunk caches
+        never serve the pre-maintenance bytes."""
+        if task.kind not in jobs_mod.MUTATING_KINDS:
+            return
+        extra = [n.url for n in self.topology.snapshot_nodes()
+                 if n.url != task.worker]
+        self.cache_hub.publish(task.volume_id, reason=task.kind,
+                               origin=task.worker, extra=extra)
 
     def job_candidate_volumes(self, kind: str,
                               collection: str = "") -> list[int]:
@@ -860,6 +884,22 @@ def _make_http_handler(ms: MasterServer):
                     self._json({"error": str(e)}, 409)
                 except ValueError as e:
                     self._json({"error": str(e)}, 400)
+            elif u.path == "/cluster/cache_subscribe":
+                # Gateways (filer chunk caches) register here for
+                # job-commit invalidation fan-out; re-subscribing
+                # refreshes the entry, so a periodic loop survives
+                # leader changes.
+                if self._proxy_to_leader():
+                    return
+                url = q.get("url", "")
+                if not url:
+                    self._json({"error": "url query parameter "
+                                "required"}, 400)
+                else:
+                    ms.cache_hub.subscribe(url)
+                    self._json({"ok": True,
+                                "subscribers":
+                                    len(ms.cache_hub.to_map())})
             elif u.path == "/vol/grow":
                 if self._proxy_to_leader():
                     return

@@ -26,12 +26,16 @@ read runs. A failing launch fails its RPC or request: nothing retries
 on the host codec. (Products shorter than ``rs_torch.DEVICE_MIN_S`` go
 to the host codec by the routing rule, not as a fallback.)
 
-Not ported yet, each named in ROADMAP Queue 1: the post-decode chunk
-cache and ``/cache/invalidate`` (every EC read decodes), the telemetry
-and usage collectors and their heartbeat fields (left unset), tracing
-spans and their push, ``/debug/traces``,
-``/debug/profile`` and ``/debug/vars`` (404), image resizing on
-``width``/``height`` (501), and the S3 tier RPCs (``UNIMPLEMENTED``).
+An EC read goes through the post-decode chunk cache
+(``ec_cache_bytes``): a hot needle on a sealed volume is decoded once,
+then served from the cache until vacuum, ``ec.rebuild``, a DELETE or a
+``POST /cache/invalidate`` from the master's hub drops it. Its
+per-volume hit and miss counts ride the heartbeat's telemetry rows.
+
+Not ported yet, each named in ROADMAP Queue 1: the telemetry and usage
+collectors and the rest of their heartbeat fields (left unset), tracing
+spans and their push, ``/debug/traces``, ``/debug/profile`` and
+``/debug/vars`` (404), and the S3 tier RPCs (``UNIMPLEMENTED``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from .. import pb
+from ..cache import ChunkCache
+from ..cache import invalidation as invalidation_mod
 from ..ops import rs_torch
 from ..pb import master_pb2, volume_server_pb2
 from ..pipeline import decode as decode_mod
@@ -144,6 +150,7 @@ class VolumeServer:
                  public_url: str = "", data_center: str = "",
                  rack: str = "", pulse_seconds: float = 5.0,
                  secret: str = "", device=None,
+                 ec_cache_bytes: int = 64 * 1024 * 1024,
                  job_poll_seconds: Optional[float] = None):
         #: where encode, rebuild, decode and EC reads run; resolved
         #: first, so a server asked for a missing card binds nothing
@@ -163,6 +170,12 @@ class VolumeServer:
         self.pulse_seconds = pulse_seconds
         self.guard = security.Guard(secret)
         self.metrics = Metrics(namespace="volume_server")
+        #: Post-decode needle cache for cold-tier (EC) reads: a hot
+        #: needle on a sealed volume pays interval assembly / RS decode
+        #: once, not per request. Registered with cache/invalidation.py,
+        #: so vacuum and ec.rebuild drop the volume's entries.
+        self.chunk_cache = ChunkCache(ec_cache_bytes,
+                                      metrics=self.metrics)
         self.servicer: Optional["_VolumeServicer"] = None
         self._channels: dict[str, object] = {}
         self._grpc_server = None
@@ -230,6 +243,7 @@ class VolumeServer:
             if self._metrics_pusher is not None:
                 self._metrics_pusher.stop()
                 self._metrics_pusher = None
+        self.chunk_cache.close()
         self.store.close()
 
     def __enter__(self) -> "VolumeServer":
@@ -329,11 +343,26 @@ class VolumeServer:
             hb.ec_shards.add(id=s["id"], collection=s["collection"],
                              ec_index_bits=s["ec_index_bits"])
         hb.max_file_key = max_key
+        cache_counts = self.chunk_cache.per_volume_counts()
+        if cache_counts:
+            # The post-decode cache's cumulative per-volume counts ride
+            # the telemetry rows, as in the JAX package; the rows' other
+            # fields and the usage field stay unset: those planes are
+            # not ported yet (ROADMAP Queue 1, observability)
+            collections = {v["id"]: v["collection"]
+                           for v in st["volumes"]}
+            for s in st["ec_shards"]:
+                collections.setdefault(s["id"], s["collection"])
+            for vid in sorted(cache_counts):
+                cc = cache_counts[vid]
+                hb.telemetry.volumes.add(
+                    volume_id=vid,
+                    collection=str(collections.get(vid, "")),
+                    cache_hits=int(cc.get("hits", 0)),
+                    cache_misses=int(cc.get("misses", 0)))
         if jobs_mod.enabled() and self.job_worker is not None:
             # Naming an in-flight task here renews its lease.
             hb.job_progress.CopyFrom(self.job_worker.progress_proto())
-        # the telemetry and usage fields stay unset: those planes are
-        # not ported yet (ROADMAP Queue 1)
         return hb
 
     def _heartbeat_loop(self) -> None:
@@ -457,15 +486,25 @@ class VolumeServer:
 
     # ------------- data plane -------------
 
+    @staticmethod
+    def _ec_cache_key(volume_id: int, fid: FileId) -> str:
+        # vid+key+cookie is cluster-unique; the collection is left out
+        # on purpose — lookups with and without it must share the entry.
+        return f"ec:{volume_id}:{fid.key}:{fid.cookie}"
+
     def read_bytes(self, volume_id: int, fid: FileId,
                    collection: str = "") -> bytes:
-        """GET path: normal volume first, then mounted EC shards (every
-        EC read decodes: the post-decode chunk cache is not ported)."""
+        """GET path: normal volume first, then mounted EC shards through
+        the post-decode cache (a hit decodes nothing)."""
         faults.check("volume.read")
         if self.store.has_volume(volume_id, collection):
             n = self.store.read_needle(volume_id, fid.key, fid.cookie,
                                        collection)
             return faults.mangle("volume.read", n.data)
+        ckey = self._ec_cache_key(volume_id, fid)
+        cached = self.chunk_cache.get(ckey)
+        if cached is not None:
+            return cached
         mount = self.store.ec_mounts.get((collection, volume_id))
         if mount is None and collection == "":
             # Collection not known from the fid; match on vid alone.
@@ -481,6 +520,7 @@ class VolumeServer:
         n = reader.read_needle(fid.key, fid.cookie)
         self.metrics.counter("ec_intervals_repaired").inc(
             reader.intervals_repaired)
+        self.chunk_cache.put(ckey, n.data, volume=volume_id)
         return n.data
 
     def write_needle_local(self, volume_id: int, n: Needle,
@@ -1010,16 +1050,26 @@ def _make_http_handler(vs: VolumeServer):
             t0 = time.perf_counter()
             try:
                 vid, fid, q = self._parse_fid()
-                if "width" in q or "height" in q:
-                    # on-read image scaling (weed/images): not ported yet
-                    vs.metrics.counter("read_requests", code="501").inc()
-                    self._json({"error": "image resizing (width/height) "
-                                "is not ported yet"}, 501)
-                    return
                 data = vs.read_bytes(vid, fid, q.get("collection", ""))
-                # RFC 7233 single range: shard restores range-read
-                # needles directly off the volume server, so
-                # 206/Content-Range must be exact.
+                mime = ""
+                if "width" in q or "height" in q:
+                    try:
+                        w = int(q.get("width", 0) or 0)
+                        h = int(q.get("height", 0) or 0)
+                        if w < 0 or h < 0:
+                            raise ValueError
+                    except ValueError:
+                        self._json({"error": "width/height must be "
+                                    "non-negative integers"}, 400)
+                        vs.metrics.counter("read_requests",
+                                           code="400").inc()
+                        return
+                    # on-read image scaling (weed/images)
+                    from ..images import resized
+                    data, mime = resized(data, w, h, q.get("mode", ""))
+                # RFC 7233 single range on the (possibly resized) body:
+                # shard restores range-read needles directly off the
+                # volume server, so 206/Content-Range must be exact.
                 rng_hdr = self.headers.get("Range")
                 rng = httpserver.parse_range(rng_hdr, len(data)) \
                     if rng_hdr else None
@@ -1027,7 +1077,7 @@ def _make_http_handler(vs: VolumeServer):
                     off, ln = rng
                     self._send(
                         206, data[off:off + ln],
-                        "application/octet-stream",
+                        mime or "application/octet-stream",
                         {"Accept-Ranges": "bytes",
                          "Content-Range":
                          f"bytes {off}-{off + ln - 1}/{len(data)}"})
@@ -1043,7 +1093,8 @@ def _make_http_handler(vs: VolumeServer):
                     vs.metrics.counter("read_requests",
                                        code="416").inc()
                 else:
-                    self._send(200, data, "application/octet-stream",
+                    self._send(200, data,
+                               mime or "application/octet-stream",
                                {"Accept-Ranges": "bytes"})
                     vs.metrics.counter("read_requests",
                                        code="200").inc()
@@ -1078,9 +1129,15 @@ def _make_http_handler(vs: VolumeServer):
 
         def do_POST(self):
             if urlparse(self.path).path == "/cache/invalidate":
-                # the chunk cache this would invalidate is not ported
-                self._json({"error": "/cache/invalidate is not ported "
-                            "yet"}, 404)
+                # Cluster invalidation fan-out (job commits on other
+                # nodes): funnel into the local registry before the
+                # fid parser rejects the path.
+                try:
+                    n = int(self.headers.get("Content-Length", 0) or 0)
+                    payload = json.loads(self.rfile.read(n) or b"{}")
+                    self._json(invalidation_mod.handle_event(payload))
+                except (ValueError, OSError) as e:
+                    self._json({"error": str(e)}, 400)
                 return
             t0 = time.perf_counter()
             try:
@@ -1129,6 +1186,7 @@ def _make_http_handler(vs: VolumeServer):
                     return
                 ok = vs.store.delete_needle(vid, fid.key,
                                             q.get("collection", ""))
+                vs.chunk_cache.invalidate(vs._ec_cache_key(vid, fid))
                 if q.get("type") != "replicate":
                     for peer in vs.replica_peers(vid,
                                                  q.get("collection", "")):

@@ -15,8 +15,9 @@ buffers recycle as soon as a chunk's result has synced.
 
 When ``parallel/mesh.routing_mesh`` says to split, every chunk splits
 over the mesh's devices (:func:`_pick_reconstruct_fn`). A completed
-rebuild is published to the ring of recent runs as ``ec.rebuild``. Not
-ported yet: chunk-cache invalidation and tracing spans.
+rebuild is published to the ring of recent runs as ``ec.rebuild``, and
+every live chunk cache drops the volume (``base_invalidated``). Not
+ported yet: tracing spans (ROADMAP Queue 1, observability).
 """
 
 from __future__ import annotations
@@ -158,4 +159,9 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
             writer.abort()
         for fd in in_fds:
             os.close(fd)
+    # Shard files changed under any reader holding cached post-decode
+    # needles for this volume — tell every live chunk cache.
+    from ..cache import invalidation as cache_invalidation
+
+    cache_invalidation.base_invalidated(base, reason="ec-rebuild")
     return missing

@@ -22,8 +22,10 @@ touched:
     python -m seaweedfs_tpu_torch shell -dir /a -dir /b -device cpu
     python -m seaweedfs_tpu_torch shell -dir /data -config ec.toml \
         -c "ec.encode -volumeId 3; pipeline.status; pipeline.analyze"
+    python -m seaweedfs_tpu_torch shell -master 127.0.0.1:9333 \
+        -filer 127.0.0.1:8888 -c "fs.ls -l /; fs.du /; volume.fsck"
 
-Not ported yet: ``-filer`` and ``fs.*`` (ROADMAP Queue 1).
+``-filer`` names the filer that ``fs.*`` and ``volume.fsck`` talk to.
 """
 
 from __future__ import annotations
@@ -116,6 +118,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="local disk location (repeatable; offline mode)")
     p.add_argument("-master", default=None,
                    help="master ip:port (cluster mode)")
+    p.add_argument("-filer", default=None,
+                   help="filer ip:port (enables fs.* commands)")
     p.add_argument("-config", default="",
                    help="TOML file whose [pipeline], [mesh] and [flight] "
                         "sections tune the EC pipelines; with -master, "
@@ -152,8 +156,9 @@ def main(argv: list[str] | None = None) -> int:
 
 def _session(args, conf: dict) -> int:
     if args.master:
+        from . import fs_commands  # noqa: F401 — registers fs.* commands
         env = ClusterEnv(
-            master_url=args.master,
+            master_url=args.master, filer_url=args.filer,
             secret=config_mod.lookup(conf, "jwt.signing.key", ""))
         run, cleanup = run_cluster_command, env.close
     else:

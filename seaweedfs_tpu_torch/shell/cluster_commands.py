@@ -13,11 +13,17 @@ command is ``fn(env: ClusterEnv, argv)``.
 Ported: ``ec.encode`` (with ``-distributed -parallel -mesh``, a leased
 sweep on the master's jobs plane), ``ec.rebuild``, ``ec.decode``,
 ``ec.balance``, ``volume.list``, ``volume.vacuum``, ``volume.grow``,
-``collection.list``, ``cluster.status``, ``lock``, ``unlock``,
-``job.submit``, ``job.status``, ``job.pause``, ``job.resume``,
-``job.cancel``, ``scrub.start`` and ``scrub.status``. The other cluster
-commands, the filer and ``fs.*`` come with later slices (ROADMAP
-Queue 1).
+``volume.move``, ``volume.balance``, ``volume.fix.replication``,
+``volume.mark``, ``volume.deleteEmpty``, ``volumeServer.evacuate``,
+``volume.check.disk``, ``volume.unmount``, ``volume.mount``,
+``volume.configure.replication``, ``volume.fsck`` (against the filer of
+``-filer``), ``collection.list``, ``collection.delete``,
+``cluster.status``, ``cluster.check`` (without the telemetry and SLO
+verdicts), ``lock``, ``unlock``, ``job.submit``, ``job.status``,
+``job.pause``, ``job.resume``, ``job.cancel``, ``scrub.start`` and
+``scrub.status``; ``fs.*`` live in ``fs_commands.py``. The commands of
+the observability planes, the S3 tier and the S3 gateway come with
+later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -64,11 +70,13 @@ class ClusterEnv:
     """Dial info + cached stubs for one cluster (CommandEnv in shell/)."""
 
     master_url: str
+    filer_url: Optional[str] = None
     #: Shared cluster signing key (security.toml jwt.signing.key); when
     #: set, volume-server rpcs carry the cluster bearer token.
     secret: str = ""
     out: io.TextIOBase = None  # type: ignore[assignment]
     _channels: dict = field(default_factory=dict)
+    _filer_client: object = None
     #: True while this shell holds the master's exclusive admin lease.
     locked: bool = False
     _lock_client: str = ""
@@ -83,6 +91,13 @@ class ClusterEnv:
     def println(self, *args) -> None:
         print(*args, file=self.out)
 
+    def filer_client(self):
+        """Lazy FilerClient for fs.* commands; None without -filer."""
+        if self.filer_url and self._filer_client is None:
+            from ..cluster.filer_client import FilerClient
+            self._filer_client = FilerClient(self.filer_url)
+        return self._filer_client
+
     def close(self) -> None:
         if self.locked:
             try:
@@ -92,6 +107,9 @@ class ClusterEnv:
         for ch in self._channels.values():
             ch.close()
         self._channels.clear()
+        if self._filer_client is not None:
+            self._filer_client.close()
+            self._filer_client = None
 
     # -- stubs --
 
@@ -283,6 +301,30 @@ def _lock_client_name() -> str:
     """Distinct per shell instance: two shells in one process (or one
     host) must contend, not alias each other's lease."""
     return f"{socket.gethostname()}:{os.getpid()}:{uuid.uuid4().hex[:8]}"
+
+
+def _http_delete_needle(env: "ClusterEnv", url: str, vid: int,
+                        col: str, key: int) -> None:
+    """Tombstone one needle via a server's HTTP DELETE (which fans out
+    to its replica peers): cookie recovered over ReadNeedleBlob, write
+    JWT minted from the shell secret. Shared by fsck -purge and
+    check.disk -resolveDeletes so the auth/URL shape lives once.
+    Raises on failure — note the contacted server may have applied
+    the tombstone even when its replica fan-out then failed."""
+    from ..pb import volume_server_pb2 as vpb
+    from ..storage import needle as needle_mod
+    from ..storage.types import FileId
+
+    blob = env.volume(url).ReadNeedleBlob(
+        vpb.ReadNeedleBlobRequest(volume_id=vid, collection=col,
+                                  needle_id=key))
+    cookie = needle_mod.parse_header(blob.needle_blob)[0]
+    fid = str(FileId(volume_id=vid, key=key, cookie=cookie))
+    guard = security.Guard(env.secret)
+    retry.http_request(
+        f"http://{url}/{fid}" + (f"?collection={col}" if col else ""),
+        method="DELETE", point="volume.delete",
+        jwt=guard.sign(fid) if guard.enabled else "", timeout=60)
 
 
 CLUSTER_COMMANDS: dict[str, Callable[[ClusterEnv, list[str]], None]] = {}
@@ -966,6 +1008,916 @@ def cmd_scrub_status(env: ClusterEnv, argv: list[str]) -> None:
                     f"{t['state']} ({t['fraction']:.0%} on "
                     f"{t['worker'] or '-'}){err}")
     env.println(f"candidate volumes: {doc.get('candidates', 0)}")
+
+
+def _move_volume(env: ClusterEnv, vid: int, collection: str,
+                 src: str, dst: str) -> None:
+    """Relocate one volume: freeze on the source, VolumeCopy to the
+    destination, delete the source copy. A failed copy thaws the
+    source so it never sticks readonly (the move mechanics shared by
+    volume.balance and volume.move)."""
+    env.volume(src).VolumeMarkReadonly(
+        volume_server_pb2.VolumeMarkReadonlyRequest(
+            volume_id=vid, collection=collection))
+    try:
+        env.volume(dst).VolumeCopy(
+            volume_server_pb2.VolumeCopyRequest(
+                volume_id=vid, collection=collection,
+                source_data_node=src))
+    except Exception as e:
+        thaw = "source thawed"
+        try:
+            env.volume(src).VolumeMarkWritable(
+                volume_server_pb2.VolumeMarkWritableRequest(
+                    volume_id=vid, collection=collection))
+        except Exception as e2:  # noqa: BLE001 — report both
+            thaw = f"thaw also failed: {e2}"
+        raise ShellError(
+            f"copy of volume {vid} to {dst} failed ({e}); "
+            f"{thaw}") from e
+    env.volume(src).VolumeDelete(
+        volume_server_pb2.VolumeDeleteRequest(
+            volume_id=vid, collection=collection))
+
+
+@cluster_command("volume.move")
+def cmd_volume_move(env: ClusterEnv, argv: list[str]) -> None:
+    """Relocate one volume between servers
+    (command_volume_move.go)."""
+    p = _parser("volume.move")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-source", required=True, help="source ip:port")
+    p.add_argument("-target", required=True, help="target ip:port")
+    args = p.parse_args(argv)
+    if args.source == args.target:
+        raise ShellError("volume.move: source and target are the same")
+    _move_volume(env, args.volumeId, args.collection, args.source,
+                 args.target)
+    env.println(f"volume.move: volume {args.volumeId} "
+                f"{args.source} -> {args.target}")
+
+
+@cluster_command("collection.delete")
+def cmd_collection_delete(env: ClusterEnv, argv: list[str]) -> None:
+    """Delete every volume and EC shard of a collection cluster-wide
+    (command_collection_delete.go)."""
+    p = _parser("collection.delete")
+    p.add_argument("-collection", required=True)
+    args = p.parse_args(argv)
+    col = args.collection
+    resp = env.volume_list()
+    deleted = 0
+    ec_deleted: set[int] = set()
+    for dc in resp.topology_info.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                for v in dn.volume_infos:
+                    if v.collection != col:
+                        continue
+                    env.volume(dn.id).VolumeDelete(
+                        volume_server_pb2.VolumeDeleteRequest(
+                            volume_id=v.id, collection=col))
+                    deleted += 1
+                for s in dn.ec_shard_infos:
+                    if s.collection != col:
+                        continue
+                    # EcShardsDelete both unmounts (with the right
+                    # collection) and unlinks the shard files
+                    env.volume(dn.id).VolumeEcShardsDelete(
+                        volume_server_pb2.VolumeEcShardsDeleteRequest(
+                            volume_id=s.id, collection=col,
+                            shard_ids=ShardBits(
+                                s.ec_index_bits).ids()))
+                    ec_deleted.add(s.id)
+    env.println(f"collection.delete: {col}: {deleted} volumes, "
+                f"{len(ec_deleted)} ec volumes removed")
+
+
+@cluster_command("volume.balance")
+def cmd_volume_balance(env: ClusterEnv, argv: list[str]) -> None:
+    """Move whole volumes from loaded to free servers
+    (command_volume_balance.go, via VolumeCopy + delete)."""
+    p = _parser("volume.balance")
+    p.add_argument("-collection", default="",
+                   help="only move volumes of this collection")
+    args = p.parse_args(argv)
+    moved = 0
+    for _round in range(100):
+        resp = env.volume_list()
+        # With -collection, BOTH node selection and the termination
+        # check run on collection-scoped counts: selecting by total
+        # count could pick a "high" node holding none of the target
+        # collection and stop with it still concentrated elsewhere.
+        counts: list[tuple[int, str, list]] = []
+        for dc in resp.topology_info.data_center_infos:
+            for rack in dc.rack_infos:
+                for dn in rack.data_node_infos:
+                    vols = [v for v in dn.volume_infos
+                            if not args.collection
+                            or v.collection == args.collection]
+                    # len(vols) serves both paths: sorting on the
+                    # heartbeat's separate volume_count field while
+                    # picking moves from volume_infos would leave two
+                    # sources to disagree under lag
+                    counts.append((len(vols), dn.id, vols))
+        if len(counts) < 2:
+            break
+        counts.sort()
+        low_count, low_url, low_vols = counts[0]
+        high_count, high_url, high_vols = counts[-1]
+        if high_count - low_count <= 1 or not high_vols:
+            break
+        # The destination may already hold a replica of some of the
+        # high node's volumes — pick the first it does not.
+        low_ids = {(v.collection, v.id) for v in low_vols}
+        movable = [v for v in high_vols
+                   if (v.collection, v.id) not in low_ids]
+        if not movable:
+            break
+        v = movable[0]
+        try:
+            _move_volume(env, v.id, v.collection, high_url, low_url)
+        except ShellError as e:
+            raise ShellError(f"volume.balance: {e}") from e
+        moved += 1
+    env.println(f"volume.balance: moved {moved} volumes")
+
+
+@cluster_command("volume.fix.replication")
+def cmd_volume_fix_replication(env: ClusterEnv, argv: list[str]) -> None:
+    """Re-replicate under-replicated volumes (the recovery actuator the
+    reference cron-drives; command_volume_fix_replication.go)."""
+    from ..storage.superblock import ReplicaPlacement
+
+    p = _parser("volume.fix.replication")
+    p.parse_args(argv)
+    resp = env.volume_list()
+    # vid -> (collection, rp, holders)
+    vols: dict[int, tuple[str, int, list[str]]] = {}
+    all_nodes: list[str] = []
+    racks: dict[str, tuple[str, str]] = {}
+    for dc in resp.topology_info.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                all_nodes.append(dn.id)
+                racks[dn.id] = (dc.id, rack.id)
+                for v in dn.volume_infos:
+                    col, rp, holders = vols.get(
+                        v.id, (v.collection, v.replica_placement, []))
+                    holders.append(dn.id)
+                    vols[v.id] = (col, rp, holders)
+    fixed = 0
+    for vid, (col, rp_byte, holders) in sorted(vols.items()):
+        want = ReplicaPlacement.from_byte(rp_byte).copy_count()
+        if len(holders) >= want:
+            continue
+        # placement-aware, chosen GREEDILY per missing replica: the
+        # held-racks set grows after every copy, so two replacements
+        # never pile into the same fresh rack while another rack sits
+        # empty (a rack-diverse placement exists to survive rack loss)
+        for _ in range(want - len(holders)):
+            held_racks = {racks[h] for h in holders}
+            spare = sorted(
+                (u for u in all_nodes if u not in holders),
+                key=lambda u: racks[u] in held_racks)
+            if not spare:
+                break
+            target = spare[0]
+            env.volume(target).VolumeCopy(
+                volume_server_pb2.VolumeCopyRequest(
+                    volume_id=vid, collection=col,
+                    source_data_node=holders[0]))
+            if racks[target] in held_racks:
+                env.println(
+                    f"volume.fix.replication: WARNING volume {vid} "
+                    f"replica lands on rack {racks[target][1]} which "
+                    f"already holds one (no rack-free node available)")
+            env.println(f"volume.fix.replication: volume {vid} "
+                        f"copied {holders[0]} -> {target}")
+            holders.append(target)
+            fixed += 1
+    if not fixed:
+        env.println("volume.fix.replication: all volumes fully "
+                    "replicated")
+
+
+@cluster_command("volume.mark")
+def cmd_volume_mark(env: ClusterEnv, argv: list[str]) -> None:
+    """Mark a volume readonly/writable on its servers (the reference's
+    volume.mark; drives VolumeMarkReadonly/Writable on every replica,
+    or just one with -node)."""
+    p = _parser("volume.mark")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-node", default="",
+                   help="only this server (default: every replica)")
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("-readonly", action="store_true")
+    g.add_argument("-writable", action="store_true")
+    args = p.parse_args(argv)
+    locs = [args.node] if args.node else \
+        env.volume_locations(args.volumeId)
+    if not locs:
+        raise ShellError(f"volume {args.volumeId} not found")
+    for url in locs:
+        stub = env.volume(url)
+        if args.readonly:
+            stub.VolumeMarkReadonly(
+                volume_server_pb2.VolumeMarkReadonlyRequest(
+                    volume_id=args.volumeId,
+                    collection=args.collection))
+        else:
+            stub.VolumeMarkWritable(
+                volume_server_pb2.VolumeMarkWritableRequest(
+                    volume_id=args.volumeId,
+                    collection=args.collection))
+    state = "readonly" if args.readonly else "writable"
+    env.println(f"volume.mark: volume {args.volumeId} {state} on "
+                f"{', '.join(locs)}")
+
+
+@cluster_command("volume.deleteEmpty")
+def cmd_volume_delete_empty(env: ClusterEnv, argv: list[str]) -> None:
+    """Delete volumes holding zero live files cluster-wide
+    (command_volume_delete_empty.go). Dry-runs unless -force; like the
+    reference, only volumes untouched for -quietFor seconds qualify —
+    the master's snapshot is heartbeat-stale, so a just-written volume
+    could otherwise still report zero files."""
+    p = _parser("volume.deleteEmpty")
+    p.add_argument("-collection", default="")
+    p.add_argument("-quietFor", type=int, default=86400,
+                   help="seconds since last modification (default 1d)")
+    p.add_argument("-force", action="store_true")
+    args = p.parse_args(argv)
+    resp = env.volume_list()
+    now = int(time.time())
+    # (collection, vid) -> [holder urls]; a volume counts once however
+    # many replicas it has, and ANY replica that is non-empty or
+    # recently modified disqualifies the whole volume (replica state is
+    # heartbeat-stale and may disagree — be conservative before a
+    # destructive sweep).
+    holders: dict[tuple[str, int], list[str]] = {}
+    disqualified: set[tuple[str, int]] = set()
+    for dc in resp.topology_info.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                for v in dn.volume_infos:
+                    if args.collection and \
+                            v.collection != args.collection:
+                        continue
+                    key = (v.collection, v.id)
+                    holders.setdefault(key, []).append(dn.id)
+                    if v.file_count - v.delete_count > 0:
+                        disqualified.add(key)
+                    # unknown mtime (0) is never "quiet"
+                    if not v.modified_at_second or \
+                            now - v.modified_at_second < args.quietFor:
+                        disqualified.add(key)
+    empties = sorted(k for k in holders if k not in disqualified)
+    for col, vid in empties:
+        for url in holders[(col, vid)]:
+            if args.force:
+                env.volume(url).VolumeDelete(
+                    volume_server_pb2.VolumeDeleteRequest(
+                        volume_id=vid, collection=col))
+            env.println(
+                f"volume.deleteEmpty: volume {vid} on {url}"
+                + ("" if args.force else " (dry run; use -force)"))
+    env.println(f"volume.deleteEmpty: {len(empties)} empty volumes"
+                + (" deleted" if args.force else " found"))
+
+
+@cluster_command("volumeServer.evacuate")
+def cmd_volume_server_evacuate(env: ClusterEnv, argv: list[str]) -> None:
+    """Move every volume and EC shard off one server so it can be
+    decommissioned (command_volume_server_evacuate.go): volumes go to
+    the least-loaded server without a replica of them, EC shards
+    spread over the remaining nodes."""
+    p = _parser("volumeServer.evacuate")
+    p.add_argument("-node", required=True, help="server ip:port to drain")
+    args = p.parse_args(argv)
+    victim = args.node
+    resp = env.volume_list()
+    counts: dict[str, int] = {}   # node url -> volume count
+    caps: dict[str, int] = {}     # node url -> max volume count (0 = inf)
+    racks: dict[str, tuple[str, str]] = {}  # node url -> (dc, rack)
+    holds: dict[str, set[tuple[str, int]]] = {}
+    victim_vols: list = []
+    for dc in resp.topology_info.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                counts[dn.id] = dn.volume_count
+                caps[dn.id] = dn.max_volume_count
+                racks[dn.id] = (dc.id, rack.id)
+                holds[dn.id] = {(v.collection, v.id)
+                                for v in dn.volume_infos}
+                if dn.id == victim:
+                    victim_vols = list(dn.volume_infos)
+    if victim not in counts:
+        raise ShellError(f"node {victim} not in topology")
+
+    def has_slot(u: str) -> bool:
+        return not caps[u] or counts[u] < caps[u]
+
+    moved = 0
+    for v in victim_vols:
+        # Racks holding the volume's OTHER replicas: landing on one of
+        # them would collapse a rack-spread placement like 010, so such
+        # targets only qualify as a last resort (with a warning) — the
+        # reference evacuate is placement-aware the same way.
+        other_racks = {racks[u] for u in counts
+                       if u != victim and (v.collection, v.id)
+                       in holds[u]}
+        candidates = [u for u in counts
+                      if u != victim and has_slot(u)
+                      and (v.collection, v.id) not in holds[u]]
+        # placement safety first, then most free slots
+        candidates.sort(key=lambda u: (racks[u] in other_racks,
+                                       counts[u] - (caps[u] or 10 ** 9)))
+        if not candidates:
+            raise ShellError(
+                f"volumeServer.evacuate: no target with free space "
+                f"for volume {v.id}")
+        dst = candidates[0]
+        if other_racks and racks[dst] in other_racks:
+            env.println(
+                f"volumeServer.evacuate: WARNING volume {v.id} lands "
+                f"on rack {racks[dst][1]} which already holds a "
+                f"replica (no rack-safe target had free space)")
+        _move_volume(env, v.id, v.collection, victim, dst)
+        counts[dst] += 1
+        holds[dst].add((v.collection, v.id))
+        env.println(f"volumeServer.evacuate: volume {v.id} -> {dst}")
+        moved += 1
+    # EC shards: spread over remaining nodes that lack that shard.
+    nodes = env.collect_ec_nodes()
+    vnode = next((n for n in nodes if n.url == victim), None)
+    others = [n for n in nodes if n.url != victim]
+    ec_moved = 0
+    if vnode is not None and vnode.shards:
+        if not others:
+            raise ShellError("volumeServer.evacuate: no other nodes "
+                             "for EC shards")
+        for vid, sids in sorted(vnode.shards.items()):
+            col = vnode.collections.get(vid, "")
+            for sid in sids:
+                tgts = sorted(
+                    (n for n in others
+                     if sid not in n.shards.get(vid, [])),
+                    key=lambda n: n.shard_count())
+                if not tgts:
+                    raise ShellError(
+                        f"volumeServer.evacuate: every node already "
+                        f"holds shard {vid}.{sid}")
+                t = tgts[0]
+                env.volume(t.url).VolumeEcShardsCopy(
+                    volume_server_pb2.VolumeEcShardsCopyRequest(
+                        volume_id=vid, collection=col, shard_ids=[sid],
+                        copy_ecx_file=True, copy_ecj_file=True,
+                        copy_vif_file=True, source_data_node=victim))
+                env.volume(t.url).VolumeEcShardsMount(
+                    volume_server_pb2.VolumeEcShardsMountRequest(
+                        volume_id=vid, collection=col, shard_ids=[sid]))
+                env.volume(victim).VolumeEcShardsDelete(
+                    volume_server_pb2.VolumeEcShardsDeleteRequest(
+                        volume_id=vid, collection=col, shard_ids=[sid]))
+                t.shards.setdefault(vid, []).append(sid)
+                ec_moved += 1
+    env.println(f"volumeServer.evacuate: {victim} drained "
+                f"({moved} volumes, {ec_moved} ec shards)")
+
+
+@cluster_command("volume.check.disk")
+def cmd_volume_check_disk(env: ClusterEnv, argv: list[str]) -> None:
+    """Verify replicas of each volume hold the same live needles and
+    sync divergence (command_volume_check_disk.go): stream every
+    replica's .idx, diff the live sets, and with -fix copy missing
+    needles raw (ReadNeedleBlob -> WriteNeedleBlob) so CRCs and
+    timestamps survive bit-for-bit. Size-skewed needles are reported,
+    never auto-resolved; tombstone skews are reported by default (a
+    needle is never resurrected) and the delete is finished everywhere
+    under the explicit -resolveDeletes opt-in."""
+    from ..storage import idx as idx_mod
+    from ..storage.types import TOMBSTONE_FILE_SIZE
+
+    p = _parser("volume.check.disk")
+    p.add_argument("-volumeId", type=int, default=0)
+    p.add_argument("-collection", default="")
+    p.add_argument("-fix", action="store_true",
+                   help="sync missing needles (default: report only)")
+    p.add_argument("-resolveDeletes", action="store_true",
+                   help="propagate deletes: a needle tombstoned on "
+                        "any replica is deleted everywhere (explicit "
+                        "opt-in — this finishes a client's delete, "
+                        "it can't be undone)")
+    args = p.parse_args(argv)
+    resp = env.volume_list()
+    # (collection, vid) -> [holder urls]
+    replicas: dict[tuple[str, int], list[str]] = {}
+    for dc in resp.topology_info.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                for v in dn.volume_infos:
+                    if args.volumeId and v.id != args.volumeId:
+                        continue
+                    if args.collection and \
+                            v.collection != args.collection:
+                        continue
+                    replicas.setdefault(
+                        (v.collection, v.id), []).append(dn.id)
+
+    def live_map(url: str, vid: int,
+                 col: str) -> tuple[dict[int, int], set[int]]:
+        """(key -> size after tombstone replay, tombstoned keys)."""
+        blob = b"".join(
+            r.file_content for r in env.volume(url).CopyFile(
+                volume_server_pb2.CopyFileRequest(
+                    volume_id=vid, collection=col, ext=".idx")))
+        live: dict[int, int] = {}
+        dead: set[int] = set()
+        for e in idx_mod.walk_index_blob(blob):
+            if e.size == TOMBSTONE_FILE_SIZE:
+                live.pop(e.key, None)
+                dead.add(e.key)
+            else:
+                live[e.key] = e.size
+                dead.discard(e.key)
+        return live, dead
+
+    checked = synced = divergent = skews = deletes_propagated = 0
+    for (col, vid), urls in sorted(replicas.items(),
+                                   key=lambda kv: kv[0][1]):
+        if len(urls) < 2:
+            continue
+        checked += 1
+        maps: dict[str, dict[int, int]] = {}
+        deads: dict[str, set[int]] = {}
+        for u in urls:
+            maps[u], deads[u] = live_map(u, vid, col)
+        union: set[int] = set()
+        all_dead: set[int] = set()
+        for m in maps.values():
+            union.update(m)
+        for d in deads.values():
+            all_dead.update(d)
+        # A needle live on one replica but tombstoned on another is
+        # reported; it is only MUTATED under the explicit
+        # -resolveDeletes opt-in (finish the client's delete
+        # everywhere) — resurrecting is never an option, and the
+        # default remains report-only like the reference check.disk.
+        for k in sorted(union & all_dead):
+            holders_live = [u for u in urls if k in maps[u]]
+            if holders_live:
+                skews += 1
+                env.println(
+                    f"volume {vid} needle {k}: live on "
+                    f"{', '.join(holders_live)} but deleted elsewhere"
+                    + (" — propagating the delete"
+                       if args.resolveDeletes else ""))
+                if not args.resolveDeletes:
+                    continue
+                url = holders_live[0]
+                try:
+                    # the server fans the delete out to its replica
+                    # peers, so one request tombstones every live copy
+                    _http_delete_needle(env, url, vid, col, k)
+                    deletes_propagated += 1
+                    skews -= 1  # resolved, no longer outstanding
+                except Exception as e:  # noqa: BLE001 — keep sweeping
+                    env.println(
+                        f"  delete propagation of needle {k} via "
+                        f"{url} errored ({e}); the tombstone may have "
+                        f"landed there even if replica fan-out "
+                        f"failed — re-run to re-check")
+        # Same key live with different sizes = a missed overwrite; the
+        # idx alone cannot say which side is newer, so report it and
+        # keep it OUT of the sync loop below (copying an arbitrary
+        # version would auto-pick the winner this command promises
+        # never to pick).
+        size_skewed: set[int] = set()
+        for k in sorted(union - all_dead):
+            sizes = {maps[u][k] for u in urls if k in maps[u]}
+            if len(sizes) > 1:
+                size_skewed.add(k)
+                skews += 1
+                env.println(
+                    f"volume {vid} needle {k}: size differs across "
+                    f"replicas ({sorted(sizes)}) — missed overwrite")
+        # Keys deleted anywhere are excluded from syncing entirely:
+        # copying one onto a replica that never held it would spread a
+        # client-deleted needle (the skew report above covers them).
+        for u in urls:
+            missing = [k for k in union - all_dead - size_skewed
+                       if k not in maps[u]]
+            if not missing:
+                continue
+            divergent += 1
+            donors = [d for d in urls if d != u]
+            env.println(f"volume {vid} on {u}: {len(missing)} "
+                        f"needle(s) missing"
+                        + ("" if args.fix else " (dry run; use -fix)"))
+            if not args.fix:
+                continue
+            for k in sorted(missing):
+                donor = next(d for d in donors if k in maps[d])
+                blob = env.volume(donor).ReadNeedleBlob(
+                    volume_server_pb2.ReadNeedleBlobRequest(
+                        volume_id=vid, collection=col, needle_id=k))
+                env.volume(u).WriteNeedleBlob(
+                    volume_server_pb2.WriteNeedleBlobRequest(
+                        volume_id=vid, collection=col, needle_id=k,
+                        needle_blob=blob.needle_blob))
+                synced += 1
+    env.println(f"volume.check.disk: {checked} replicated volumes "
+                f"checked, {divergent} divergent replicas, "
+                f"{synced} needles synced, "
+                + (f"{deletes_propagated} deletes propagated, "
+                   if deletes_propagated else "")
+                + f"{skews} unresolved skews")
+
+
+@cluster_command("volume.unmount")
+def cmd_volume_unmount(env: ClusterEnv, argv: list[str]) -> None:
+    """Stop serving a volume on one server, keeping its files
+    (command_volume_unmount.go) — the maintenance verb before moving a
+    volume directory by hand."""
+    p = _parser("volume.unmount")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-node", required=True, help="server ip:port")
+    args = p.parse_args(argv)
+    env.volume(args.node).VolumeUnmount(
+        volume_server_pb2.VolumeUnmountRequest(
+            volume_id=args.volumeId, collection=args.collection))
+    env.println(f"volume.unmount: volume {args.volumeId} unmounted "
+                f"on {args.node} (files kept)")
+
+
+@cluster_command("volume.mount")
+def cmd_volume_mount(env: ClusterEnv, argv: list[str]) -> None:
+    p = _parser("volume.mount")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-node", required=True, help="server ip:port")
+    args = p.parse_args(argv)
+    env.volume(args.node).VolumeMount(
+        volume_server_pb2.VolumeMountRequest(
+            volume_id=args.volumeId, collection=args.collection))
+    env.println(f"volume.mount: volume {args.volumeId} mounted "
+                f"on {args.node}")
+
+
+@cluster_command("volume.configure.replication")
+def cmd_volume_configure_replication(env: ClusterEnv,
+                                     argv: list[str]) -> None:
+    """Change a volume's replica placement on every replica
+    (command_volume_configure_replication.go). Only the superblock
+    setting changes; run volume.fix.replication afterwards to create
+    the replicas the new placement asks for."""
+    p = _parser("volume.configure.replication")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", required=True)
+    args = p.parse_args(argv)
+    locs = env.volume_locations(args.volumeId)
+    if not locs:
+        raise ShellError(f"volume {args.volumeId} not found")
+    # Try EVERY replica even after a failure: stopping midway would
+    # leave the survivors' superblocks silently divergent with no
+    # record of which were already changed.
+    done: list[str] = []
+    failed: list[tuple[str, str]] = []
+    for url in locs:
+        try:
+            resp = env.volume(url).VolumeConfigure(
+                volume_server_pb2.VolumeConfigureRequest(
+                    volume_id=args.volumeId,
+                    collection=args.collection,
+                    replication=args.replication))
+            err = resp.error
+        except Exception as e:  # noqa: BLE001 — keep going
+            err = str(e)
+        if err:
+            failed.append((url, err))
+        else:
+            done.append(url)
+    if failed:
+        detail = "; ".join(f"{u}: {e}" for u, e in failed)
+        raise ShellError(
+            f"volume.configure.replication: volume {args.volumeId} "
+            f"now {args.replication} on "
+            f"{', '.join(done) if done else 'NO replicas'} but "
+            f"FAILED on {detail} — replica placements are divergent; "
+            f"re-run when those servers answer")
+    env.println(
+        f"volume.configure.replication: volume {args.volumeId} -> "
+        f"{args.replication} on {', '.join(done)} "
+        f"(run volume.fix.replication to materialize new replicas)")
+
+
+@cluster_command("volume.fsck")
+def cmd_volume_fsck(env: ClusterEnv, argv: list[str]) -> None:
+    """Cross-check filer chunk references against volume needle maps
+    (command_volume_fsck.go): needles no file references are ORPHANS
+    (reclaimable with -purge); referenced chunks absent from their
+    volume are MISSING (broken files — always just reported). Writes
+    racing the scan can look orphaned/missing for one pass; re-run (or
+    hold `lock`) before trusting a purge."""
+    from ..pb import volume_server_pb2 as vpb
+    from ..storage import idx as idx_mod
+    from ..storage import needle as needle_mod
+    from ..storage.types import TOMBSTONE_FILE_SIZE, FileId
+
+    p = _parser("volume.fsck")
+    p.add_argument("-collection", default="",
+                   help="limit to one collection")
+    p.add_argument("-purge", action="store_true",
+                   help="delete orphan needles from normal volumes")
+    p.add_argument("-cutoffSeconds", type=int, default=300,
+                   help="never purge needles appended within this "
+                        "window (writes racing the scan look orphaned "
+                        "for one pass; reference fsck's cutoff)")
+    p.add_argument("-v", action="store_true", dest="verbose")
+    args = p.parse_args(argv)
+    from . import fs_commands  # deferred: avoids import cycle
+
+    fc = fs_commands._fc(env)
+
+    # 1) referenced chunk fids from the filer tree
+    referenced: dict[tuple[str, int], set[int]] = {}
+    where: dict[tuple[str, int, int], str] = {}  # -> first path
+    for d, e in fs_commands._walk(fc, "/"):
+        if e.is_directory:
+            continue
+        col = e.attributes.collection
+        if args.collection and col != args.collection:
+            continue
+        for c in e.chunks:
+            try:
+                f = FileId.parse(c.file_id)
+            except ValueError:
+                continue
+            referenced.setdefault((col, f.volume_id),
+                                  set()).add(f.key)
+            where.setdefault((col, f.volume_id, f.key),
+                             f"{d.rstrip('/')}/{e.name}")
+
+    # 2) live needle maps volume by volume (normal: .idx replay; EC:
+    #    .ecx with .ecj deletes)
+    resp = env.volume_list()
+    vol_holder: dict[tuple[str, int], str] = {}
+    for dc in resp.topology_info.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                for v in dn.volume_infos:
+                    vol_holder.setdefault((v.collection, v.id), dn.id)
+    ec_holder: dict[tuple[str, int], str] = {}
+    for n in env.collect_ec_nodes():
+        for vid in n.shards:
+            ec_holder.setdefault((n.collections.get(vid, ""), vid),
+                                 n.url)
+
+    def fetch(url: str, vid: int, col: str, ext: str,
+              optional: bool = False) -> bytes:
+        return b"".join(r.file_content for r in env.volume(url).CopyFile(
+            vpb.CopyFileRequest(
+                volume_id=vid, collection=col, ext=ext,
+                ignore_source_file_not_found=optional)))
+
+    live: dict[tuple[str, int], dict[int, int]] = {}
+    is_ec: set[tuple[str, int]] = set()
+    for key_, url in vol_holder.items():
+        col, vid = key_
+        if args.collection and col != args.collection:
+            continue
+        m: dict[int, int] = {}
+        for e in idx_mod.walk_index_blob(fetch(url, vid, col, ".idx")):
+            if e.size == TOMBSTONE_FILE_SIZE:
+                m.pop(e.key, None)
+            else:
+                m[e.key] = e.size
+        live[key_] = m
+    for key_, url in ec_holder.items():
+        col, vid = key_
+        if key_ in live:
+            continue
+        if args.collection and col != args.collection:
+            continue
+        m = {}
+        for e in idx_mod.walk_index_blob(fetch(url, vid, col, ".ecx")):
+            if e.size != TOMBSTONE_FILE_SIZE:
+                m[e.key] = e.size
+        ecj = fetch(url, vid, col, ".ecj", optional=True)
+        for i in range(0, len(ecj) - len(ecj) % 8, 8):
+            m.pop(int.from_bytes(ecj[i:i + 8], "big"), None)
+        live[key_] = m
+        is_ec.add(key_)
+
+    # 3) compare
+    orphans = orphan_bytes = missing = purged = 0
+    guard = security.Guard(env.secret)
+    for key_, m in sorted(live.items()):
+        col, vid = key_
+        refs = referenced.get(key_, set())
+        extra = [k for k in m if k not in refs]
+        gone = sorted(refs - set(m))
+        if extra:
+            orphans += len(extra)
+            vol_bytes = sum(m[k] for k in extra)
+            orphan_bytes += vol_bytes
+            env.println(
+                f"volume {vid}{f' ({col})' if col else ''}"
+                f"{' [ec]' if key_ in is_ec else ''}: "
+                f"{len(extra)} orphan needle(s), {vol_bytes} bytes"
+                + (" — purging" if args.purge and key_ not in is_ec
+                   else ""))
+            if args.verbose:
+                for k in sorted(extra):
+                    env.println(f"  orphan needle {k}")
+            if args.purge and key_ not in is_ec:
+                url = vol_holder[key_]
+                now_ns = time.time_ns()
+                for k in sorted(extra):
+                    try:
+                        blob = env.volume(url).ReadNeedleBlob(
+                            vpb.ReadNeedleBlobRequest(
+                                volume_id=vid, collection=col,
+                                needle_id=k))
+                    except Exception as e:  # noqa: BLE001
+                        env.println(
+                            f"  purge of needle {k} skipped "
+                            f"(read failed: {e})")
+                        continue
+                    try:
+                        rec = needle_mod.Needle.parse(blob.needle_blob)
+                    except needle_mod.NeedleError:
+                        # v1 record (no timestamp): age unknowable,
+                        # cutoff can't apply
+                        rec = needle_mod.Needle.parse(
+                            blob.needle_blob, version=1)
+                    if rec.append_at_ns and \
+                            now_ns - rec.append_at_ns < \
+                            args.cutoffSeconds * 1_000_000_000:
+                        env.println(
+                            f"  needle {k} appended "
+                            f"{(now_ns - rec.append_at_ns) / 1e9:.0f}s "
+                            f"ago (< cutoff); NOT purged — likely a "
+                            f"write racing the scan")
+                        continue
+                    cookie = rec.cookie
+                    fid = str(FileId(volume_id=vid, key=k,
+                                     cookie=cookie))
+                    try:
+                        retry.http_request(
+                            f"http://{url}/{fid}"
+                            + (f"?collection={col}" if col else ""),
+                            method="DELETE", point="volume.delete",
+                            jwt=(guard.sign(fid) if guard.enabled
+                                 else ""), timeout=60)
+                        purged += 1
+                    except Exception as e:  # noqa: BLE001
+                        # one vanished/failed needle (vacuum racing
+                        # the purge) must not abort the sweep
+                        env.println(
+                            f"  purge of needle {k} failed: {e}")
+        for k in gone:
+            missing += 1
+            env.println(
+                f"volume {vid}{f' ({col})' if col else ''}: needle "
+                f"{k} MISSING but referenced by "
+                f"{where.get((col, vid, k), '?')}")
+    # volumes the filer references but no live server holds at all: a
+    # down node or deleted volume — every chunk on it is unreadable
+    for key_ in sorted(set(referenced) - set(live)):
+        col, vid = key_
+        missing += len(referenced[key_])
+        env.println(
+            f"volume {vid}{f' ({col})' if col else ''}: NOT FOUND on "
+            f"any server but {len(referenced[key_])} chunk(s) "
+            f"reference it (e.g. "
+            f"{where.get((col, vid, next(iter(referenced[key_]))), '?')})")
+    env.println(
+        f"volume.fsck: {len(live)} volumes, {orphans} orphan "
+        f"needles ({orphan_bytes} bytes)"
+        + (f", {purged} purged" if args.purge else "")
+        + f", {missing} missing chunks"
+        + (" — some files are BROKEN" if missing else ""))
+
+
+class _CappedLines:
+    """Print at most ``limit`` detail lines; the summary keeps exact
+    totals. At simulation scale a sweep can find tens of thousands of
+    problems — render the head, say how much was cut."""
+
+    def __init__(self, env: ClusterEnv, limit: int):
+        self.env = env
+        self.limit = max(0, limit)
+        self.shown = 0
+        self.suppressed = 0
+
+    def println(self, line: str) -> None:
+        if self.shown < self.limit:
+            self.shown += 1
+            self.env.println(line)
+        else:
+            self.suppressed += 1
+
+    def footer(self) -> None:
+        if self.suppressed:
+            self.env.println(f"… {self.suppressed} more")
+
+
+@cluster_command("cluster.check")
+def cmd_cluster_check(env: ClusterEnv, argv: list[str]) -> None:
+    """Read-only cluster health sweep (the reference's cluster.check):
+    replica deficits, EC volumes with shard-id gaps, and nodes at
+    volume capacity. Exits nonzero (ShellError) when problems exist.
+    Without the JAX command's telemetry and SLO verdicts."""
+    from ..storage.superblock import ReplicaPlacement
+
+    p = _parser("cluster.check")
+    p.add_argument("-n", type=int, default=50,
+                   help="max detail lines to print (counts stay "
+                        "exact; 0 = summary only)")
+    args = p.parse_args(argv)
+    out = _CappedLines(env, args.n)
+    resp = env.volume_list()
+    vols: dict[int, tuple[str, int, list[str]]] = {}
+    node_racks: dict[str, tuple[str, str]] = {}
+    full_nodes = 0
+    n_nodes = 0
+    for dc in resp.topology_info.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                n_nodes += 1
+                node_racks[dn.id] = (dc.id, rack.id)
+                if dn.max_volume_count and \
+                        dn.volume_count >= dn.max_volume_count:
+                    full_nodes += 1
+                    out.println(f"node {dn.id} at capacity "
+                                f"({dn.volume_count}/"
+                                f"{dn.max_volume_count})")
+                for v in dn.volume_infos:
+                    col, rp, holders = vols.get(
+                        v.id, (v.collection, v.replica_placement, []))
+                    holders.append(dn.id)
+                    vols[v.id] = (col, rp, holders)
+    problems = full_nodes
+    for vid, (col, rp_byte, holders) in sorted(vols.items()):
+        rp = ReplicaPlacement.from_byte(rp_byte)
+        want = rp.copy_count()
+        if len(holders) < want:
+            out.println(f"volume {vid} under-replicated: "
+                        f"{len(holders)}/{want} replicas")
+            problems += 1
+        elif len(holders) > 1:
+            # placement CONFORMANCE, not just count. Two axes, judged
+            # by the placement's own semantics: diff_dc wants distinct
+            # DCs; diff_rack wants distinct racks WITHIN a DC (a
+            # replica in another DC must not mask two same-DC replicas
+            # sharing one rack).
+            violated = ""
+            if rp.diff_dc:
+                dcs = {node_racks.get(h, ("?", "?"))[0]
+                       for h in holders}
+                if len(dcs) < min(len(holders), 1 + rp.diff_dc):
+                    violated = (f"{len(holders)} replicas in "
+                                f"{len(dcs)} DC(s)")
+            if not violated and rp.diff_rack:
+                by_dc: dict[str, list[str]] = {}
+                for h in holders:
+                    d, r = node_racks.get(h, ("?", "?"))
+                    by_dc.setdefault(d, []).append(r)
+                d, rs = max(by_dc.items(), key=lambda kv: len(kv[1]))
+                if len(set(rs)) < min(len(rs), 1 + rp.diff_rack):
+                    violated = (f"{len(rs)} replicas in DC {d} share "
+                                f"{len(set(rs))} rack(s)")
+            if violated:
+                out.println(f"volume {vid} placement violation: "
+                            f"{violated} for placement {rp}")
+                problems += 1
+    # EC: shard ids present anywhere per volume; a gap below the max id
+    # is definitely a missing shard (totals need the .vif, so only
+    # provable gaps are reported — ec.rebuild is authoritative).
+    present: dict[int, set[int]] = {}
+    for n in env.collect_ec_nodes():
+        for vid, sids in n.shards.items():
+            present.setdefault(vid, set()).update(sids)
+    for vid, sids in sorted(present.items()):
+        gaps = sorted(set(range(max(sids) + 1)) - sids)
+        if gaps:
+            out.println(f"ec volume {vid} missing shards {gaps} "
+                        f"(run ec.rebuild)")
+            problems += 1
+    # The JAX command also reads node health from /cluster/telemetry
+    # and burn rates from /cluster/slo here; those planes are not
+    # ported yet (ROADMAP Queue 1, observability)
+    out.footer()
+    env.println(f"cluster.check: {n_nodes} nodes, {len(vols)} volumes, "
+                f"{len(present)} ec volumes, {problems} problems")
+    if problems:
+        raise ShellError(f"cluster.check: {problems} problems found")
 
 
 def run_cluster_command(env: ClusterEnv, line: str) -> None:

@@ -21,6 +21,8 @@ semantics stay the reference's:
     pipeline.status                          config + recent runs
     pipeline.dump -trace F                   flight recorder -> trace
     pipeline.analyze [-all]                  bottleneck verdict
+    cache.status                             chunk-cache counters
+    cache.clear                              drop every cached chunk
 
 ``ec.encode`` and ``ec.rebuild`` take ``-mesh dp,sp`` (or ``auto``):
 split the command's pipeline work over a (dp, sp) mesh of the local
@@ -543,6 +545,74 @@ def cmd_pipeline_analyze(env: CommandEnv, argv: list[str]) -> None:
     env.println("  recommendations:")
     for rec in ana["recommendations"]:
         env.println(f"   - {rec}")
+
+
+@command("cache.status")
+def cmd_cache_status(env: CommandEnv, argv: list[str]) -> None:
+    """Hit/miss/eviction and occupancy counters of the process-wide
+    chunk cache (docs/cache.md)."""
+    p = _parser("cache.status")
+    p.parse_args(argv)
+    from ..cache import global_chunk_cache, invalidation
+    st = global_chunk_cache().stats()
+    env.println(f"cache.status hits={st['hits']} misses={st['misses']} "
+                f"hit_ratio={st['hit_ratio']:.3f}")
+    env.println(f"  memory: {st['memory_entries']} entries "
+                f"{st['memory_bytes']}/{st['memory_capacity']} bytes "
+                f"(protected={st['protected_bytes']} "
+                f"probation={st['probation_bytes']})")
+    if "disk_entries" in st:
+        env.println(f"  disk: {st['disk_entries']} entries "
+                    f"{st['disk_bytes']}/{st['disk_capacity']} bytes")
+        env.println(f"  compaction: "
+                    f"{'on' if st['disk_compaction'] else 'off'} "
+                    f"segments={st['compactions']} "
+                    f"bytes_copied={st['compaction_bytes_copied']} "
+                    f"bytes_dropped={st['compaction_bytes_dropped']}")
+    else:
+        env.println("  disk: tier disabled")
+    env.println(f"  evictions={st['evictions']} "
+                f"admission_rejects={st['admission_rejects']} "
+                f"ttl_seconds={st['ttl_seconds']}")
+    from ..cache import readahead
+    ra = readahead.stats()
+    env.println(f"  readahead: windows_open={ra['windows_open']} "
+                f"opened={ra['windows_opened']} "
+                f"prefetch={ra['prefetch_issued']} "
+                f"({ra['prefetch_bytes']} bytes) "
+                f"hits={ra['prefetch_hits']} "
+                f"wasted={ra['prefetch_wasted']} "
+                f"dropped={ra['prefetch_dropped']}")
+    per_vol = global_chunk_cache().per_volume_counts()
+    if per_vol:
+        def ratio(c: dict) -> float:
+            looked = c.get("hits", 0) + c.get("misses", 0)
+            return c.get("hits", 0) / looked if looked else 0.0
+        env.println("  per volume (hit ratio desc):")
+        for vid in sorted(per_vol, key=lambda v: -ratio(per_vol[v])):
+            c = per_vol[vid]
+            env.println(
+                f"    volume {vid}: hits={c.get('hits', 0)} "
+                f"misses={c.get('misses', 0)} "
+                f"rejects={c.get('rejects', 0)} "
+                f"hit_ratio={ratio(c):.3f}")
+    if invalidation.events:
+        pairs = " ".join(f"{k}={v}"
+                         for k, v in sorted(invalidation.events.items()))
+        env.println(f"  invalidations: {pairs}")
+
+
+@command("cache.clear")
+def cmd_cache_clear(env: CommandEnv, argv: list[str]) -> None:
+    """Drop every cached chunk (memory and disk tiers)."""
+    p = _parser("cache.clear")
+    p.parse_args(argv)
+    from ..cache import global_chunk_cache
+    cache = global_chunk_cache()
+    st = cache.stats()
+    dropped = st["memory_entries"] + st.get("disk_entries", 0)
+    cache.clear()
+    env.println(f"cache.clear: dropped {dropped} entries")
 
 
 def run_command(env: CommandEnv, line: str) -> None:

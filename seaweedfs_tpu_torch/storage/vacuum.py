@@ -21,9 +21,9 @@ behind and the live volume untouched — ``cleanup`` (or the next load)
 just deletes them. The rename pair is ordered .idx-last so a torn
 commit is detected by load-time checking.
 
-Not ported yet: dropping the volume from the chunk caches after a
-commit (the port has no chunk cache; ROADMAP Queue 1), and the refusal
-of a tiered read-only volume (the port loads no tiered volume).
+A commit drops the volume from every live chunk cache
+(``cache/invalidation.volume_invalidated``). Not ported yet: the
+refusal of a tiered read-only volume (the port loads no tiered volume).
 """
 
 from __future__ import annotations
@@ -177,6 +177,13 @@ def commit_compact(vol: Volume, state: CompactState) -> int:
         finally:
             vol._swap_pending = False
             vol._no_readers.notify_all()
+    # The compacted files are live: any chunk cache still holding
+    # pre-compaction payloads for this volume must drop them before the
+    # next read (fans out to every registered ChunkCache). Outside the
+    # volume lock — listeners take their own locks.
+    from ..cache import invalidation as cache_invalidation
+
+    cache_invalidation.volume_invalidated(vol.volume_id, reason="vacuum")
     return size
 
 

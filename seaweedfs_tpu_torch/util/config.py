@@ -5,8 +5,8 @@ argparse flags are the primary surface; a TOML file fills in the
 sections the port reads; hard defaults sit underneath.
 
 :data:`SCAFFOLDS` holds the templates of the sections the port reads —
-``[pipeline]`` (pipeline/pipe.py), ``[mesh]`` (parallel/mesh.py) and
-``[flight]`` (pipeline/flight.py) — each text byte-equal to the JAX
+``[pipeline]`` (pipeline/pipe.py), ``[mesh]`` (parallel/mesh.py),
+``[flight]`` (pipeline/flight.py) and ``[cache]`` (cache/chunk_cache.py) — each text byte-equal to the JAX
 package's, so a file written for one package reads the same in the
 other. (The ``[flight]`` text names the JAX package's environment
 variable; the port's is ``SEAWEEDFS_TORCH_FLIGHT``.) The other
@@ -47,6 +47,19 @@ double_buffer = false            # two-deep H2D lookahead (mesh path)
 [flight]
 enabled = false                  # arm the per-batch event recorder
 capacity = 65536                 # ring slots (oldest events evicted)
+""",
+    "cache": """\
+# cache.toml — tiered chunk cache for read paths (docs/cache.md).
+[cache]
+memory_bytes = 67108864          # in-memory tier capacity (64 MiB)
+admission_max_fraction = 0.125   # reject blobs larger than this share
+ttl_seconds = 0                  # 0 disables time-based expiry
+protected_fraction = 0.8         # SLRU protected-segment share
+
+[cache.disk]
+dir = ""                         # empty disables the on-disk tier
+capacity_bytes = 268435456       # 256 MiB across all segment files
+segments = 4
 """,
     "mesh": """\
 # mesh.toml — explicit (dp, sp) device mesh for EC compute (docs/mesh.md).

@@ -49,6 +49,9 @@ CATALOG = (
     "master.proxy",    # follower-master HTTP proxy to the leader
     "replica.push",    # volume server fanning a write to a replica
     "ec.shard_read",   # one shard-interval read (pipeline/read.py)
+    "filer.meta",      # filer metadata gRPC (lookup/create/delete)
+    "filer.data",      # filer HTTP data path (chunked GET/PUT)
+    "notify.webhook",  # notification webhook POSTs
     # Crashpoints: named commit-path instants where a `crash` spec kills
     # the process (or calls the handler set by set_crash_handler).
     "crash.append.dat",      # needle appended to .dat, .idx not yet
@@ -56,6 +59,7 @@ CATALOG = (
     "crash.vacuum.compact",  # mid-compact: .cpd/.cpx partially built
     "crash.vacuum.precommit",  # compact done, neither rename applied
     "crash.vacuum.midcommit",  # .cpd renamed over .dat, .cpx not yet
+    "crash.disktier.append",   # disk-cache segment record written
     "crash.ec.writeback",      # EC shard slice positioned-write issued
 )
 

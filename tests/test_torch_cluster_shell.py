@@ -5,8 +5,15 @@ The EC lifecycle runs three ways — the port shell over a port master and
 port servers, the JAX shell over that port cluster, the port shell over
 a JAX cluster — and each sealed file is sha256-equal to a JAX offline
 seal of the same ``.dat``. The shells print the same lines on clusters
-built alike, and the admin lease behaves as in the JAX shell. Port
-servers run ``device="cpu"``."""
+built alike, and the admin lease behaves as in the JAX shell. The rest
+of the cluster commands (``volume.move``, ``collection.delete``,
+``volume.balance``, ``volume.fix.replication``, ``volume.mark``,
+``volume.deleteEmpty``, ``volumeServer.evacuate``,
+``volume.check.disk``, ``volume.unmount``/``mount``,
+``volume.configure.replication``, ``cluster.check``) run the JAX
+``tests/test_cluster_shell.py`` cases through each shell on twin port
+clusters: the printed lines (addresses masked) and the resulting
+holdings are equal. Port servers run ``device="cpu"``."""
 
 import hashlib
 import io
@@ -28,11 +35,16 @@ from seaweedfs_tpu.cluster import master as jax_master
 from seaweedfs_tpu.cluster import volume_server as jax_volume_server
 from seaweedfs_tpu.pipeline.encode import encode_volume as jax_encode_volume
 from seaweedfs_tpu.shell import cluster_commands as jax_cluster_commands
+# both shells register fs.* (the port's help is a strict subset of the
+# JAX shell's whichever tests ran first in this process)
+from seaweedfs_tpu.shell import fs_commands as jax_fs_commands  # noqa: F401
+from seaweedfs_tpu.shell.commands import ShellError as JaxShellError
 from seaweedfs_tpu.storage import store as jax_store
 from seaweedfs_tpu_torch.cluster import master, operation, volume_server
 from seaweedfs_tpu_torch.cluster.wdclient import MasterClient
 from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
 from seaweedfs_tpu_torch.shell import cluster_commands
+from seaweedfs_tpu_torch.shell import fs_commands  # noqa: F401
 from seaweedfs_tpu_torch.shell.commands import ShellError
 from seaweedfs_tpu_torch.storage import ec_files, store
 
@@ -61,9 +73,10 @@ def _wait_for(pred, timeout=15.0, what="condition"):
     raise AssertionError(f"timed out waiting for {what}")
 
 
-def _start(tmp_path, pkg, n=3, seed=1):
+def _start(tmp_path, pkg, n=3, seed=1, ports=None):
     """A master and ``n`` servers of package ``pkg`` on dc1, racks
-    r0/r1/r0, joined one at a time so the topology's order is fixed."""
+    r0/r1/r0, joined one at a time so the topology's order is fixed
+    (on ``ports`` when given)."""
     m_mod, vs_mod, st_mod = CLUSTER[pkg]
     ms = m_mod.MasterServer(port=_free_port_pair(), volume_size_limit_mb=64,
                             pulse_seconds=PULSE, seed=seed).start()
@@ -73,7 +86,8 @@ def _start(tmp_path, pkg, n=3, seed=1):
         d.mkdir(parents=True)
         kw = dict(device="cpu") if pkg == "port" else {}
         servers.append(vs_mod.VolumeServer(
-            st_mod.Store([d], max_volumes=8), port=_free_port_pair(),
+            st_mod.Store([d], max_volumes=8),
+            port=ports[i] if ports else _free_port_pair(),
             master_url=ms.url, data_center="dc1", rack=f"r{i % 2}",
             pulse_seconds=PULSE, **kw).start())
         _wait_for(lambda: len(ms.topology.nodes) == i + 1,
@@ -437,3 +451,339 @@ def test_master_and_shell_subprocesses(tmp_path):
             vs.stop()
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
+
+
+# ---- the rest of the cluster commands, twin clusters per shell ----
+
+
+def _placement(servers) -> dict:
+    """Which masked server holds which volume and EC shards."""
+    return {f"S{i}": (sorted(vs.store.volumes),
+                      sorted((c, v, tuple(sorted(m.shard_ids)))
+                             for (c, v), m in vs.store.ec_mounts.items()))
+            for i, vs in enumerate(servers)}
+
+
+def _twin(tmp_path, scenario, seed=1):
+    """``scenario(ms, servers, mc, run)`` once per shell, each on its own
+    port cluster built alike; ``run(line)`` returns the command's output
+    (``error: ...`` on a refusal). The masked transcripts, the holdings
+    and the scenario's results must be equal; returns the port's
+    (transcript lines per command, result)."""
+    got = {}
+    for pkg in SHELL:
+        # commands that break ties by a server's address (volume.balance
+        # sorts its nodes by count, then url) choose alike on both twins
+        # when the join order is the address order
+        ports = sorted((_free_port_pair() for _ in range(3)),
+                       key=lambda p: f"127.0.0.1:{p}")
+        ms, servers = _start(tmp_path / pkg, "port", seed=seed,
+                             ports=ports)
+        mc = MasterClient(ms.url)
+        env, out = _env(pkg, ms)
+        outs = []
+
+        def run(line, pkg=pkg, env=env, out=out, outs=outs, ms=ms,
+                servers=servers):
+            out.truncate(0)
+            out.seek(0)
+            try:
+                _run(pkg, env, line)
+            except (ShellError, JaxShellError) as e:
+                out.write(f"error: {e}\n")
+            _settle(servers)
+            outs.append("\n".join(_masked(out.getvalue(), ms, servers)))
+            return outs[-1]
+
+        try:
+            res = scenario(ms, servers, mc, run)
+            got[pkg] = (outs, _placement(servers), res)
+        finally:
+            env.close()
+            mc.close()
+            _stop(ms, servers)
+    assert got["port"][0] == got["jax"][0]
+    assert got["port"][1:] == got["jax"][1:]
+    return got["port"][0], got["port"][2]
+
+
+def test_volume_balance_and_fix_replication(tmp_path):
+    def scenario(ms, servers, mc, run):
+        for _ in range(6):
+            operation.submit(mc, [b"x" * 500])
+            ms.grow_volume()
+        _settle(servers)
+        run("volume.balance")
+        counts = [len(vs.store.volumes) for vs in servers]
+        a = operation.assign(mc, collection="r", replication="010")
+        operation.upload(a.url, a.fid, b"fixme", collection="r")
+        vid = int(a.fid.split(",")[0])
+        _settle(servers)
+        holder = next(vs for vs in servers if vs.store.has_volume(vid, "r"))
+        holder.store.delete_volume(vid, "r")
+        _settle(servers)
+        before = sum(vs.store.has_volume(vid, "r") for vs in servers)
+        run("volume.fix.replication")
+        run("volume.fix.replication")
+        after = sum(vs.store.has_volume(vid, "r") for vs in servers)
+        return counts, before, after
+
+    outs, (counts, before, after) = _twin(tmp_path, scenario)
+    assert max(counts) - min(counts) <= 1
+    assert outs[0].startswith("volume.balance: moved ")
+    assert (before, after) == (1, 2)
+    assert "copied" in outs[1]
+    assert "all volumes fully replicated" in outs[2]
+
+
+def test_volume_move_and_collections(tmp_path):
+    def scenario(ms, servers, mc, run):
+        a = operation.assign(mc, collection="photos")
+        operation.upload(a.url, a.fid, b"move-me", jwt=a.auth,
+                         collection="photos")
+        _settle(servers)
+        run("collection.list")
+        vid = int(a.fid.split(",")[0])
+        src = a.url
+        dst = next(vs.url for vs in servers if vs.url != src)
+        run(f"volume.move -volumeId {vid} -collection photos "
+            f"-source {src} -target {dst}")
+        run(f"volume.move -volumeId {vid} -source {dst} -target {dst}")
+        mc.invalidate()
+        got = operation.download(mc, a.fid, collection="photos")
+        locs = [l["url"] for l in mc.lookup(vid, "photos")]
+        run("collection.delete -collection photos")
+        mc.invalidate()
+        with pytest.raises(KeyError):
+            mc.lookup(vid, "photos")
+        return got, dst in locs and src not in locs
+
+    outs, res = _twin(tmp_path, scenario)
+    assert res == (b"move-me", True)
+    assert "photos" in outs[0]
+    assert "volume.move: volume" in outs[1] and " -> S" in outs[1]
+    assert "source and target are the same" in outs[2]
+    assert "collection.delete: photos: 1 volumes, 0 ec volumes" in outs[3]
+
+
+def test_volume_mark_check_delete_empty(tmp_path):
+    def scenario(ms, servers, mc, run):
+        fids = operation.submit(mc, [b"y" * 800])
+        vid = int(fids[0].split(",")[0])
+        ms.grow_volume()
+        _settle(servers)
+        run(f"volume.mark -volumeId {vid} -readonly")
+        holders = [vs for vs in servers if vs.store.has_volume(vid)]
+        ro = all(("", vid) in vs.store.readonly for vs in holders)
+        run(f"volume.mark -volumeId {vid} -writable")
+        rw = all(("", vid) not in vs.store.readonly for vs in holders)
+        run("volume.mark -volumeId 999 -readonly")
+        run("cluster.check")
+        run("volume.deleteEmpty -quietFor 0")
+        n0 = sum(len(vs.store.volumes) for vs in servers)
+        run("volume.deleteEmpty -force")
+        n1 = sum(len(vs.store.volumes) for vs in servers)
+        run("volume.deleteEmpty -quietFor 0 -force")
+        n2 = sum(len(vs.store.volumes) for vs in servers)
+        return (ro, rw, n0 == n1, n2 < n1,
+                operation.download(mc, fids[0]) == b"y" * 800)
+
+    outs, res = _twin(tmp_path, scenario)
+    assert res == (True, True, True, True, True)
+    assert "readonly on S" in outs[0] and "writable on S" in outs[1]
+    assert outs[2] == "error: volume 999 not found"
+    assert "0 problems" in outs[3]
+    assert "dry run" in outs[4]
+    # the default quiet period protects the freshly grown volumes
+    assert outs[5] == "volume.deleteEmpty: 0 empty volumes deleted"
+    assert "(dry run" not in outs[6] and "empty volumes deleted" in outs[6]
+    assert not outs[6].endswith(": 0 empty volumes deleted")
+
+
+def test_cluster_check_reports_deficit(tmp_path):
+    def scenario(ms, servers, mc, run):
+        a = operation.assign(mc, collection="chk", replication="010")
+        operation.upload(a.url, a.fid, b"chk", collection="chk")
+        vid = int(a.fid.split(",")[0])
+        _settle(servers)
+        holder = next(vs for vs in servers
+                      if vs.store.has_volume(vid, "chk"))
+        holder.store.delete_volume(vid, "chk")
+        _settle(servers)
+        run("cluster.check")
+        run("cluster.check -n 0")
+        run("volume.fix.replication")
+        run("cluster.check")
+        return vid
+
+    outs, vid = _twin(tmp_path, scenario)
+    assert f"volume {vid} under-replicated: 1/2 replicas" in outs[0]
+    assert "problems found" in outs[0]
+    assert "under-replicated" not in outs[1] and "1 problems" in outs[1]
+    assert "0 problems" in outs[3]
+
+
+def test_volume_server_evacuate(tmp_path):
+    def scenario(ms, servers, mc, run):
+        rng = np.random.default_rng(11)
+        blobs = [rng.integers(0, 256, 1200, dtype=np.uint8).tobytes()
+                 for _ in range(8)]
+        fids = operation.submit(mc, blobs)
+        vid = int(fids[0].split(",")[0])
+        keep = [(f, b) for f, b in zip(fids, blobs)
+                if int(f.split(",")[0]) == vid]
+        run(f"ec.encode -volumeId {vid}")
+        victim = next(vs for vs in servers
+                      if any(v == vid for (_c, v) in vs.store.ec_mounts))
+        a = operation.assign(mc)
+        operation.upload(a.url, a.fid, b"drain-me", jwt=a.auth)
+        _settle(servers)
+        run(f"volumeServer.evacuate -node {victim.url}")
+        run("volumeServer.evacuate -node 127.0.0.1:1")
+        mc.invalidate()
+        ok = all(operation.download(mc, f) == b for f, b in keep)
+        return (not victim.store.volumes,
+                not any(v == vid for (_c, v) in victim.store.ec_mounts),
+                ok, operation.download(mc, a.fid) == b"drain-me")
+
+    outs, res = _twin(tmp_path, scenario)
+    assert res == (True, True, True, True)
+    assert "drained" in outs[1]
+    assert "not in topology" in outs[2]
+
+
+def test_volume_check_disk(tmp_path):
+    from seaweedfs_tpu_torch.storage.needle import Needle
+
+    def scenario(ms, servers, mc, run):
+        a = operation.assign(mc, collection="cd", replication="010")
+        operation.upload(a.url, a.fid, b"both-see-this", collection="cd")
+        vid = int(a.fid.split(",")[0])
+        _settle(servers)
+        holders = [vs for vs in servers if vs.store.has_volume(vid, "cd")]
+        va, vb = (h.store.get_volume(vid, "cd") for h in holders)
+        run("volume.check.disk -collection cd")
+        va.write_needle(Needle(cookie=5, id=987654, data=b"only-on-a"))
+        va.write_needle(Needle(cookie=6, id=987655, data=b"deleted-on-b"))
+        vb.write_raw_record(va.read_record(987655)[0])
+        vb.delete_needle(987655)
+        run("volume.check.disk -collection cd")
+        dry = vb.nm.get(987654) is None
+        run("volume.check.disk -collection cd -fix")
+        synced = (vb.read_needle(987654).data == b"only-on-a",
+                  va.read_record(987654)[0] == vb.read_record(987654)[0],
+                  vb.nm.get(987655) is None)
+        run("volume.check.disk -collection cd")
+        run("volume.check.disk -collection cd -resolveDeletes")
+        run("volume.check.disk -collection cd")
+        return len(holders), dry, synced, va.nm.get(987655) is None
+
+    outs, res = _twin(tmp_path, scenario)
+    assert res == (2, True, (True, True, True), True)
+    assert "0 divergent" in outs[0]
+    assert "dry run" in outs[1]
+    assert "needles synced" in outs[2] and "deleted elsewhere" in outs[2]
+    assert "0 divergent" in outs[3] and "1 unresolved skews" in outs[3]
+    assert "1 deletes propagated" in outs[4]
+    assert "0 unresolved skews" in outs[5]
+
+
+def test_volume_configure_replication(tmp_path):
+    def scenario(ms, servers, mc, run):
+        fids = operation.submit(mc, [b"reconf-me"])
+        vid = int(fids[0].split(",")[0])
+        _settle(servers)
+        holder = next(vs for vs in servers if vs.store.has_volume(vid))
+        before = str(holder.store.get_volume(vid)
+                     .super_block.replica_placement)
+        run(f"volume.configure.replication -volumeId {vid} "
+            f"-replication 010")
+        after = str(holder.store.get_volume(vid)
+                    .super_block.replica_placement)
+        run("volume.fix.replication")
+        run("volume.configure.replication -volumeId 999 -replication 001")
+        return (before, after, sum(vs.store.has_volume(vid)
+                                   for vs in servers),
+                operation.download(mc, fids[0]))
+
+    outs, res = _twin(tmp_path, scenario)
+    assert res == ("000", "010", 2, b"reconf-me")
+    assert "-> 010" in outs[0] and "copied" in outs[1]
+    assert outs[2] == "error: volume 999 not found"
+
+
+def test_volume_unmount_mount(tmp_path):
+    from seaweedfs_tpu_torch.storage.volume import dat_path
+
+    def scenario(ms, servers, mc, run):
+        fids = operation.submit(mc, [b"park-me"])
+        vid = int(fids[0].split(",")[0])
+        _settle(servers)
+        holder = next(vs for vs in servers if vs.store.has_volume(vid))
+        base = holder.store.get_volume(vid).base
+        run(f"volume.unmount -volumeId {vid} -node {holder.url}")
+        parked = (not holder.store.has_volume(vid), dat_path(base).exists())
+        mc.invalidate()
+        with pytest.raises(Exception):
+            operation.download(mc, fids[0])
+        run(f"volume.mount -volumeId {vid} -node {holder.url}")
+        mc.invalidate()
+        return parked, holder.store.has_volume(vid), \
+            operation.download(mc, fids[0])
+
+    outs, res = _twin(tmp_path, scenario)
+    assert res == ((True, True), True, b"park-me")
+    assert "unmounted on S" in outs[0] and "(files kept)" in outs[0]
+    assert "mounted on S" in outs[1]
+
+
+def test_volume_balance_collection_filter(tmp_path):
+    def scenario(ms, servers, mc, run):
+        for _ in range(4):
+            ms.grow_volume(collection="keepme")
+        _settle(servers)
+
+        def keepme():
+            return {vs.url: sorted(v for (c, v) in vs.store.volumes
+                                   if c == "keepme") for vs in servers}
+
+        target = servers[0].url
+        for url, vids in keepme().items():
+            for vid in vids:
+                if url != target:
+                    run(f"volume.move -volumeId {vid} -collection keepme "
+                        f"-source {url} -target {target}")
+        concentrated = len(keepme()[target])
+        other = {vs.url: sorted(v for (c, v) in vs.store.volumes
+                                if c != "keepme") for vs in servers}
+        run("volume.balance -collection somethingelse")
+        still = len(keepme()[target])
+        run("volume.balance -collection keepme")
+        scoped = sorted(len(v) for v in keepme().values())
+        return (concentrated, still, scoped[-1] - scoped[0] <= 1,
+                other == {vs.url: sorted(v for (c, v) in vs.store.volumes
+                                         if c != "keepme")
+                          for vs in servers})
+
+    outs, res = _twin(tmp_path, scenario)
+    assert res == (4, 4, True, True)
+    assert outs[-2] == "volume.balance: moved 0 volumes"
+
+
+def test_fix_replication_prefers_rack_diversity_and_check_flags(tmp_path):
+    def scenario(ms, servers, mc, run):
+        a = operation.assign(mc, collection="rr", replication="010")
+        operation.upload(a.url, a.fid, b"rack-me", collection="rr")
+        vid = int(a.fid.split(",")[0])
+        _settle(servers)
+        holders = [vs for vs in servers if vs.store.has_volume(vid, "rr")]
+        holders[1].store.delete_volume(vid, "rr")
+        _settle(servers)
+        run("volume.fix.replication")
+        new = [vs for vs in servers if vs.store.has_volume(vid, "rr")]
+        run("cluster.check")
+        return len(holders), len(new), sorted({vs.rack for vs in new})
+
+    outs, res = _twin(tmp_path, scenario)
+    assert res == (2, 2, ["r0", "r1"])
+    assert "placement violation" not in outs[1] and "0 problems" in outs[1]

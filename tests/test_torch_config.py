@@ -10,7 +10,7 @@ from seaweedfs_tpu.util import config as jax_config
 from seaweedfs_tpu_torch.util import config
 from torch_teardown import collect_jax_garbage  # noqa: F401
 
-SECTIONS = ("pipeline", "mesh", "flight")
+SECTIONS = ("pipeline", "mesh", "flight", "cache")
 
 #: every scalar type the subset parser reads, nested tables, comments
 SCALARS = """\
@@ -39,7 +39,7 @@ def test_scaffolds_are_byte_equal(name):
 
 def test_scaffolds_hold_only_the_sections_the_port_reads():
     assert sorted(config.SCAFFOLDS) == sorted(SECTIONS)
-    for name in ("storage", "cache", "security"):
+    for name in ("storage", "security"):
         with pytest.raises(KeyError) as err:
             config.scaffold(name)
         assert name in str(err.value)

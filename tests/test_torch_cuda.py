@@ -629,6 +629,42 @@ def test_volume_server_get_repairs_on_the_card(card_server):
 
 
 @pytest.mark.cuda
+def test_hot_degraded_needle_launches_only_on_the_first_read(card_server):
+    """The post-decode cache: a needle whose first interval lies in lost
+    shard 0 is repaired on the card by its first GET; the second GET is
+    served from the server's cache with no launch, byte-equal; after the
+    volume is invalidated the next GET repairs again."""
+    import urllib.request
+    from seaweedfs_tpu_torch.cache import invalidation
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.storage.types import FileId
+    vs, stub = card_server
+    n = vs.store.get_volume(9).read_needle(1)
+    stub.VolumeEcShardsGenerate(vpb.VolumeEcShardsGenerateRequest(
+        volume_id=9))
+    stub.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
+        volume_id=9, shard_ids=list(range(14))))
+    stub.VolumeDelete(vpb.VolumeDeleteRequest(volume_id=9))
+    stub.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+        volume_id=9, shard_ids=[0, 5, 11, 13]))
+    url = f"http://{vs.url}/{FileId(9, 1, n.cookie)}"
+    counts = []
+    for _ in range(2):
+        before = _launches()
+        with urllib.request.urlopen(url, timeout=60) as r:
+            assert r.read() == n.data
+        counts.append(_launches() - before)
+    assert counts[0] > 0 and counts[1] == 0
+    assert vs.chunk_cache.per_volume_counts()[9] == {"hits": 1,
+                                                     "misses": 1}
+    invalidation.volume_invalidated(9, reason="test")
+    before = _launches()
+    with urllib.request.urlopen(url, timeout=60) as r:
+        assert r.read() == n.data
+    assert _launches() > before
+
+
+@pytest.mark.cuda
 def test_master_driven_ec_lifecycle_on_the_card(tmp_path):
     """A port master and two port servers on the card: the cluster
     shell's ``ec.encode`` launches once per batch, ``operation.download``

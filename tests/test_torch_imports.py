@@ -60,7 +60,22 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.cluster.operation",
        "seaweedfs_tpu_torch.cluster.jobs",
        "seaweedfs_tpu_torch.shell.cluster_commands",
-       "seaweedfs_tpu_torch.cli_tools"}
+       "seaweedfs_tpu_torch.cli_tools",
+       "seaweedfs_tpu_torch.filer", "seaweedfs_tpu_torch.filer.entry",
+       "seaweedfs_tpu_torch.filer.filechunks",
+       "seaweedfs_tpu_torch.filer.path_conf",
+       "seaweedfs_tpu_torch.filer.stores",
+       "seaweedfs_tpu_torch.filer.filer",
+       "seaweedfs_tpu_torch.notification",
+       "seaweedfs_tpu_torch.notification.queues",
+       "seaweedfs_tpu_torch.cache", "seaweedfs_tpu_torch.cache.chunk_cache",
+       "seaweedfs_tpu_torch.cache.disk_tier",
+       "seaweedfs_tpu_torch.cache.invalidation",
+       "seaweedfs_tpu_torch.cache.readahead",
+       "seaweedfs_tpu_torch.images", "seaweedfs_tpu_torch.images.resize",
+       "seaweedfs_tpu_torch.cluster.filer_client",
+       "seaweedfs_tpu_torch.cluster.filer_server",
+       "seaweedfs_tpu_torch.shell.fs_commands"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -134,4 +149,13 @@ def test_shell_master_runs_cluster_commands(capsys):
             "collection.list", "cluster.status", "lock",
             "unlock", "job.submit", "job.status", "job.pause",
             "job.resume", "job.cancel", "scrub.start",
-            "scrub.status"} == set(listed)
+            "scrub.status", "volume.move", "collection.delete",
+            "volume.balance", "volume.fix.replication", "volume.mark",
+            "volume.deleteEmpty", "volumeServer.evacuate",
+            "volume.check.disk", "volume.unmount", "volume.mount",
+            "volume.configure.replication", "cluster.check",
+            "volume.fsck", "fs.ls", "fs.du", "fs.cat", "fs.mkdir",
+            "fs.rm", "fs.mv", "fs.tree", "fs.configure", "fs.meta.cat",
+            "fs.meta.save", "fs.meta.load"} == set(listed)
+    # the s3.* commands come with the port's S3 gateway
+    assert not any(c.startswith("s3.") for c in listed)

@@ -258,6 +258,7 @@ def test_volume_list_and_errors(tmp_path):
         commands.run_command(env, "help")
         listed = env.out.getvalue().splitlines()
         assert listed == sorted(commands.COMMANDS) == [
+            "cache.clear", "cache.status",
             "ec.balance", "ec.decode", "ec.encode", "ec.rebuild",
             "fault.clear", "fault.inject", "fault.list",
             "pipeline.analyze", "pipeline.dump", "pipeline.status",
