@@ -28,7 +28,8 @@ of which fails the run on any mismatch:
 5. path: a seeded 1 GiB volume of real needles sealed with
    ``encode_volume`` overlapped and sync (identical bytes, parity checked
    against the numpy oracle ``rs_ref``), shards 2, 7, 11, 13 rebuilt with
-   ``rebuild_ec_files``; then the read phase: shards 0, 5, 11, 13 removed, every needle read through
+   ``rebuild_ec_files``; then the read phase: shards 0, 5, 11, 13
+   removed, every 2nd needle read through
    ``EcVolumeReader`` (once directly, once from 8 threads through one
    ``IntervalRepairAggregator``) and held against the original ``.dat``,
    and the shards rebuilt; the volume decoded with ``decode_volume`` after
@@ -56,7 +57,7 @@ of which fails the run on any mismatch:
    per batch; GiB/s beside the direct encode), every 4th needle read by
    HTTP GET from A's shards (no launch), ``VolumeEcShardsCopy`` of every
    shard to B (sha256-equal, GiB/s) and one ``VolumeEcShardRead`` range,
-   every 2nd needle read from B with shards 0, 5, 11 and 13 deleted on
+   every 4th needle read from B with shards 0, 5, 11 and 13 deleted on
    both servers (reconstruct-on-read: needles/s, p50, p99, launches,
    host-codec calls), ``VolumeEcShardsRebuild`` (sha256-equal),
    ``VolumeEcShardsToVolume`` after losing data shards 0 and 5 (.dat and
@@ -66,7 +67,7 @@ of which fails the run on any mismatch:
    needle); the cluster shell in this process running ``lock; ec.encode;
    ec.balance; volume.list; unlock`` on the restored volume (one launch
    per batch, shards spread even/odd over A/B and sha256-equal to the
-   sealed ones; GiB/s beside the RPC-driven Generate); every 2nd needle
+   sealed ones; GiB/s beside the RPC-driven Generate); every 4th needle
    read by ``operation.download`` with shards 0, 5, 11 and 13 gone, each
    server fetching what it lacks through ``ec_shard_peers`` (needles/s,
    p50, p99, launches); the shell's ``ec.rebuild`` and ``ec.decode``
@@ -94,8 +95,8 @@ of which fails the run on any mismatch:
    phase's direct ``scrub_ec``);
 9. filer (the filer stack with its chunk cache): a port master, two port
    volume servers A and B (64 MiB post-decode caches each) and one port
-   filer (the default ``[cache]``, 64 MiB), in this process: 64 files of
-   seeded sizes over 1-8 MiB (about 288 MiB) PUT through the filer's HTTP
+   filer (the default ``[cache]``, 64 MiB), in this process: 32 files of
+   seeded sizes over 1-8 MiB (about 144 MiB) PUT through the filer's HTTP
    into collection ``filer`` (4 MiB chunks, on two volumes), ``fs.ls``,
    ``fs.du`` and ``volume.fsck`` (0 orphans, 0 missing) through ``shell
    -master ... -filer ...``, ``ec.encode`` of both volumes over A and B,
@@ -108,15 +109,44 @@ of which fails the run on any mismatch:
    ``ec.rebuild`` dropping every cached entry of both volumes and the hot
    set read back with no launch; then ``python -m seaweedfs_tpu_torch
    filer`` in its own process (one PUT and one GET, SIGTERM);
-10. repair under load (BASELINE config 5): ``repair_bench.run`` for 8 s,
+10. s3 (the S3 gateway, the checkpoint plane on the card's tensors, the
+   S3 tier): a port master, two port volume servers A and B, one port
+   filer (collection ``s3``) and two ``S3Gateway`` objects over it (one open,
+   one with a SigV4 identity), in this process: one decoder layer of
+   Llama-2-7B at its published widths (Hugging Face
+   ``meta-llama/Llama-2-7b-hf`` ``config.json``: hidden 4096,
+   intermediate 11008; the depth cut to one layer), float16 from a
+   numpy seed, its seven matrices sharded ``("dp", "sp")`` over a 2 x 2
+   grid of four ``cuda:0`` cells and its two norms replicated, saved
+   from the card by ``CheckpointStore.save`` (MiB/s, objects), listed by
+   the shell's ``ckpt.list``, restored onto the grid (every block
+   ``torch.equal`` on the card, MiB/s, p50/p99 ms per block, ranged
+   GETs, no launch); the collection's volumes sealed over A and B,
+   shards 0, 5, 11 and 13 deleted everywhere, every chunk cache cleared,
+   and the layer restored again (every block equal; the repairs launch
+   the transpose kernel; host-codec calls); one ``down_proj`` shard
+   object (2048 x 5504, 21.5 MiB) as 1 MiB sequential ranged GETs
+   (sha256-equal; the readahead window opens; prefetched, hit and wasted
+   counts), a 64 MiB multipart upload in 8 MiB parts and a CopyObject
+   (sha256-equal), a signed PUT and GET, an unsigned PUT and a stale date
+   refused; one shard object with one byte flipped, and the restore
+   fails closed with ``CorruptShardError``; a 128 MiB volume of config
+   1's first needles in an offline store moved to the tier with
+   ``volume.tier.upload`` (signed, multipart), every 4th needle read
+   through the tier, ``ec.encode`` refused, ``volume.tier.download``
+   (.dat sha256-equal) and ``ec.encode`` (one launch, shards and .ecx
+   sha256-equal to sealing the local copy); then ``python -m
+   seaweedfs_tpu_torch s3`` in its own process (one PUT, one GET,
+   SIGTERM);
+11. repair under load (BASELINE config 5): ``repair_bench.run`` for 5 s,
    a bulk decode of 4 lost shards through the kernels while 8 reader
    threads send 64 QPS of 4 KiB interval repairs, all checked;
-11. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
+12. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
    shards rebuilt, and the volume decoded after losing data shards 0 and
    3, all sha256-checked, parity against ``rs_ref`` on sampled rows;
-12. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
+13. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
    normal routing, the shell's ``ec.encode -mesh 1,1`` in turns with the
-   unsplit ``ec.encode`` (a warm-up, then A, B, B, A) on config 1's
+   unsplit ``ec.encode`` (a warm-up, then A, B) on config 1's
    volume, shards and .ecx sha256-equal and launches equal (one per
    batch), then ``ec.rebuild -mesh 1,1`` after losing 4 shards (one
    launch per chunk); (b) the dry-run twin (``parallel/dryrun.run``)
@@ -125,7 +155,7 @@ of which fails the run on any mismatch:
    grid (B pads to 26, S splits in two: 4 launches), byte-equal to the
    unsplit path and to ``rs_ref`` on sampled rows; (c) ``-mesh 2,2``
    refused on one card with no file changed;
-13. config (the shell's ``-config``): on config 1's volume through
+14. config (the shell's ``-config``): on config 1's volume through
    ``shell.cli.main``, (a) a TOML of ``[pipeline] double_buffer``,
    ``[mesh]`` 1 x 1 and ``[flight]``: ``ec.encode -keepSource;
    pipeline.status; pipeline.analyze; pipeline.dump -trace`` (shards,
@@ -135,10 +165,10 @@ of which fails the run on any mismatch:
    off against on over the 1 x 1 split (off copies on the side stream
    ahead of each kernel, on copies on a copy stream one batch ahead),
    (c) the flight recorder disarmed against armed (the armed runs print
-   ``pipeline.analyze``), each a warm-up of each side then A, B, B, A
+   ``pipeline.analyze``), each a warm-up of each side then A, B
    with both medians and their ratio, launches checked on every encode
    and the files sha256-checked on one of each side;
-14. storage (the engine at rest, on config 1's volume): (a) a seeded
+15. storage (the engine at rest, on config 1's volume): (a) a seeded
    .idx of 1,000,000 needles with 10% deleted loaded by the memory,
    native and sqlite needle maps (equal live entries and counters, the
    native library built), with each load's seconds; (b) every third
@@ -154,10 +184,10 @@ of which fails the run on any mismatch:
    4 MiB chunk, then one byte flipped in shards 3 and 12 and both
    quarantined and rebuilt to their sealed sha256; (e) ``scrub_volume``
    repairing one rotten needle from an intact copy, needles/s;
-15. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+16. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
-   ``batch.encode_packed`` over 200 of them with every parity span checked
-   whole against ``rs_ref`` and the batch census printed, 200 volumes on the
+   ``batch.encode_packed`` over 100 of them with every parity span checked
+   whole against ``rs_ref`` and the batch census printed, 100 volumes on the
    SWAR kernel, and 200 under ``SEAWEEDFS_TORCH_HOST_DISPATCH=auto``
    (the probe's two rates, its verdict and the route taken); then 32
    volumes of real needles sealed by ``batch.encode_volumes``, each
@@ -166,6 +196,17 @@ of which fails the run on any mismatch:
 Every phase but that auto pass runs with
 ``SEAWEEDFS_TORCH_HOST_DISPATCH=device``, so that large host slabs
 launch the kernels whatever the link probe would say.
+Repeats were cut as phases came, to keep the script under 480 s on the
+fast hosts: config 3's checked pass to 200 of the 1000 volumes, the mesh
+phase's second A/B round and ``Needle.to_bytes`` timed on every 4th
+needle (jobs phase); the cluster phase's GETs from A's shards and from
+B's decoded volume to every 4th needle (filer phase); for the s3 phase,
+the cluster phase's degraded GETs from B and degraded
+``operation.download`` from every 2nd needle to every 4th, the mesh
+phase's A/B from A, B, B, A to A, B, the config phase's two A/Bs from A,
+B, B, A to A, B (each after its warm-ups), the read phase's two reads to
+every 2nd needle, the filer phase's files from 64 to 32, config 5 from
+8 s to 5 s and config 3's three checked passes from 200 volumes to 100.
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -223,18 +264,23 @@ LOST_DECODE = (0, 5)
 #: The read phase's and config 5's lost shards: two data, two parity.
 LOST_READ = repair_bench.DEFAULT_LOST
 READ_THREADS = 8
+#: The read phase reads every 2nd needle, directly and through the
+#: aggregator (every needle before the s3 phase came).
+READ_EVERY = 2
+#: Config 5 runs this many seconds (8 before the s3 phase came).
+CONFIG5_SECONDS = 5
 #: The sweep's shard length: not a multiple of the kernels' 1 KiB blocks
 #: after padding to either granule, nor of 16 or 128 itself.
 SWEEP_S = 200_037
 GIB = 1 << 30
 #: BASELINE config 3: 1000 volumes of 30 MiB sealed in one job, payloads
 #: from a seeded pool of 8 distinct buffers; the checked, SWAR and auto
-#: passes run 200 of them; the file-level pass seals 32 volumes of real
+#: passes run 100 of them; the file-level pass seals 32 volumes of real
 #: needles.
 C3_VOLUMES = 1000
 C3_VOLUME_BYTES = 30 * MIB
 C3_POOL = 8
-C3_SHORT = 200
+C3_SHORT = 100
 C3_FILES = 32
 C3_NEEDLE = 64 * 1024
 #: BASELINE config 4: (k, m, shards lost before the rebuild) on the 1 GiB
@@ -473,9 +519,10 @@ def drive(what: str, fn, expect: dict, launches: dict):
 
 def read_phase(dev, base: str, idx_entries, sealed: dict,
                launches: dict) -> dict:
-    """Read every needle with shards 0, 5, 11, 13 lost, directly and from
-    8 threads through one aggregator, each against the original .dat;
-    then rebuild the lost shards."""
+    """Read every ``READ_EVERY``-th needle with shards 0, 5, 11, 13 lost,
+    directly and from 8 threads through one aggregator, each against the
+    original .dat; then rebuild the lost shards."""
+    idx_entries = idx_entries[::READ_EVERY]
     for i in LOST_READ:
         os.remove(ec_files.shard_path(base, i))
     dat = np.memmap(base + ".dat", dtype=np.uint8, mode="r")
@@ -564,7 +611,8 @@ def repair_phase(dev, workdir: str, shard_len: int, launches: dict) -> dict:
     res, wall = drive(
         "repair_bench.run (config 5)",
         lambda: repair_bench.run(
-            duration_s=8, qps=64, shard_len=shard_len, interval_size=4096,
+            duration_s=CONFIG5_SECONDS, qps=64, shard_len=shard_len,
+            interval_size=4096,
             lost=LOST_READ, bulk_chunk=4 * MIB, n_reader_threads=8,
             verify=True, workdir=workdir, device=dev),
         {"transpose": True, "swar": False}, launches)
@@ -1006,9 +1054,10 @@ CLUSTER_PULSE = 1.0
 #: from B's decoded volume (no launch either; it read all of them
 #: before the filer phase came).
 LOCAL_GET_EVERY = 4
-#: ... and every 2nd needle with shards lost, from B and through
-#: ``operation.download`` (it read all of them before the filer phase).
-DEGRADED_GET_EVERY = 2
+#: ... and every 4th needle with shards lost, from B and through
+#: ``operation.download`` (all of them before the filer phase, every
+#: 2nd before the s3 phase).
+DEGRADED_GET_EVERY = 4
 #: The replicated uploads of the cluster phase: 64 needles of about 1 MiB
 #: with replication 001 (A and B share a rack).
 REPLICATED_NEEDLES = 64
@@ -1918,11 +1967,12 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
 # --------------------------------------------------------------------------
 
 #: The filer phase's files: FILER_FILES of seeded sizes uniform over
-#: 1-8 MiB (about 288 MiB), PUT through the filer into one collection and
+#: 1-8 MiB (about 144 MiB; 64 files before the s3 phase came), PUT
+#: through the filer into one collection and
 #: cut into FILER_CHUNK_MB chunks; the hot set is the last files read,
 #: at most FILER_HOT_BYTES in all, so it fits the filer's 64 MiB cache
 #: and each volume server's 64 MiB post-decode cache.
-FILER_FILES = 64
+FILER_FILES = 32
 FILER_CHUNK_MB = 4
 FILER_HOT_BYTES = 32 * MIB
 FILER_COLLECTION = "filer"
@@ -2245,6 +2295,502 @@ def filer_phase(dev, workdir: str, label: str, launches: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# s3 phase: the S3 gateway, the checkpoint plane on the card's tensors and
+# the S3 tier
+# --------------------------------------------------------------------------
+
+#: One decoder layer of Llama-2-7B at its published widths (Hugging Face
+#: meta-llama/Llama-2-7b-hf config.json: hidden_size 4096,
+#: intermediate_size 11008), float16; the depth is cut to one layer.
+LLAMA_HIDDEN = 4096
+LLAMA_INTERMEDIATE = 11008
+S3_COLLECTION = "s3"
+S3_PULSE = 0.5
+#: The multipart upload: 64 MiB in 8 MiB parts.
+S3_MULTIPART_BYTES = 64 * MIB
+S3_PART_BYTES = 8 * MIB
+#: The tiered volume: 128 MiB of config 1's needles (its first needles),
+#: cut from the 1 GiB volume for time; every 4th needle read through
+#: the tier.
+TIER_VOLUME_BYTES = 128 * MIB
+TIER_READ_EVERY = 4
+S3_AK, S3_SK = "CHIPAK", "CHIPSK"
+
+
+def llama_layer(rng) -> dict:
+    """The layer's parameters as numpy float16, named as Hugging Face
+    names them, with values seeded from numpy."""
+    h, i = LLAMA_HIDDEN, LLAMA_INTERMEDIATE
+    shapes = {"self_attn": {"q_proj": (h, h), "k_proj": (h, h),
+                            "v_proj": (h, h), "o_proj": (h, h)},
+              "mlp": {"gate_proj": (i, h), "up_proj": (i, h),
+                      "down_proj": (h, i)},
+              "input_layernorm": (h,), "post_attention_layernorm": (h,)}
+
+    def make(v):
+        if isinstance(v, dict):
+            return {k: make(x) for k, x in v.items()}
+        return rng.standard_normal(v, dtype=np.float32).astype(np.float16)
+    return make(shapes)
+
+
+def _leaves(tree, prefix=""):
+    """``(name, leaf)`` of a tree of dicts and lists, names as the
+    checkpoint store builds them."""
+    items = sorted(tree.items()) if isinstance(tree, dict) \
+        else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def s3_phase(dev, workdir: str, label: str, launches: dict) -> dict:
+    """The S3 gateway, the checkpoint plane and the S3 tier in this
+    process on the card: a port master, two port volume servers A and B,
+    one port filer (collection ``s3``) and two gateways over it, one open
+    and one with a SigV4 identity. (1) One Llama-2-7B decoder layer,
+    float16, its matrices sharded ``("dp", "sp")`` over a 2 x 2 grid of
+    four ``cuda:0`` cells and its norms replicated, saved from the card
+    through the open gateway, listed by the shell's ``ckpt.list``, and
+    restored onto the same grid: every block equal on the card, no
+    launch. (2) Every volume of the collection sealed over A and B,
+    shards 0, 5, 11 and 13 deleted everywhere, every chunk cache cleared,
+    and the layer restored again: every block equal, the repairs on the
+    card. (3) One shard object of ``down_proj`` read whole as 1 MiB
+    sequential ranged GETs (the readahead window opens), a 64 MiB
+    multipart upload in 8 MiB parts and a CopyObject, sha256-equal; a
+    signed PUT and GET, an unsigned PUT and a stale date refused. (4) One
+    shard object overwritten with one byte flipped: the restore fails
+    closed. (5) A 128 MiB volume of config 1's needles in an offline
+    store tiered to the signed gateway (multipart), read through the
+    tier, refused by ``ec.encode``, downloaded sha256-equal and sealed
+    with one launch, its shards sha256-equal to sealing the local copy.
+    (6) ``python -m seaweedfs_tpu_torch s3`` in its own process."""
+    import http.client
+    import signal
+    import urllib.error
+    import urllib.request
+
+    from seaweedfs_tpu_torch import cache as cache_mod
+    from seaweedfs_tpu_torch.cache import readahead
+    from seaweedfs_tpu_torch.ckpt import (CheckpointStore, CorruptShardError,
+                                          GatewayClient, NamedSharding,
+                                          PartitionSpec, device_put)
+    from seaweedfs_tpu_torch.cluster.filer_server import FilerServer
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
+                                                           free_port_pair)
+    from seaweedfs_tpu_torch.filer import Filer
+    from seaweedfs_tpu_torch.gateway.s3 import S3Gateway
+    from seaweedfs_tpu_torch.gateway.s3_auth import (Identity,
+                                                     sign_request_headers)
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.shell.cluster_commands import ClusterEnv
+
+    t_phase = time.perf_counter()
+    result = {}
+    rng = np.random.default_rng(SEED + 13)
+    host = llama_layer(rng)
+    total = sum(a.nbytes for _, a in _leaves(host))
+    say(f"  Llama-2-7B decoder layer: {len(list(_leaves(host)))} params, "
+        f"{total} bytes ({total / MIB:.1f} MiB) float16, sharded "
+        f"(dp, sp) over 2 x 2 cuda:0 cells, norms replicated")
+    mesh_ = mesh.Mesh([dev] * 4, 2, 2)
+    split = NamedSharding(mesh_, PartitionSpec("dp", "sp"))
+    whole = NamedSharding(mesh_, PartitionSpec())
+
+    def place(tree):
+        return {k: place(v) if isinstance(v, dict) else device_put(
+                    torch.from_numpy(v).to(dev),
+                    split if v.ndim == 2 else whole)
+                for k, v in tree.items()}
+
+    layer = {"layers": [place(host)]}
+    torch.cuda.synchronize(dev)
+    cache_mod.configure_global()
+    gcache = cache_mod.global_chunk_cache()
+    master = MasterServer(port=free_port_pair(),
+                          pulse_seconds=S3_PULSE).start()
+    servers, filer, gws, env = {}, None, [], None
+    try:
+        for name in "AB":
+            d = os.path.join(workdir, name)
+            os.makedirs(d)
+            servers[name] = VolumeServer(
+                store_mod.Store([d]), port=free_port_pair(),
+                master_url=master.url, data_center="dc1", rack="r0",
+                pulse_seconds=S3_PULSE, device=dev).start()
+            servers[name].heartbeat_now()
+        filer = FilerServer(Filer(), port=free_port_pair(),
+                            master_url=master.url,
+                            collection=S3_COLLECTION).start()
+        g0 = S3Gateway(filer.url, port=free_port_pair()).start()
+        g1 = S3Gateway(filer.url, port=free_port_pair(), identities=[
+            Identity("chip", S3_AK, S3_SK)]).start()
+        gws += [g0, g1]
+
+        def settle():
+            for vs in servers.values():
+                vs.heartbeat_now()
+
+        vids = sorted(master.grow_volume(S3_COLLECTION) for _ in range(2))
+        settle()
+
+        # 1. save from the card, list, restore clean
+        st = CheckpointStore(g0.url)
+        man, wall = drive("ckpt.save of the layer from the card",
+                          lambda: st.save("llama2-7b-layer0", layer),
+                          dict.fromkeys(KERNELS, False), launches)
+        n_obj = sum(len(p.shards) for p in man.params)
+        check(sum(s.nbytes for p in man.params for s in p.shards) == total
+              and n_obj == 30 and man.mesh_axes == {"dp": 2, "sp": 2},
+              f"ckpt.save: {len(man.params)} params, {n_obj} shard "
+              f"objects, {total} bytes, mesh {man.mesh_axes}")
+        result["save"] = {"s": wall, "mib_per_s": total / MIB / wall,
+                          "objects": st.client.stats["puts"]}
+        say(f"  ckpt.save on {label}: {json.dumps(result['save'])}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["-dir", workdir, "-device", "cuda", "-c",
+                           f"ckpt.list -gateway {g0.url}"])
+        for line in out.getvalue().splitlines():
+            say(f"  > {line}")
+        check(rc == 0 and f"  llama2-7b-layer0: params=9 shards=30 "
+              f"bytes={total}" in out.getvalue().splitlines(),
+              "shell ckpt.list: the layer, 9 params, 30 shards")
+
+        def restore(what, expect):
+            client = GatewayClient(g0.url)
+            rst = CheckpointStore(g0.url, client=client)
+            times = []
+            real = rst._place_block
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                placed = real(*a, **k)
+                times.append(time.perf_counter() - t0)
+                return placed
+            rst._place_block = timed
+            got, wall = drive(what, lambda: rst.restore(
+                "llama2-7b-layer0", mesh=mesh_, template=layer), expect,
+                launches)
+            torch.cuda.synchronize(dev)
+            same = all(
+                len(a.blocks) == len(b.blocks) == 4 and all(
+                    torch.equal(x.data, y.data) and x.start == y.start
+                    and y.data.device == dev
+                    for x, y in zip(a.blocks, b.blocks))
+                for (_, a), (_, b) in zip(_leaves(layer), _leaves(got)))
+            ms = np.asarray(times) * 1e3
+            return same, {"s": wall, "mib_per_s": total / MIB / wall,
+                          "blocks": len(times),
+                          "p50_ms": float(np.percentile(ms, 50)),
+                          "p99_ms": float(np.percentile(ms, 99)),
+                          "ranged_gets": client.stats["ranged_gets"]}
+
+        same, result["restore"] = restore(
+            "ckpt.restore onto the 2 x 2 grid",
+            dict.fromkeys(KERNELS, False))
+        check(same, f"clean restore: all {result['restore']['blocks']} "
+              f"blocks torch.equal on the card, no launch")
+        say(f"  clean restore on {label}: {json.dumps(result['restore'])}")
+
+        # 2. seal, lose shards 0, 5, 11, 13, clear every cache, restore
+        _, seal_log = cluster_shell(
+            master.url, "lock; " + "; ".join(
+                f"ec.encode -volumeId {v} -collection {S3_COLLECTION}"
+                for v in vids) + "; unlock", "s3 seal",
+            {"ec.encode": {"transpose": True, "swar": False}}, launches)
+        settle()
+        check(all(sorted(v for (_c, v) in vs.store.ec_mounts) == vids
+                  for vs in servers.values()),
+              f"ec.encode: volumes {vids} sealed over A and B")
+        env = ClusterEnv(master_url=master.url, out=io.StringIO())
+        for vs in servers.values():
+            for (col, v), m in list(vs.store.ec_mounts.items()):
+                gone = [s for s in m.shard_ids if s in LOST_READ]
+                if gone:
+                    env.volume(vs.url).VolumeEcShardsDelete(
+                        vpb.VolumeEcShardsDeleteRequest(
+                            volume_id=v, collection=col, shard_ids=gone))
+        settle()
+        gcache.clear()
+        for vs in servers.values():
+            vs.chunk_cache.clear()
+        check(all(sorted(master.topology.lookup_ec_volume(v)) ==
+                  [s for s in range(DEFAULT_SCHEME.total_shards)
+                   if s not in LOST_READ] for v in vids)
+              and gcache.stats()["memory_entries"] == 0,
+              f"shards {list(LOST_READ)} held nowhere; the process's and "
+              f"both servers' chunk caches empty")
+        time.sleep(1.1)    # the servers' shard-location caches expire
+        same, result["degraded"] = restore(
+            f"ckpt.restore, shards {list(LOST_READ)} lost",
+            {"transpose": True, "swar": False})
+        result["degraded"]["launches"] = counts()
+        result["degraded"]["host_codec_calls"] = \
+            rs_native.apply_gf_matrix.calls
+        result["seal_s"] = sum(w for n, w, _ in seal_log
+                               if n == "ec.encode")
+        check(same, f"degraded restore: all "
+              f"{result['degraded']['blocks']} blocks torch.equal")
+        say(f"  degraded restore on {label}: "
+            f"{json.dumps(result['degraded'])}; seal "
+            f"{result['seal_s']:.3f} s")
+
+        # 3. the S3 surface at realistic sizes
+        gcache.clear()
+        down = man.param("layers/0/mlp/down_proj").shards[0]
+        client = GatewayClient(g0.url)
+        ra0 = readahead.stats()
+        t0 = time.perf_counter()
+        h = hashlib.sha256()
+        for off in range(0, down.nbytes, MIB):
+            h.update(client.get_range("ckpt", down.key, off,
+                                      min(MIB, down.nbytes - off)))
+        wall = time.perf_counter() - t0
+        ra = {k: readahead.stats()[k] - ra0[k] for k in
+              ("windows_opened", "prefetch_bytes", "prefetch_hits",
+               "prefetch_wasted")}
+        result["ranged"] = {"bytes": down.nbytes, "gets":
+                            -(-down.nbytes // MIB), "s": wall,
+                            "mib_per_s": down.nbytes / MIB / wall, **ra}
+        check(h.hexdigest() == down.sha256 and ra["windows_opened"] > 0,
+              f"{down.key} ({down.stop[0] - down.start[0]} x "
+              f"{down.stop[1] - down.start[1]}) as 1 MiB ranged GETs: "
+              f"sha256-equal, readahead window opened")
+        say(f"  ranged GETs on {label}: {json.dumps(result['ranged'])}")
+        blob = rng.bytes(S3_MULTIPART_BYTES)
+        conn = http.client.HTTPConnection("127.0.0.1", g0.port,
+                                          timeout=300)
+        try:
+            _http(conn, "PUT", "/mpbkt")
+            t0 = time.perf_counter()
+            _, body = _http(conn, "POST", "/mpbkt/big.bin?uploads")
+            uid = body.split(b"<UploadId>")[1].split(b"<")[0].decode()
+            codes = [_http(conn, "PUT", f"/mpbkt/big.bin?partNumber="
+                           f"{i + 1}&uploadId={uid}",
+                           blob[i * S3_PART_BYTES:
+                                (i + 1) * S3_PART_BYTES])[0]
+                     for i in range(S3_MULTIPART_BYTES // S3_PART_BYTES)]
+            codes.append(_http(conn, "POST",
+                               f"/mpbkt/big.bin?uploadId={uid}")[0])
+            put_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gcode, got = _http(conn, "GET", "/mpbkt/big.bin")
+            get_s = time.perf_counter() - t0
+            conn.request("PUT", "/mpbkt/copy.bin", headers={
+                "x-amz-copy-source": "/mpbkt/big.bin"})
+            r = conn.getresponse()
+            ccode, _ = r.status, r.read()
+            _, copied = _http(conn, "GET", "/mpbkt/copy.bin")
+        finally:
+            conn.close()
+        sha = hashlib.sha256(blob).digest()
+        result["multipart"] = {
+            "put_mib_per_s": S3_MULTIPART_BYTES / MIB / put_s,
+            "get_mib_per_s": S3_MULTIPART_BYTES / MIB / get_s}
+        check(set(codes) == {200} and gcode == 200 and ccode == 200
+              and hashlib.sha256(got).digest() == sha
+              and hashlib.sha256(copied).digest() == sha,
+              f"{S3_MULTIPART_BYTES // MIB} MiB multipart upload in "
+              f"{S3_PART_BYTES // MIB} MiB parts and a CopyObject: "
+              f"sha256-equal ({json.dumps(result['multipart'])})")
+
+        def signed(method, path, body=b"", stale=False, sign=True):
+            url = f"http://{g1.url}{path}"
+            hdrs = sign_request_headers(method, url, {}, body, S3_AK,
+                                        S3_SK) if sign else {}
+            if stale:
+                hdrs["x-amz-date"] = "20200101T000000Z"
+            req = urllib.request.Request(url, data=body or None,
+                                         method=method, headers=hdrs)
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        note = rng.bytes(MIB + 5)
+        codes = [signed("PUT", "/sigbkt")[0],
+                 signed("PUT", "/sigbkt/o.bin", note)[0]]
+        code, back = signed("GET", "/sigbkt/o.bin")
+        codes += [code, signed("PUT", "/sigbkt/u.bin", b"x",
+                               sign=False)[0],
+                  signed("PUT", "/sigbkt/s.bin", b"x", stale=True)[0]]
+        check(codes == [200, 200, 200, 403, 403] and back == note,
+              f"SigV4: signed PUT and GET 200, unsigned PUT 403, stale "
+              f"date 403 ({codes})")
+
+        # 4. a corrupted shard object fails closed
+        victim = down
+        raw = bytearray(client.get("ckpt", victim.key))
+        raw[len(raw) // 2] ^= 0xFF
+        client.put("ckpt", victim.key, bytes(raw))
+        got = None
+        try:
+            got = CheckpointStore(g0.url).restore(
+                "llama2-7b-layer0", mesh=mesh_)
+            failed = ""
+        except CorruptShardError as e:
+            failed = str(e)
+        check(got is None and "sha256" in failed,
+              f"one byte flipped in {victim.key}: CorruptShardError, "
+              f"nothing returned")
+
+        # 5. the tier: a 128 MiB volume of config 1's needles
+        tdir = os.path.join(workdir, "tier")
+        os.makedirs(os.path.join(tdir, "orig"))
+        tbase = os.path.join(tdir, "7")
+        n_needles = volume_mod.write_synthetic_volume(
+            tbase, TIER_VOLUME_BYTES, avg_size=MIB, seed=SEED)
+        for ext in (".dat", ".idx"):
+            shutil.copy(tbase + ext, os.path.join(tdir, "orig", "7" + ext))
+        dat_sha = sha256_file(tbase + ".dat")
+        dat_bytes = os.path.getsize(tbase + ".dat")
+        check(signed("PUT", "/coldstore")[0] == 200,
+              "signed PUT of the tier's bucket")
+        # the tier's credentials: the sidecar keeps none, and the s3
+        # backend reads them from the environment when it opens
+        os.environ["SEAWEEDFS_TORCH_TIER_ACCESS_KEY"] = S3_AK
+        os.environ["SEAWEEDFS_TORCH_TIER_SECRET_KEY"] = S3_SK
+        tstore = store_mod.Store([tdir])
+        tstore.load_existing()
+        tenv = shell_commands.CommandEnv(store=tstore, out=io.StringIO(),
+                                         device=dev)
+        try:
+            _, up_s = drive("volume.tier.upload (signed, multipart)",
+                            lambda: shell_commands.run_command(
+                                tenv, f"volume.tier.upload -volumeId 7 "
+                                      f"-dest {g1.url}/coldstore "
+                                      f"-accessKey {S3_AK} "
+                                      f"-secretKey {S3_SK}"),
+                            dict.fromkeys(KERNELS, False), launches)
+            vol = tstore.get_volume(7)
+            check(vol.backend_kind == "s3" and tstore.is_readonly(7)
+                  and not os.path.exists(tbase + ".dat"),
+                  f"volume.tier.upload: {n_needles} needles, {dat_bytes} "
+                  f"bytes to the tier, the volume read-only on the s3 "
+                  f"backend ({up_s:.3f} s)")
+            orig = volume_mod.Volume(os.path.join(tdir, "orig", "7")).load()
+            try:
+                keys = sorted(e.key for e in orig.nm.live_entries())
+                t0 = time.perf_counter()
+                ok = all(vol.read_needle(k).data == orig.read_needle(k).data
+                         for k in keys[::TIER_READ_EVERY])
+                read_s = time.perf_counter() - t0
+            finally:
+                orig.close()
+            check(ok, f"every {TIER_READ_EVERY}th needle read through the "
+                  f"tier equal ({read_s:.3f} s)")
+            try:
+                shell_commands.run_command(tenv, "ec.encode -volumeId 7")
+                refused = ""
+            except shell_commands.ShellError as e:
+                refused = str(e)
+            check("tier.download" in refused and not os.path.exists(
+                tbase + ".ecx"), "ec.encode of the tiered volume refused")
+            _, down_s = drive("volume.tier.download",
+                              lambda: shell_commands.run_command(
+                                  tenv, "volume.tier.download -volumeId 7"),
+                              dict.fromkeys(KERNELS, False), launches)
+            check(sha256_file(tbase + ".dat") == dat_sha
+                  and not tstore.is_readonly(7),
+                  f"volume.tier.download: .dat sha256-equal, writable "
+                  f"({down_s:.3f} s)")
+            got = dict.fromkeys(KERNELS, 0)
+            _, enc_s = drive("ec.encode after the download",
+                             lambda: shell_commands.run_command(
+                                 tenv, "ec.encode -volumeId 7"),
+                             {"transpose": True, "swar": False}, got)
+            launches["transpose"] += got["transpose"]
+            encode.encode_volume(os.path.join(tdir, "orig", "7"),
+                                 device=dev)
+            local = os.path.join(tdir, "orig", "7")
+            shards = range(DEFAULT_SCHEME.total_shards)
+            check(got["transpose"] == 1,
+                  f"ec.encode after the download: {got['transpose']} "
+                  f"launch")
+            check(sealed_digests(tbase, shards=shards)
+                  == sealed_digests(local, shards=shards)
+                  and sha256_file(tbase + ".ecx")
+                  == sha256_file(local + ".ecx"),
+                  "ec.encode after the download: shards and .ecx "
+                  "sha256-equal to sealing the local copy")
+        finally:
+            os.environ.pop("SEAWEEDFS_TORCH_TIER_ACCESS_KEY", None)
+            os.environ.pop("SEAWEEDFS_TORCH_TIER_SECRET_KEY", None)
+            tstore.close()
+        result["tier"] = {"bytes": dat_bytes, "upload_s": up_s,
+                          "upload_mib_per_s": dat_bytes / MIB / up_s,
+                          "download_s": down_s,
+                          "download_mib_per_s": dat_bytes / MIB / down_s,
+                          "read_every_4th_s": read_s, "encode_s": enc_s}
+        say(f"  tier on {label}: {json.dumps(result['tier'])}")
+
+        # 6. python -m seaweedfs_tpu_torch s3 in its own process
+        t_sub = time.perf_counter()
+        port = free_port_pair()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "s3", "-port",
+             str(port), "-filer", filer.url],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        try:
+            url = f"http://127.0.0.1:{port}"
+            deadline = time.time() + 60
+            while True:
+                try:
+                    urllib.request.urlopen(url + "/", timeout=2).read()
+                    break
+                except urllib.error.HTTPError:
+                    break
+                except OSError:
+                    if time.time() > deadline or proc.poll() is not None:
+                        raise SmokeError("the s3 subprocess did not come "
+                                         "up")
+                    time.sleep(0.2)
+            sub = rng.bytes(MIB + 3)
+            for path, body in (("/subbkt", None), ("/subbkt/o.bin", sub)):
+                req = urllib.request.Request(url + path, data=body,
+                                             method="PUT")
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    put_code = r.status
+            with urllib.request.urlopen(url + "/subbkt/o.bin",
+                                        timeout=60) as r:
+                back = r.read()
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+        result["subprocess_s"] = time.perf_counter() - t_sub
+        check(put_code == 200 and back == sub and rc == 0,
+              f"python -m seaweedfs_tpu_torch s3: PUT {put_code}, GET "
+              f"byte-equal, exit {rc} on SIGTERM "
+              f"({result['subprocess_s']:.1f} s)")
+    finally:
+        if env is not None:
+            env.close()
+        for gw in gws:
+            gw.stop()
+        if filer is not None:
+            filer.stop()
+        for vs in servers.values():
+            vs.stop()
+        master.stop()
+        cache_mod.configure_global()
+        shutil.rmtree(workdir, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    say(f"  s3 phase: {result['seconds']:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
 # config 4: RS(6,3) and RS(12,4) on the 1 GiB volume
 # --------------------------------------------------------------------------
 
@@ -2330,12 +2876,12 @@ def mesh_phase(dev, workdir: str, pres: dict, label: str,
             os.link(pres["base"] + ext, os.path.join(d, f"{vid}{ext}"))
     result = {"encode_s": {name: [] for name in dirs}}
 
-    # (a) a warm-up, then A, B, B, A (one round keeps the script in its
-    # time budget): each run seals the same
+    # (a) a warm-up, then A, B (one turn each keeps the script in its
+    # time budget since the s3 phase came): each run seals the same
     # volume into a directory with no shards (the previous run's removed
     # untimed). The host allocator caches the pinned pool buffers a run
     # frees, so only the first run pays for pinning them.
-    for name in ("unsplit", "unsplit", "mesh 1,1", "mesh 1,1", "unsplit"):
+    for name in ("unsplit", "unsplit", "mesh 1,1"):
         d = dirs[name]
         for f in os.listdir(d):
             if not f.endswith((".dat", ".idx")):
@@ -2597,13 +3143,13 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
 
     def turns(what, a, b, want, commands=""):
         """A warm-up of each side (the first run of a pool size pins its
-        buffers, which the host allocator then caches), then A, B, B, A,
-        timed inside the encode's pipeline call (the layer the knob acts
+        buffers, which the host allocator then caches), then A, B (one
+        turn each since the s3 phase came), timed inside the encode's pipeline call (the layer the knob acts
         on; the command's wall beside it); the medians and B / A. B's
         runs also run ``commands``."""
         times = {a: [], b: []}
         walls = {a: [], b: []}
-        for i, name in enumerate((a, b, a, b, b, a)):
+        for i, name in enumerate((a, b, a, b)):
             wall, inner, _ = run(f"{what}: {name}", name, want[name],
                                  commands if name == b else "",
                                  verify=i in (2, 3))
@@ -2968,11 +3514,11 @@ def storage_phase(dev, workdir: str, pres: dict, label: str,
 
 def config3_phase(dev, label: str, launches: dict) -> dict:
     """1000 volumes of 30 MiB through ``batch.encode_many`` (timed, with
-    no sink), then 200 of them through ``batch.encode_packed`` with every
+    no sink), then 100 of them through ``batch.encode_packed`` with every
     parity span checked against the numpy oracle and the batch census
-    taken; then 200 volumes on the SWAR kernel and 200 under the ``auto``
-    link rule, both checked. (200 cover the same 8 payloads and batch
-    shape as 1000, in a fifth of the script's time.)"""
+    taken; then 100 volumes on the SWAR kernel and 100 under the ``auto``
+    link rule, both checked. (100 cover the same 8 payloads and batch
+    shape as 1000, in a tenth of the script's time.)"""
     scheme = DEFAULT_SCHEME
     k, m = scheme.data_shards, scheme.parity_shards
     vol = f"{C3_VOLUME_BYTES // MIB} MiB"
@@ -3191,6 +3737,9 @@ def main() -> int:
         say("phase filer (the filer stack with its chunk cache, on a "
             "sealed volume):")
         filer_phase(dev, os.path.join(workdir, "filer"), label, launches)
+        say("phase s3 (the S3 gateway, the checkpoint plane on the card's "
+            "tensors, the S3 tier):")
+        s3_phase(dev, os.path.join(workdir, "s3"), label, launches)
         say("phase repair under load (config 5):")
         repair_phase(dev, os.path.join(workdir, "config5"),
                      DEFAULT_SCHEME.shard_file_size(VOLUME_BYTES), launches)

@@ -7,14 +7,16 @@ The port of ``seaweedfs_tpu/__main__.py``, with these subcommands so far:
         [-device cuda|cpu]
     python -m seaweedfs_tpu_torch filer -master host:port [-port 8888] \
         [-db meta.sqlite]
+    python -m seaweedfs_tpu_torch s3 -filer host:port [-port 8333] \
+        [-config identities.json] [-toml server.toml] [-master host:port]
     python -m seaweedfs_tpu_torch shell  -master host:port [-filer h:p] \
         | -dir ... [-device cuda|cpu]
     python -m seaweedfs_tpu_torch upload -master host:port file...
     python -m seaweedfs_tpu_torch download -master host:port fid...
     python -m seaweedfs_tpu_torch delete -master host:port fid...
 
-The other subcommands (s3, benchmark, ...) come with later slices of
-the port.
+The other subcommands (webdav, mount, benchmark, ...) come with later
+slices of the port (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ def _run_filer(argv: list[str]) -> int:
     return main(argv)
 
 
+def _run_s3(argv: list[str]) -> int:
+    from .gateway.s3 import main
+    return main(argv)
+
+
 def _run_client(name: str):
     def run(argv: list[str]) -> int:
         from . import cli_tools
@@ -54,6 +61,7 @@ COMMANDS = {
     "volume": _run_volume,
     "master": _run_master,
     "filer": _run_filer,
+    "s3": _run_s3,
     "upload": _run_client("upload"),
     "download": _run_client("download"),
     "delete": _run_client("delete"),

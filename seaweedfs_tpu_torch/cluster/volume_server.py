@@ -34,8 +34,11 @@ per-volume hit and miss counts ride the heartbeat's telemetry rows.
 
 Not ported yet, each named in ROADMAP Queue 1: the telemetry and usage
 collectors and the rest of their heartbeat fields (left unset), tracing
-spans and their push, ``/debug/traces``, ``/debug/profile`` and
-``/debug/vars`` (404), and the S3 tier RPCs (``UNIMPLEMENTED``).
+spans and their push, and ``/debug/traces``, ``/debug/profile`` and
+``/debug/vars`` (404). The S3 tier RPCs move a volume's .dat to an S3
+endpoint and back (``Store.tier_move`` / ``tier_restore``), with the
+tier's credentials from the server's environment
+(``SEAWEEDFS_TORCH_TIER_ACCESS_KEY`` / ``_SECRET_KEY``).
 """
 
 from __future__ import annotations
@@ -620,19 +623,45 @@ class _VolumeServicer:
 
     # -- cold tier (volume_grpc_tier.go analogs) ------------------------
 
-    def _tier_unimplemented(self, context, what: str):
-        import grpc
-
-        context.abort(
-            grpc.StatusCode.UNIMPLEMENTED,
-            f"{what}: the S3 tier is not ported yet (it comes with the "
-            f"port's S3 gateway, ROADMAP Queue 1)")
-
     def VolumeTierMoveDatToRemote(self, request, context):
-        self._tier_unimplemented(context, "VolumeTierMoveDatToRemote")
+        """Move this server's copy of the volume onto the S3 tier
+        (Store.tier_move: seal -> heartbeat the freeze -> stream while
+        reads keep serving -> reader-drained backend swap). The object
+        key carries this server's identity so replicas of one volume
+        never overwrite each other's tiered copy. Credentials come
+        from the server's environment, never the wire."""
+        import os as os_mod
+
+        store = self.vs.store
+        endpoint, _, bucket = \
+            request.destination_backend_name.rpartition("/")
+        if not endpoint or not bucket:
+            raise VolumeServerError(
+                f"bad destination {request.destination_backend_name!r}; "
+                f"want endpoint/bucket")
+        vol = store.get_volume(request.volume_id, request.collection)
+        info = store.tier_move(
+            request.volume_id, request.collection,
+            endpoint=endpoint, bucket=bucket,
+            object_key=(Path(vol.base).name + "."
+                        + self.vs.url.replace(":", "-") + ".dat"),
+            keep_local=request.keep_local_dat_file,
+            access_key=os_mod.environ.get(
+                "SEAWEEDFS_TORCH_TIER_ACCESS_KEY", ""),
+            secret_key=os_mod.environ.get(
+                "SEAWEEDFS_TORCH_TIER_SECRET_KEY", ""),
+            on_sealed=self.vs.heartbeat_now)
+        self.vs.heartbeat_now()
+        return volume_server_pb2.VolumeTierMoveDatToRemoteResponse(
+            moved_bytes=info.size,
+            object_url=f"{info.endpoint}/{info.bucket}/{info.key}")
 
     def VolumeTierMoveDatFromRemote(self, request, context):
-        self._tier_unimplemented(context, "VolumeTierMoveDatFromRemote")
+        store = self.vs.store
+        size = store.tier_restore(request.volume_id, request.collection)
+        self.vs.heartbeat_now()
+        return volume_server_pb2.VolumeTierMoveDatFromRemoteResponse(
+            moved_bytes=size)
 
     def VolumeStatus(self, request, context):
         resp = volume_server_pb2.VolumeStatusResponse()

@@ -52,6 +52,12 @@ class EcEncodeError(RuntimeError):
 def _require_local_dat(base: str | Path) -> Path:
     datp = volume_mod.dat_path(base)
     if not datp.exists():
+        from ..storage import tier as tier_mod
+        if tier_mod.TierInfo.maybe_load(base) is not None:
+            raise EcEncodeError(
+                f"volume {base} is tiered to S3; run "
+                f"volume.tier.download first (EC encode streams the "
+                f"whole .dat — do it from local disk, not ranged GETs)")
         raise EcEncodeError(f"{datp} does not exist")
     return datp
 

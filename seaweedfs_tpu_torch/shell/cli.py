@@ -37,6 +37,7 @@ import os
 import sys
 
 from ..storage.store import Store, StoreError
+from ..storage.tier import TierError
 from ..storage.volume import VolumeError
 from ..util import config as config_mod
 from ..util import tls as tls_mod
@@ -164,8 +165,8 @@ def _session(args, conf: dict) -> int:
     else:
         try:
             env = build_env(args.dir, args.maxVolumes, args.device)
-        except (StoreError, VolumeError, OSError) as e:
-            # e.g. a tiered volume: the S3 tier is not ported yet
+        except (StoreError, VolumeError, TierError, OSError) as e:
+            # e.g. a volume whose .tier sidecar does not parse
             print(f"error: {e}", file=sys.stderr)
             return 1
         run, cleanup = run_command, env.store.close

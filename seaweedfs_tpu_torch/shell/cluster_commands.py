@@ -20,10 +20,11 @@ sweep on the master's jobs plane), ``ec.rebuild``, ``ec.decode``,
 ``-filer``), ``collection.list``, ``collection.delete``,
 ``cluster.status``, ``cluster.check`` (without the telemetry and SLO
 verdicts), ``lock``, ``unlock``, ``job.submit``, ``job.status``,
-``job.pause``, ``job.resume``, ``job.cancel``, ``scrub.start`` and
-``scrub.status``; ``fs.*`` live in ``fs_commands.py``. The commands of
-the observability planes, the S3 tier and the S3 gateway come with
-later slices (ROADMAP Queue 1).
+``job.pause``, ``job.resume``, ``job.cancel``, ``scrub.start``,
+``scrub.status``, ``volume.tier.upload`` and ``volume.tier.download``;
+``fs.*`` and the S3 gateway's ``s3.*`` live in ``fs_commands.py``. The
+commands of the observability planes come with a later slice (ROADMAP
+Queue 1, observability).
 """
 
 from __future__ import annotations
@@ -668,6 +669,52 @@ def cmd_volume_list(env: ClusterEnv, argv: list[str]) -> None:
                         f"      ec volume {s.id} "
                         f"collection={s.collection or '-'} "
                         f"shards={ShardBits(s.ec_index_bits).ids()}")
+
+
+@cluster_command("volume.tier.upload")
+def cmd_volume_tier_upload(env: ClusterEnv, argv: list[str]) -> None:
+    """Move a volume's .dat to the cold S3 tier on whichever server
+    holds it (command_volume_tier_upload.go choreography over
+    VolumeTierMoveDatToRemote); the server keeps serving reads through
+    ranged GETs and reports the volume read-only from its next
+    heartbeat."""
+    p = _parser("volume.tier.upload")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-dest", required=True,
+                   help="endpoint/bucket, e.g. 127.0.0.1:8333/coldstore")
+    p.add_argument("-keepLocal", action="store_true")
+    args = p.parse_args(argv)
+    locs = env.volume_locations(args.volumeId)
+    if not locs:
+        raise ShellError(f"volume {args.volumeId} not found")
+    for url in locs:
+        resp = env.volume(url).VolumeTierMoveDatToRemote(
+            volume_server_pb2.VolumeTierMoveDatToRemoteRequest(
+                volume_id=args.volumeId, collection=args.collection,
+                destination_backend_name=args.dest,
+                keep_local_dat_file=args.keepLocal))
+        env.println(f"volume.tier.upload {args.volumeId} on {url}: "
+                    f"{resp.moved_bytes} bytes -> {resp.object_url}")
+
+
+@cluster_command("volume.tier.download")
+def cmd_volume_tier_download(env: ClusterEnv, argv: list[str]) -> None:
+    """Bring a tiered volume's .dat back to its server's local disk
+    (command_volume_tier_download.go over VolumeTierMoveDatFromRemote)."""
+    p = _parser("volume.tier.download")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    args = p.parse_args(argv)
+    locs = env.volume_locations(args.volumeId)
+    if not locs:
+        raise ShellError(f"volume {args.volumeId} not found")
+    for url in locs:
+        resp = env.volume(url).VolumeTierMoveDatFromRemote(
+            volume_server_pb2.VolumeTierMoveDatFromRemoteRequest(
+                volume_id=args.volumeId, collection=args.collection))
+        env.println(f"volume.tier.download {args.volumeId} on {url}: "
+                    f"{resp.moved_bytes} bytes local again")
 
 
 @cluster_command("volume.vacuum")

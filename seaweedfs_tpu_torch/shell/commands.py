@@ -21,8 +21,13 @@ semantics stay the reference's:
     pipeline.status                          config + recent runs
     pipeline.dump -trace F                   flight recorder -> trace
     pipeline.analyze [-all]                  bottleneck verdict
+    volume.tier.upload -volumeId 3 -dest h:p/bucket  .dat to the S3 tier
+    volume.tier.download -volumeId 3         .dat back to local disk
     cache.status                             chunk-cache counters
     cache.clear                              drop every cached chunk
+    ckpt.save -gateway h:p -name N           seeded sharded checkpoint
+    ckpt.restore -gateway h:p -name N        restore onto the mesh
+    ckpt.list -gateway h:p                   committed checkpoints
 
 ``ec.encode`` and ``ec.rebuild`` take ``-mesh dp,sp`` (or ``auto``):
 split the command's pipeline work over a (dp, sp) mesh of the local
@@ -30,9 +35,10 @@ devices of the env's device type (parallel/mesh.py), over whatever the
 shell's ``-config`` set in ``[mesh]``. The ``pipeline.*`` commands read
 back what ``[pipeline]``, ``[mesh]`` and ``[flight]`` set and what the
 session's runs recorded. ``fault.clear -breakers`` also resets the
-retry layer's circuit breakers (util/retry.py). Not ported yet: the
-trace root around each command, and the other command families
-(ROADMAP Queue 1).
+retry layer's circuit breakers (util/retry.py). ``ckpt.*`` run on the
+env's device (None = the card) and take ``-mesh`` too. Not ported yet:
+the trace root around each command and the ``trace.*`` commands
+(ROADMAP Queue 1, observability).
 """
 
 from __future__ import annotations
@@ -330,6 +336,75 @@ def cmd_volume_list(env: CommandEnv, argv: list[str]) -> None:
         env.println("no volumes")
 
 
+def _volume_base(env: CommandEnv, vid: int, collection: str):
+    """(volume, base) for a volume id — open in the store or on disk."""
+    vol = env.store.volumes.get((collection, vid))
+    if vol is not None:
+        return vol, vol.base
+    base = next(
+        (loc.base_for(vid, collection)
+         for loc in env.store.locations
+         if Path(str(loc.base_for(vid, collection)) + ".dat").exists()
+         or Path(str(loc.base_for(vid, collection)) + ".tier").exists()),
+        None)
+    if base is None:
+        raise ShellError(f"volume {vid} not found")
+    return None, base
+
+
+@command("volume.tier.upload")
+def cmd_volume_tier_upload(env: CommandEnv, argv: list[str]) -> None:
+    """Move a volume's .dat to an S3 endpoint (the project's own
+    gateway works) and keep serving reads through ranged GETs —
+    command_volume_tier_upload.go over Store.tier_move. The hot .idx
+    stays local; the volume becomes read-only until tier.download."""
+    from ..storage import tier as tier_mod
+    p = _parser("volume.tier.upload")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-dest", required=True,
+                   help="endpoint/bucket, e.g. 127.0.0.1:8333/coldstore")
+    p.add_argument("-accessKey", default="")
+    p.add_argument("-secretKey", default="")
+    p.add_argument("-keepLocal", action="store_true")
+    args = p.parse_args(argv)
+    endpoint, _, bucket = args.dest.rpartition("/")
+    if not endpoint or not bucket:
+        raise ShellError(f"bad -dest {args.dest!r}, want endpoint/bucket")
+    vol, base = _volume_base(env, args.volumeId, args.collection)
+    if vol is not None:
+        info = env.store.tier_move(
+            args.volumeId, args.collection, endpoint=endpoint,
+            bucket=bucket, keep_local=args.keepLocal,
+            access_key=args.accessKey, secret_key=args.secretKey)
+    else:
+        # offline base (not registered in the store): move the files
+        info = tier_mod.upload_volume_dat(
+            base, endpoint, bucket,
+            access_key=args.accessKey, secret_key=args.secretKey,
+            remove_local=not args.keepLocal)
+    env.println(f"volume.tier.upload {args.volumeId}: {info.size} bytes "
+                f"-> {info.endpoint}/{info.bucket}/{info.key}"
+                + (" (local copy kept)" if args.keepLocal else ""))
+
+
+@command("volume.tier.download")
+def cmd_volume_tier_download(env: CommandEnv, argv: list[str]) -> None:
+    """Bring a tiered volume's .dat back to local disk and drop the
+    sidecar (command_volume_tier_download.go over Store.tier_restore)."""
+    from ..storage import tier as tier_mod
+    p = _parser("volume.tier.download")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    args = p.parse_args(argv)
+    vol, base = _volume_base(env, args.volumeId, args.collection)
+    if vol is not None:
+        env.store.tier_restore(args.volumeId, args.collection)
+    else:
+        tier_mod.download_volume_dat(base)
+    env.println(f"volume.tier.download {args.volumeId}: local again")
+
+
 @command("volume.delete")
 def cmd_volume_delete(env: CommandEnv, argv: list[str]) -> None:
     p = _parser("volume.delete")
@@ -416,6 +491,103 @@ def cmd_fault_clear(env: CommandEnv, argv: list[str]) -> None:
     env.println("fault.clear: "
                 + (args.point or "all points") + " disarmed"
                 + (" + breakers reset" if args.breakers else ""))
+
+
+def _ckpt_store(gateway: str, bucket: str):
+    from ..ckpt import CheckpointStore
+    if not gateway:
+        raise ShellError("ckpt.*: -gateway host:port is required")
+    return CheckpointStore(gateway, bucket=bucket)
+
+
+@command("ckpt.save")
+def cmd_ckpt_save(env: CommandEnv, argv: list[str]) -> None:
+    """Save a seeded synthetic sharded tree through the S3 gateway —
+    the operator-facing probe of the checkpoint plane (a real training
+    job calls CheckpointStore.save on its own params)."""
+    p = _parser("ckpt.save")
+    p.add_argument("-gateway", default="", help="S3 gateway host:port")
+    p.add_argument("-bucket", default="ckpt")
+    p.add_argument("-name", required=True)
+    p.add_argument("-mesh", default="",
+                   help="dp,sp device mesh (default: configured)")
+    p.add_argument("-params", type=int, default=2)
+    p.add_argument("-rows", type=int, default=256)
+    p.add_argument("-cols", type=int, default=64)
+    p.add_argument("-seed", type=int, default=0,
+                   help="seeds a torch.Generator whose normal draws fill "
+                        "the params (not the JAX package's jax.random "
+                        "values; the geometry is the same)")
+    args = p.parse_args(argv)
+    import torch
+
+    from ..ckpt import sharding as sharding_mod
+
+    store = _ckpt_store(args.gateway, args.bucket)
+    device = _device(env)
+    with _mesh_scope(args.mesh, device):
+        mesh = sharding_mod.local_mesh(device)
+        sh = sharding_mod.NamedSharding(
+            mesh, sharding_mod.PartitionSpec("dp", "sp"))
+        gen = torch.Generator().manual_seed(args.seed)
+        tree = {f"param{i}": sharding_mod.device_put(
+                    torch.randn((args.rows, args.cols), generator=gen), sh)
+                for i in range(args.params)}
+        man = store.save(args.name, tree)
+    shards = sum(len(pp.shards) for pp in man.params)
+    nbytes = sum(s.nbytes for pp in man.params for s in pp.shards)
+    env.println(f"ckpt.save {args.name}: {len(man.params)} params "
+                f"{shards} shards {nbytes} bytes "
+                f"-> s3://{args.bucket}")
+
+
+@command("ckpt.restore")
+def cmd_ckpt_restore(env: CommandEnv, argv: list[str]) -> None:
+    """Restore a checkpoint onto the configured mesh of the env's
+    device; prints per-param geometry and the ranged-read profile (each
+    process reads only its own blocks' byte ranges)."""
+    p = _parser("ckpt.restore")
+    p.add_argument("-gateway", default="", help="S3 gateway host:port")
+    p.add_argument("-bucket", default="ckpt")
+    p.add_argument("-name", required=True)
+    p.add_argument("-mesh", default="",
+                   help="dp,sp device mesh (default: configured)")
+    args = p.parse_args(argv)
+    from ..ckpt import CheckpointError, ManifestError
+    from ..ckpt.sharding import dtype_name
+
+    store = _ckpt_store(args.gateway, args.bucket)
+    device = _device(env)
+    try:
+        with _mesh_scope(args.mesh, device):
+            arrays = store.restore(args.name, device=device)
+    except (CheckpointError, ManifestError) as e:
+        raise ShellError(str(e)) from e
+    for name in sorted(arrays):
+        a = arrays[name]
+        env.println(f"  {name}: {dtype_name(a.dtype)}{list(a.shape)} "
+                    f"spec={a.spec}")
+    st = store.client.stats
+    env.println(f"ckpt.restore {args.name}: {len(arrays)} params, "
+                f"{st['ranged_gets']} ranged reads "
+                f"{st['bytes_in']} bytes in")
+
+
+@command("ckpt.list")
+def cmd_ckpt_list(env: CommandEnv, argv: list[str]) -> None:
+    """Committed checkpoints visible on the gateway (uncommitted saves
+    have no manifest and are invisible, same as restore's view)."""
+    p = _parser("ckpt.list")
+    p.add_argument("-gateway", default="", help="S3 gateway host:port")
+    p.add_argument("-bucket", default="ckpt")
+    args = p.parse_args(argv)
+    store = _ckpt_store(args.gateway, args.bucket)
+    rows = store.list_checkpoints()
+    for r in rows:
+        env.println(f"  {r['name']}: params={r['params']} "
+                    f"shards={r['shards']} bytes={r['bytes']}")
+    env.println(f"ckpt.list: {len(rows)} checkpoint(s) in "
+                f"s3://{args.bucket}")
 
 
 @command("pipeline.status")

@@ -10,9 +10,9 @@ seeded without copying blob data.
 Registered into the cluster-mode registry (they need a -filer url on
 the shell; local -dir mode has no filer to talk to).
 
-The port of ``seaweedfs_tpu/shell/fs_commands.py``: ``fs.*`` and
-``fs.meta.*``. The ``s3.*`` commands come with the port's S3 gateway
-(ROADMAP Queue 1).
+The port of ``seaweedfs_tpu/shell/fs_commands.py``, whole: ``fs.*``,
+``fs.meta.*``, ``fs.configure``, and the gateway's ``s3.bucket.*``,
+``s3.clean.uploads`` and ``s3.configure``.
 """
 
 from __future__ import annotations
@@ -176,6 +176,119 @@ def cmd_fs_tree(env: ClusterEnv, argv: list[str]) -> None:
     env.println(f"{dirs} directories, {files} files")
 
 
+# -- s3.bucket.*: buckets are directories under /buckets on the filer
+#    (the same convention the S3 gateway serves; gateway/s3.py
+#    BUCKETS_DIR) --
+
+_BUCKETS_DIR = "/buckets"
+
+
+@cluster_command("s3.bucket.list")
+def cmd_s3_bucket_list(env: ClusterEnv, argv: list[str]) -> None:
+    p = _parser("s3.bucket.list")
+    p.parse_args(argv)
+    fc = _fc(env)
+    n = 0
+    for e in fc.list(_BUCKETS_DIR):
+        if not e.is_directory:
+            continue
+        size = files = 0
+        for _d, sub in _walk(fc, f"{_BUCKETS_DIR}/{e.name}"):
+            if not sub.is_directory:
+                files += 1
+                size += _entry_size(sub)
+        env.println(f"{e.name}  {size} bytes, {files} objects")
+        n += 1
+    env.println(f"{n} buckets")
+
+
+@cluster_command("s3.bucket.create")
+def cmd_s3_bucket_create(env: ClusterEnv, argv: list[str]) -> None:
+    p = _parser("s3.bucket.create")
+    p.add_argument("-name", required=True)
+    args = p.parse_args(argv)
+    fc = _fc(env)
+    if fc.lookup(_BUCKETS_DIR, args.name) is not None:
+        raise ShellError(f"bucket {args.name} already exists")
+    fc.mkdir(_BUCKETS_DIR, args.name)
+    env.println(f"created bucket {args.name}")
+
+
+@cluster_command("s3.bucket.delete")
+def cmd_s3_bucket_delete(env: ClusterEnv, argv: list[str]) -> None:
+    """Delete a bucket and every object in it (the reference requires
+    the bucket name twice nowhere; -force skips the empty check)."""
+    p = _parser("s3.bucket.delete")
+    p.add_argument("-name", required=True)
+    p.add_argument("-force", action="store_true",
+                   help="delete even when the bucket is not empty")
+    args = p.parse_args(argv)
+    fc = _fc(env)
+    if fc.lookup(_BUCKETS_DIR, args.name) is None:
+        raise ShellError(f"bucket {args.name} not found")
+    if not args.force:
+        if any(True for _ in fc.list(f"{_BUCKETS_DIR}/{args.name}")):
+            raise ShellError(
+                f"bucket {args.name} is not empty (use -force)")
+    fc.delete(_BUCKETS_DIR, args.name, recursive=True,
+              delete_data=True)
+    env.println(f"deleted bucket {args.name}")
+
+
+@cluster_command("s3.clean.uploads")
+def cmd_s3_clean_uploads(env: ClusterEnv, argv: list[str]) -> None:
+    """Abort multipart uploads older than -timeAgo
+    (command_s3_clean_uploads.go): a client that initiated an upload
+    and vanished leaves part data consuming volumes forever otherwise.
+    Age is measured from the NEWEST part, so an in-progress upload is
+    never reaped while parts keep arriving."""
+    import time as time_mod
+
+    p = _parser("s3.clean.uploads")
+    p.add_argument("-timeAgo", default="24h",
+                   help="abort uploads idle longer than this "
+                        "(e.g. 30m, 24h, 7d)")
+    p.add_argument("-force", action="store_true",
+                   help="actually delete (default: dry run)")
+    args = p.parse_args(argv)
+    per = {"s": 1, "m": 60, "h": 3600, "d": 86400}
+    unit = args.timeAgo[-1] if args.timeAgo else ""
+    if unit not in per or not args.timeAgo[:-1].isdigit():
+        raise ShellError(
+            f"s3.clean.uploads: bad -timeAgo {args.timeAgo!r} "
+            f"(want <n>[smhd])")
+    cutoff = time_mod.time() - int(args.timeAgo[:-1]) * per[unit]
+    fc = _fc(env)
+    uploads_dir = f"{_BUCKETS_DIR}/.uploads"
+    reaped = kept = 0
+    for e in fc.list(uploads_dir):
+        if not e.is_directory:
+            continue
+        newest = e.attributes.mtime
+        key = bucket = ""
+        for part in fc.list(f"{uploads_dir}/{e.name}"):
+            newest = max(newest, part.attributes.mtime)
+            if part.name == "key":
+                key = part.extended.get("key", b"").decode("utf-8",
+                                                           "replace")
+                bucket = part.extended.get(
+                    "bucket", b"").decode("utf-8", "replace")
+        if newest >= cutoff:
+            kept += 1
+            continue
+        idle_h = (time_mod.time() - newest) / 3600
+        env.println(
+            f"upload {e.name} ({bucket}/{key}) idle {idle_h:.1f}h"
+            + ("" if args.force else " (dry run; use -force)"))
+        if args.force:
+            fc.delete(uploads_dir, e.name, recursive=True,
+                      delete_data=True)
+        reaped += 1
+    env.println(f"s3.clean.uploads: {reaped} stale uploads"
+                + (" aborted" if args.force else " found")
+                + f", {kept} active kept")
+
+
 @cluster_command("fs.configure")
 def cmd_fs_configure(env: ClusterEnv, argv: list[str]) -> None:
     """Manage per-path storage rules (command_fs_configure.go): writes
@@ -240,6 +353,78 @@ def cmd_fs_configure(env: ClusterEnv, argv: list[str]) -> None:
                     mime="application/json")
         env.println(f"applied to {FILER_CONF_PATH} (filer reloads "
                     f"live)")
+    else:
+        env.println("dry run (use -apply to persist)")
+
+
+@cluster_command("s3.configure")
+def cmd_s3_configure(env: ClusterEnv, argv: list[str]) -> None:
+    """Manage the filer-stored S3 identity config the gateway reloads
+    live (command_s3_configure.go): upsert or delete an identity, show
+    the resulting JSON, and persist it with -apply."""
+    from ..gateway.s3 import S3_CONF_PATH
+
+    p = _parser("s3.configure")
+    p.add_argument("-user", default="",
+                   help="identity name to add/update/delete")
+    p.add_argument("-access_key", default="")
+    p.add_argument("-secret_key", default="")
+    p.add_argument("-actions", default="",
+                   help="comma-separated: Admin, Read, Write, "
+                        "optionally bucket-scoped like Write:bucket")
+    p.add_argument("-delete", action="store_true")
+    p.add_argument("-reset", action="store_true",
+                   help="start from an empty config (repairs a "
+                        "corrupt identities.json)")
+    p.add_argument("-apply", action="store_true",
+                   help="persist (default: dry-run print)")
+    args = p.parse_args(argv)
+    fc = _fc(env)
+    if args.reset:
+        cfg = {"identities": []}
+    else:
+        try:
+            raw = fc.get_data(S3_CONF_PATH)
+        except Exception as e:  # noqa: BLE001
+            if getattr(e, "code", None) == 404:
+                raw = None  # confirmed: no config yet
+            else:
+                # a transient read error + -apply would otherwise
+                # persist an EMPTY config and lock every user out
+                raise ShellError(
+                    f"s3.configure: cannot read current config "
+                    f"({e}); retry when the filer answers") from None
+        if raw is None:
+            cfg = {"identities": []}
+        else:
+            try:
+                cfg = json.loads(raw)
+            except ValueError as e:
+                raise ShellError(
+                    f"s3.configure: {S3_CONF_PATH} holds invalid "
+                    f"JSON ({e}); rebuild it with -reset") from None
+    idents = cfg.setdefault("identities", [])
+    if args.user:
+        idents[:] = [i for i in idents if i.get("name") != args.user]
+        if not args.delete:
+            if not args.access_key or not args.secret_key:
+                raise ShellError(
+                    "s3.configure: -access_key and -secret_key are "
+                    "required to add/update an identity")
+            idents.append({
+                "name": args.user,
+                "credentials": [{"accessKey": args.access_key,
+                                 "secretKey": args.secret_key}],
+                "actions": [a for a in args.actions.split(",") if a]
+                or ["Admin"],
+            })
+    elif args.delete:
+        raise ShellError("s3.configure: -delete needs -user")
+    env.println(json.dumps(cfg, indent=2))
+    if args.apply:
+        fc.put_data(S3_CONF_PATH, json.dumps(cfg, indent=2).encode(),
+                    mime="application/json")
+        env.println(f"applied to {S3_CONF_PATH} (gateways reload live)")
     else:
         env.println("dry run (use -apply to persist)")
 

@@ -5,8 +5,9 @@ The port's copy of ``seaweedfs_tpu/storage/backend.py``
 through this seam, so a local file and an mmap read path are
 interchangeable without touching volume.py. The volume server's
 ``-backend`` flag picks one by name from :data:`BACKENDS`. The ``s3``
-kind (the cold tier) is not ported yet: it waits for the S3 gateway
-(ROADMAP Queue 1), and asking for it raises :class:`BackendNotPorted`.
+kind is the cold tier (storage/tier.py): read-only range GETs against an
+S3 endpoint, which ``Volume.load`` selects by itself when a ``.tier``
+sidecar stands in for the ``.dat``.
 
 Concurrency contract: ``read_at`` may be called from many threads
 concurrently with one appender (it uses positionless pread); mutations
@@ -140,28 +141,23 @@ class MmapFile(DiskFile):
         super().close()
 
 
-class BackendNotPorted(ValueError):
-    """A backend kind the JAX package has and the port does not yet."""
-
-
 def _s3_factory(path, create: bool = False) -> BackendStorageFile:
-    raise BackendNotPorted(
-        "backend 's3' (the S3 cold tier) is not ported yet: it comes "
-        "with the S3 gateway (ROADMAP Queue 1)")
+    from .tier import S3TierFile
+    return S3TierFile.from_dat_path(path, create=create)
 
 
 def check_kind(kind: str) -> None:
-    """Raise what :func:`open_backend` would for ``kind`` (an unknown
-    kind, or one not ported yet) without opening anything."""
+    """Raise what :func:`open_backend` would for an unknown ``kind``
+    without opening anything."""
     if kind not in BACKENDS:
         raise ValueError(f"unknown backend {kind!r}; "
                          f"have {sorted(BACKENDS)}")
-    if BACKENDS[kind] is _s3_factory:
-        _s3_factory("")
 
 
 #: name -> factory(path, create) registry (the -backend flag surface).
-#: "s3" is the JAX package's cold tier, which the port refuses.
+#: "s3" is the cold tier (storage/tier.py): read-only range GETs
+#: against an S3 endpoint, selected automatically by Volume.load when a
+#: .tier sidecar exists.
 BACKENDS: dict[str, Callable[..., BackendStorageFile]] = {
     "disk": DiskFile,
     "mmap": MmapFile,

@@ -33,9 +33,8 @@ server's ``-config`` sets through :func:`configure_from`, 8 MiB/s
 unless set, or the rate the caller names) so a background scrub never
 steals the disk from foreground reads. The cluster drives it through the
 ``scrub`` job (``cluster/jobs.py``). The counters go to :data:`METRICS`
-(the ``seaweed_scrub_*`` family). Not ported yet (ROADMAP Queue 1): the
-refusal to repair a tiered read-only volume (the port loads no tiered
-volume, which comes with the S3 tier).
+(the ``seaweed_scrub_*`` family). A tiered read-only volume
+(storage/tier.py) is scrubbed but never repaired in place.
 """
 
 from __future__ import annotations
@@ -222,7 +221,7 @@ def scrub_volume(vol, pacer: Optional[RatePacer] = None,
                      "(%d bytes quarantined to %s)", vol.volume_id,
                      e.key, len(rec), q)
         repaired = False
-        if fetch_record is not None:
+        if fetch_record is not None and not vol.readonly:
             good = None
             try:
                 good = fetch_record(e.key)

@@ -6,8 +6,8 @@ disk_location.go + store_ec.go): a Store owns one or more directories
 mounted EC shards (<base>.ec??/.ecx). The offline admin shell drives
 every operation through this object; ``status()`` is the snapshot a
 heartbeat would carry; ``garbage_ratio`` / ``vacuum_volume`` compact a
-volume (storage/vacuum.py). Not ported yet (ROADMAP Queue 1): the S3
-tier moves (``tier_move`` / ``tier_restore``).
+volume (storage/vacuum.py); ``tier_move`` / ``tier_restore`` move a
+volume's .dat to the S3 tier and back (storage/tier.py).
 
 Volume base naming follows the reference: ``<vid>`` or
 ``<collection>_<vid>`` inside the location directory.
@@ -77,8 +77,8 @@ class DiskLocation:
 
     def scan_volumes(self) -> Iterator[tuple[str, int, Path]]:
         """Yield (collection, vid, base) for every <base>.dat present —
-        and every .tier sidecar (an S3-tiered volume may have no local
-        .dat; Volume.load refuses it rather than skip it silently)."""
+        and every .tier sidecar (an S3-tiered volume has no local .dat
+        but must still mount on restart)."""
         seen = set()
         for p in sorted(self.directory.glob("*.dat")) + \
                 sorted(self.directory.glob("*.tier")):
@@ -160,6 +160,12 @@ class Store:
                                  needle_map=self.needle_map).load()
                     with self._lock:
                         self.volumes[(col, vid)] = vol
+                        if vol.readonly:
+                            # tiered (.tier sidecar): the durable
+                            # read-only marker must survive restarts so
+                            # heartbeats never advertise the volume
+                            # writable
+                            self.readonly.add((col, vid))
             for col, vid, base, ids in loc.scan_ec_shards():
                 with self._lock:
                     m = self.ec_mounts.setdefault(
@@ -228,6 +234,67 @@ class Store:
     def is_readonly(self, volume_id: int, collection: str = "") -> bool:
         return (collection, volume_id) in self.readonly
 
+    # -- cold tier (storage/tier.py choreography) -------------------------
+
+    def tier_move(self, volume_id: int, collection: str = "", *,
+                  endpoint: str, bucket: str, object_key: str = "",
+                  keep_local: bool = False, access_key: str = "",
+                  secret_key: str = "", on_sealed=None):
+        """Move a volume's .dat to the S3 tier WITHOUT ever taking the
+        volume out of service: seal (read-only; ``on_sealed`` runs so a
+        server can heartbeat the freeze before any byte moves — when
+        the destination is this cluster's own gateway, the upload's
+        chunks must never be assigned to the volume being moved), sync,
+        stream the object while reads keep flowing off the still-open
+        local fd, then retier() swaps the backend under the reader
+        drain. A failed upload rolls the freeze back."""
+        from . import tier as tier_mod
+        key = (collection, volume_id)
+        vol = self.get_volume(volume_id, collection)
+        was_readonly = key in self.readonly
+        was_vol_readonly = vol.readonly
+        # Seal under the VOLUME lock: write_needle checks readonly
+        # under the same lock, so every writer either fully landed
+        # before this (its bytes reach the sync below) or fails the
+        # check — none can append between the sync and the upload.
+        with vol._lock:
+            vol.readonly = True
+        with self._lock:
+            self.readonly.add(key)
+        if on_sealed is not None:
+            on_sealed()
+        try:
+            vol.sync()
+            info = tier_mod.upload_volume_dat(
+                vol.base, endpoint, bucket, key=object_key,
+                access_key=access_key, secret_key=secret_key,
+                remove_local=not keep_local)
+        except BaseException:
+            if not was_readonly:
+                with self._lock:
+                    self.readonly.discard(key)
+            if not was_vol_readonly:
+                with vol._lock:
+                    vol.readonly = False
+            raise
+        vol.retier()
+        return info
+
+    def tier_restore(self, volume_id: int, collection: str = ""):
+        """Bring a tiered .dat back local and make the volume writable
+        again; a non-tiered volume is a clean error with the volume
+        left untouched (no close/reopen cycle). Credentials resolve
+        from the environment (see tier.TierInfo.maybe_load)."""
+        from . import tier as tier_mod
+        vol = self.get_volume(volume_id, collection)
+        if tier_mod.TierInfo.maybe_load(vol.base) is None:
+            raise StoreError(f"volume {volume_id} is not tiered")
+        tier_mod.download_volume_dat(vol.base)
+        vol.retier()
+        with self._lock:
+            self.readonly.discard((collection, volume_id))
+        return vol.dat_size
+
     def unmount_volume(self, volume_id: int,
                        collection: str = "") -> None:
         """Stop serving a volume but KEEP its files (the reference's
@@ -251,11 +318,12 @@ class Store:
             base = loc.directory / volume_base_name(volume_id,
                                                     collection)
             if dat_path(base).exists() or tier_path(base).exists():
-                # a tiered volume is found here and refused by load()
                 vol = Volume(base, volume_id, backend=self.backend,
                              needle_map=self.needle_map).load()
                 with self._lock:
                     self.volumes[(collection, volume_id)] = vol
+                    if vol.readonly:
+                        self.readonly.add((collection, volume_id))
                 return
         raise StoreError(
             f"no files for volume {volume_id} "
@@ -270,9 +338,13 @@ class Store:
             self.volumes.pop((collection, volume_id), None)
             self.readonly.discard((collection, volume_id))
         # .sdx goes too: a leftover sqlite map would resurrect phantom
-        # index entries if the volume id is ever re-allocated.
+        # index entries if the volume id is ever re-allocated. So does a
+        # .tier sidecar (the tiered object stays on its endpoint): left
+        # behind, it fails the next load_existing (a tiered volume with
+        # no .idx) and marks a re-created volume of this id read-only
+        # (the JAX package leaves it; ROADMAP Queue 3).
         for p in (dat_path(vol.base), idx_path(vol.base),
-                  Path(str(vol.base) + ".sdx")):
+                  Path(str(vol.base) + ".sdx"), tier_path(vol.base)):
             if p.exists():
                 p.unlink()
 

@@ -22,8 +22,9 @@ just deletes them. The rename pair is ordered .idx-last so a torn
 commit is detected by load-time checking.
 
 A commit drops the volume from every live chunk cache
-(``cache/invalidation.volume_invalidated``). Not ported yet: the
-refusal of a tiered read-only volume (the port loads no tiered volume).
+(``cache/invalidation.volume_invalidated``). A tiered volume (read-only,
+storage/tier.py) is refused: compacting its local copy would diverge
+from the tiered bytes.
 """
 
 from __future__ import annotations
@@ -75,6 +76,13 @@ def compact(vol: Volume) -> CompactState:
     .cpd and letting one Commit rename a half-written file live."""
     if vol._dat is None:
         raise VolumeError("volume not open")
+    if vol.readonly:
+        # Tiered (sidecar present): compacting the local copy would
+        # diverge from the S3 bytes, and a later tier.download would
+        # put the stale object under the compacted .idx.
+        raise VolumeError(
+            f"volume {vol.volume_id} is read-only (tiered); "
+            f"volume.tier.download before vacuuming")
     with vol._lock:
         if vol.vacuum_in_progress:
             raise VolumeError(
@@ -307,8 +315,10 @@ def abort_compact(vol: Volume) -> None:
 
 def vacuum(vol: Volume, threshold: float = 0.0) -> Optional[int]:
     """Compact + commit when garbage_ratio exceeds ``threshold``.
-    Returns the new size, or None when below threshold."""
-    if garbage_ratio(vol) <= threshold:
+    Returns the new size, or None when below threshold (or when the
+    volume is tiered read-only — the master's auto-scan must skip those
+    silently, not error every pulse)."""
+    if vol.readonly or garbage_ratio(vol) <= threshold:
         return None
     state = compact(vol)
     try:

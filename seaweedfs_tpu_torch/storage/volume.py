@@ -15,8 +15,10 @@ The ``.dat`` goes through a named backend (storage/backend.py:
 package) or ``sqlite`` (a ``<base>.sdx`` beside the volume); the volume
 server's ``-backend`` and ``-index`` flags pick them. Compaction lives
 in storage/vacuum.py and swaps the files under the same reader drain
-that ``close`` uses. Not ported yet (ROADMAP Queue 1): the S3 cold tier
-(a volume with a ``.tier`` sidecar does not load).
+that ``close`` uses. A volume with a ``.tier`` sidecar (storage/tier.py)
+reads its .dat through the ``s3`` backend when no local copy is left,
+and is read-only either way; ``retier`` swaps the backend under the same
+reader drain after a tier move.
 
 Also hosts the synthetic volume writers used by tests and
 ``chip_smoke.py`` (the reference's ec_test.go builds its fixture volume
@@ -64,8 +66,8 @@ def idx_path(base: str | Path) -> Path:
 
 
 def tier_path(base: str | Path) -> Path:
-    """The JAX package's S3-tier sidecar: its presence means the durable
-    copy of the .dat lives on the tier."""
+    """The S3-tier sidecar (storage/tier.py): its presence means the
+    durable copy of the .dat lives on the tier."""
     return Path(str(base) + ".tier")
 
 
@@ -74,7 +76,8 @@ class Volume:
     (``<dir>/<collection_>?<vid>`` without extension).
 
     ``backend`` selects the .dat storage implementation by name
-    (storage/backend.py :data:`~.backend.BACKENDS`: "disk", "mmap");
+    (storage/backend.py :data:`~.backend.BACKENDS`: "disk", "mmap"; a
+    tiered volume takes "s3" by itself);
     ``needle_map`` selects the index implementation
     (:data:`NEEDLE_MAPS`)."""
 
@@ -93,12 +96,20 @@ class Volume:
         self.volume_id = volume_id
         self.super_block = super_block or SuperBlock()
         self.backend_kind = backend
+        #: The operator-configured kind, never mutated — backend_kind
+        #: tracks the CURRENT backend ("s3" while tiered) and retier()
+        #: restores this one when the .dat comes back local.
+        self._configured_backend = backend
         self.needle_map_kind = needle_map
         self.nm = CompactMap()
         self._dat: Optional[backend_mod.BackendStorageFile] = None
         self._idx = None
         #: Guard: at most one compaction in flight (storage/vacuum.py).
         self.vacuum_in_progress = False
+        #: Set when a .tier sidecar exists (the durable copy is on the
+        #: S3 tier): writes are refused even on a kept local .dat, or
+        #: they would silently diverge from the tiered bytes.
+        self.readonly = False
         # Appends mutate shared file-handle state; reads use os.pread on
         # the raw fd, so only writers serialize. Readers register under
         # the lock (consistent needle-map + fd snapshot) and pread
@@ -169,14 +180,17 @@ class Volume:
 
     def load(self) -> "Volume":
         p = dat_path(self.base)
-        if tier_path(self.base).exists():
-            raise VolumeError(
-                f"volume {self.base} has a tier sidecar "
-                f"{tier_path(self.base).name}: the S3 tier is not ported "
-                f"yet (ROADMAP Queue 1), and a local .dat would be a cache "
-                f"of the tiered copy")
+        from . import tier as tier_mod
+        tiered = tier_mod.TierInfo.maybe_load(self.base) is not None
         if not p.exists():
+            if tiered:
+                return self._load_tiered()
             raise VolumeError(f"{p} does not exist")
+        if tiered:
+            # -keepLocal upload: local .dat kept as a hot read cache,
+            # but the S3 copy is the durable one — stay read-only even
+            # across restarts (the sidecar IS the durable marker)
+            self.readonly = True
         # Compaction crash recovery. States (commit renames .cpd over
         # .dat FIRST, then .cpx over .idx):
         #   .cpd + .cpx  -> crash before commit: live volume untouched,
@@ -210,6 +224,70 @@ class Volume:
         self._idx = open(ip, "a+b") if ip.exists() else open(ip, "w+b")
         self.nm = self._load_needle_map()
         return self
+
+    def _load_tiered(self) -> "Volume":
+        """Open a volume whose .dat lives on the S3 tier (sidecar
+        present, no local .dat): data bytes come through ranged GETs,
+        the hot .idx stays local (the reference's tiering split). A
+        tiered volume was sealed before upload, so compaction-crash
+        recovery and tail-integrity repair do not apply; the backend
+        itself refuses writes."""
+        self._dat = backend_mod.open_backend("s3", dat_path(self.base))
+        self.backend_kind = "s3"
+        self.readonly = True
+        head = self._dat.read_at(8, 0)
+        if len(head) < 8:
+            raise VolumeError(f"{self._dat.name} shorter than a "
+                              f"superblock")
+        extra_len = struct.unpack_from(">H", head, 6)[0]
+        self.super_block = SuperBlock.parse(
+            head + self._dat.read_at(extra_len, 8))
+        ip = idx_path(self.base)
+        if not ip.exists():
+            raise VolumeError(
+                f"tiered volume {self.base} has no local .idx — the "
+                f"index stays local when a volume tiers")
+        self._idx = open(ip, "a+b")
+        self.nm = self._load_needle_map()
+        return self
+
+    def retier(self) -> None:
+        """Re-point ``_dat`` at wherever the bytes NOW live (local .dat
+        vs .tier sidecar) after a tier move in either direction, while
+        the volume keeps serving: in-flight readers are drained exactly
+        like the compaction fd swap (new readers park on _no_readers),
+        then the backend handle is swapped under the lock. The needle
+        map and local .idx are untouched — the tier split keeps the
+        index local either way."""
+        from . import tier as tier_mod
+        with self._lock:
+            self._swap_pending = True
+            try:
+                while self._readers:
+                    self._no_readers.wait()
+                old = self._dat
+                p = dat_path(self.base)
+                tiered = tier_mod.TierInfo.maybe_load(self.base) \
+                    is not None
+                if p.exists():
+                    # local bytes (possibly a -keepLocal hot copy)
+                    self._dat = backend_mod.open_backend(
+                        self._configured_backend, p)
+                    self.backend_kind = self._configured_backend
+                    self.readonly = tiered
+                elif tiered:
+                    self._dat = backend_mod.open_backend("s3", p)
+                    self.backend_kind = "s3"
+                    self.readonly = True
+                else:
+                    raise VolumeError(
+                        f"volume {self.volume_id}: neither {p} nor a "
+                        f"tier sidecar exists")
+                if old is not None:
+                    old.close()
+            finally:
+                self._swap_pending = False
+                self._no_readers.notify_all()
 
     def close(self) -> None:
         with self._lock:
@@ -247,6 +325,15 @@ class Volume:
         with self._lock:
             if self._dat is None:
                 raise VolumeError("volume not open")
+            # checked UNDER the lock: tier_move seals under this same
+            # lock, so a writer that raced past an outside-the-lock
+            # check could otherwise append after the seal's sync and
+            # lose the needle when the local .dat is dropped
+            if self.readonly:
+                raise VolumeError(
+                    f"volume {self.volume_id} is read-only (tiered "
+                    f"copy exists; a local write would silently "
+                    f"diverge from it)")
             offset = self._dat.size()
             if offset % NEEDLE_PADDING_SIZE:
                 pad = (-offset) % NEEDLE_PADDING_SIZE
@@ -331,6 +418,11 @@ class Volume:
         with self._lock:
             if self._idx is None:
                 raise VolumeError("volume not open")
+            if self.readonly:
+                raise VolumeError(
+                    f"volume {self.volume_id} is read-only (tiered "
+                    f"copy exists; a local delete would silently "
+                    f"diverge from it)")
             if not self.nm.delete(key):
                 return False
             self._idx.write(
@@ -346,6 +438,10 @@ class Volume:
         with self._lock:
             if self._dat is None:
                 raise VolumeError("volume not open")
+            if self.readonly:
+                raise VolumeError(
+                    f"volume {self.volume_id} is read-only (tiered); "
+                    f"download it first")
             self.super_block.replica_placement = rp
             self._dat.write_at(self.super_block.to_bytes(), 0)
             durability.barrier(self._dat,

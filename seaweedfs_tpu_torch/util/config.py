@@ -6,9 +6,10 @@ sections the port reads; hard defaults sit underneath.
 
 :data:`SCAFFOLDS` holds the templates of the sections the port reads —
 ``[pipeline]`` (pipeline/pipe.py), ``[mesh]`` (parallel/mesh.py),
-``[flight]`` (pipeline/flight.py) and ``[cache]`` (cache/chunk_cache.py) — each text byte-equal to the JAX
-package's, so a file written for one package reads the same in the
-other. (The ``[flight]`` text names the JAX package's environment
+``[flight]`` (pipeline/flight.py), ``[cache]`` (cache/chunk_cache.py)
+and ``[qos]`` (util/httpserver.py, the S3 gateway) — each text
+byte-equal to the JAX package's, so a file written for one package reads
+the same in the other. (The ``[flight]`` text names the JAX package's environment
 variable; the port's is ``SEAWEEDFS_TORCH_FLIGHT``.) The other
 sections' templates arrive with the modules that read them.
 """
@@ -60,6 +61,39 @@ protected_fraction = 0.8         # SLRU protected-segment share
 dir = ""                         # empty disables the on-disk tier
 capacity_bytes = 268435456       # 256 MiB across all segment files
 segments = 4
+""",
+    "qos": """\
+# qos.toml — per-tenant QoS at the S3 gateway (docs/ingress.md).
+# Tenants are authenticated SigV4 identity names; unauthenticated
+# traffic is the "anonymous" tenant. Priority 0 = guaranteed (never
+# pressure-shed); higher priorities shed earlier as queue pressure
+# rises (class threshold = watermark ** priority).
+[qos]
+enabled = true
+default_class = "standard"       # class for unmapped tenants
+watermark = 0.75                 # base of the priority shed ladder
+
+[qos.class.gold]
+priority = 0                     # guaranteed: only its own caps apply
+rate_per_second = 0              # token-bucket refill; 0 = unlimited
+burst = 0                        # bucket size; 0 = max(1, rate)
+concurrency = 0                  # in-flight cap; 0 = unlimited
+
+[qos.class.standard]
+priority = 1
+rate_per_second = 0
+burst = 0
+concurrency = 0
+
+[qos.class.bronze]
+priority = 2
+rate_per_second = 50
+burst = 100
+concurrency = 16
+
+[qos.tenant]
+# alice = "gold"                 # identity name -> class name
+# mallory = "bronze"
 """,
     "mesh": """\
 # mesh.toml — explicit (dp, sp) device mesh for EC compute (docs/mesh.md).

@@ -52,6 +52,7 @@ CATALOG = (
     "filer.meta",      # filer metadata gRPC (lookup/create/delete)
     "filer.data",      # filer HTTP data path (chunked GET/PUT)
     "notify.webhook",  # notification webhook POSTs
+    "tier.copy",       # volume tier upload/download transfers
     # Crashpoints: named commit-path instants where a `crash` spec kills
     # the process (or calls the handler set by set_crash_handler).
     "crash.append.dat",      # needle appended to .dat, .idx not yet
@@ -60,6 +61,8 @@ CATALOG = (
     "crash.vacuum.precommit",  # compact done, neither rename applied
     "crash.vacuum.midcommit",  # .cpd renamed over .dat, .cpx not yet
     "crash.disktier.append",   # disk-cache segment record written
+    "crash.tier.download",     # .dat.part complete, not yet renamed
+    "crash.ckpt.save",         # shards written, manifest not yet PUT
     "crash.ec.writeback",      # EC shard slice positioned-write issued
 )
 

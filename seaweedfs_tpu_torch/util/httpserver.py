@@ -26,15 +26,21 @@ drop-in replacement that turns overload into policy:
   shed with 429 + ``Retry-After`` instead of queueing toward
   collapse. Apply with :func:`admission_gate` to the handler class.
 
+* **Per-tenant QoS** — :class:`QosEngine` (S3 gateway) maps the
+  SigV4-authenticated identity to a priority class with token-bucket
+  rate and concurrency limits. Under pressure, low-priority classes
+  shed first (priority ``p`` sheds at ``watermark ** p``); a
+  priority-0 class is never pressure-shed, so a guaranteed tenant
+  rides out another tenant's overload with zero failures.
+
 Every decision is observable in the ``seaweed_ingress_*`` metrics
 (rendered on ``/metrics`` next to the retry plane's); the ``ingress``
 payload of ``/debug/vars`` comes with that page (ROADMAP Queue 1,
-observability). Config lives in an ``[ingress]`` TOML block.
+observability). Config lives in ``[ingress]`` / ``[qos]`` TOML blocks.
 
-The port's copy of ``seaweedfs_tpu/util/httpserver.py`` up to its
-per-tenant QoS (``QosEngine`` and friends), which serves only the S3
-gateway and comes with it. Shed decisions are counted but tag no trace
-span: the port has no tracing yet (ROADMAP Queue 1, observability).
+The port's copy of ``seaweedfs_tpu/util/httpserver.py``. Shed decisions
+are counted but tag no trace span: the port has no tracing yet (ROADMAP
+Queue 1, observability).
 """
 
 from __future__ import annotations
@@ -336,6 +342,10 @@ class IngressHTTPServer(HTTPServer):
         super().__init__(server_address, HandlerClass)
         self.config = config or _DEFAULT
         self.component = component
+        #: Optional QosEngine: when set (S3 gateway), pressure shedding
+        #: is class-aware and happens after auth in the handler, not in
+        #: the generic admission gate.
+        self.qos: Optional[QosEngine] = None
         self.admission = AdmissionController(self)
         self._handler_cls = _one_shot(HandlerClass)
         self._dispatch: "queue.Queue[Optional[_Conn]]" = queue.Queue()
@@ -542,7 +552,8 @@ class AdmissionController:
             if remaining is not None \
                     and remaining <= cfg.min_deadline_seconds:
                 return (504, "deadline", None)
-        if not handler.path.startswith(_EXEMPT_PREFIXES):
+        if getattr(self.server, "qos", None) is None \
+                and not handler.path.startswith(_EXEMPT_PREFIXES):
             if self.server.pressure() >= cfg.shed_watermark:
                 return (429, "pressure", cfg.retry_after_seconds)
         return None
@@ -607,3 +618,218 @@ def _gated(fn):
     gated.__name__ = fn.__name__
     gated.__qualname__ = getattr(fn, "__qualname__", fn.__name__)
     return gated
+
+
+# --------------------------------------------------------------------------
+# per-tenant QoS (S3 gateway)
+# --------------------------------------------------------------------------
+
+class QosShed(Exception):
+    """A QoS rejection — mapped to 429 + Retry-After at the gateway."""
+
+    def __init__(self, tenant: str, cls_name: str, reason: str,
+                 retry_after: float = 1.0):
+        super().__init__(
+            f"tenant {tenant!r} (class {cls_name}) shed: {reason}")
+        self.tenant = tenant
+        self.class_name = cls_name
+        self.reason = reason
+        self.retry_after = retry_after
+
+
+class TokenBucket:
+    """Classic token bucket: ``rate`` tokens/second up to ``burst``."""
+
+    __slots__ = ("rate", "burst", "tokens", "stamp", "clock", "_lock")
+
+    def __init__(self, rate: float, burst: float,
+                 clock=time.monotonic):
+        self.rate = float(rate)
+        self.burst = max(1.0, float(burst))
+        self.tokens = self.burst
+        self.clock = clock
+        self.stamp = clock()
+        self._lock = threading.Lock()
+
+    def take(self) -> float:
+        """0.0 when a token was granted, else seconds until one is."""
+        with self._lock:
+            now = self.clock()
+            self.tokens = min(
+                self.burst,
+                self.tokens + (now - self.stamp) * self.rate)
+            self.stamp = now
+            if self.tokens >= 1.0:
+                self.tokens -= 1.0
+                return 0.0
+            if self.rate <= 0:
+                return 1.0
+            return (1.0 - self.tokens) / self.rate
+
+
+class QosClass:
+    __slots__ = ("name", "priority", "rate", "burst", "concurrency")
+
+    def __init__(self, name: str, priority: int = 1, rate: float = 0.0,
+                 burst: float = 0.0, concurrency: int = 0):
+        self.name = name
+        self.priority = max(0, int(priority))
+        self.rate = float(rate)        # req/s; 0 = unlimited
+        self.burst = float(burst) or max(1.0, self.rate)
+        self.concurrency = int(concurrency)  # in-flight; 0 = unlimited
+
+    def to_dict(self) -> dict:
+        return {"priority": self.priority, "rate_per_second": self.rate,
+                "burst": self.burst, "concurrency": self.concurrency}
+
+
+class QosLease:
+    """Releases the tenant's in-flight slot exactly once."""
+
+    __slots__ = ("_engine", "_tenant", "_done")
+
+    def __init__(self, engine: "QosEngine", tenant: str):
+        self._engine = engine
+        self._tenant = tenant
+        self._done = False
+
+    def release(self) -> None:
+        if not self._done:
+            self._done = True
+            self._engine._release(self._tenant)
+
+    def __enter__(self) -> "QosLease":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.release()
+        return False
+
+
+class QosEngine:
+    """Priority classes + per-tenant token buckets/concurrency caps.
+
+    Pressure shedding is priority-laddered: class priority ``p`` sheds
+    when ingress pressure reaches ``watermark ** p`` — the lowest
+    priority gives way earliest, priority 0 ("guaranteed") is never
+    pressure-shed and only its own explicit rate/concurrency limits
+    (if any) can reject it.
+    """
+
+    def __init__(self, classes: Optional[dict] = None,
+                 tenants: Optional[dict] = None,
+                 default_class: str = "standard",
+                 watermark: float = 0.75, clock=time.monotonic):
+        self.classes: dict[str, QosClass] = dict(classes or {})
+        if default_class not in self.classes:
+            self.classes[default_class] = QosClass(default_class)
+        self.tenants = {str(k): str(v)
+                        for k, v in (tenants or {}).items()}
+        self.default_class = default_class
+        self.watermark = float(watermark)
+        self.clock = clock
+        self._buckets: dict[str, TokenBucket] = {}
+        self._inflight: dict[str, int] = {}
+        self._admitted = 0
+        self._shed = 0
+        self._lock = threading.Lock()
+
+    def class_of(self, tenant: str) -> QosClass:
+        name = self.tenants.get(tenant, self.default_class)
+        return self.classes.get(name) or self.classes[self.default_class]
+
+    def shed_threshold(self, qc: QosClass) -> float:
+        if qc.priority <= 0:
+            return float("inf")
+        return self.watermark ** qc.priority
+
+    def admit(self, tenant: str, pressure: float = 0.0) -> QosLease:
+        qc = self.class_of(tenant)
+        if pressure >= self.shed_threshold(qc):
+            self._reject(tenant, qc, "pressure", 1.0)
+        if qc.rate > 0:
+            with self._lock:
+                bucket = self._buckets.get(tenant)
+                if bucket is None or bucket.rate != qc.rate:
+                    bucket = self._buckets[tenant] = TokenBucket(
+                        qc.rate, qc.burst, self.clock)
+            wait = bucket.take()
+            if wait > 0:
+                self._reject(tenant, qc, "rate", wait)
+        with self._lock:
+            inflight = self._inflight.get(tenant, 0)
+            over = 0 < qc.concurrency <= inflight
+            if not over:
+                self._inflight[tenant] = inflight + 1
+                self._admitted += 1
+        if over:
+            self._reject(tenant, qc, "concurrency", 1.0)
+        METRICS.counter("ingress_qos_admitted_total",
+                        **{"class": qc.name}).inc()
+        return QosLease(self, tenant)
+
+    def _reject(self, tenant: str, qc: QosClass, reason: str,
+                retry_after: float):
+        with self._lock:
+            self._shed += 1
+        _count_shed(reason, qc.name)
+        raise QosShed(tenant, qc.name, reason,
+                      max(1.0, math.ceil(retry_after)))
+
+    def _release(self, tenant: str) -> None:
+        with self._lock:
+            n = self._inflight.get(tenant, 0) - 1
+            if n <= 0:
+                self._inflight.pop(tenant, None)
+            else:
+                self._inflight[tenant] = n
+
+    def payload(self) -> dict:
+        with self._lock:
+            return {"default_class": self.default_class,
+                    "watermark": self.watermark,
+                    "classes": {n: c.to_dict()
+                                for n, c in self.classes.items()},
+                    "tenants": dict(self.tenants),
+                    "inflight": dict(self._inflight),
+                    "admitted_total": self._admitted,
+                    "shed_total": self._shed}
+
+
+def qos_from_conf(conf: Optional[dict]) -> Optional[QosEngine]:
+    """Build a :class:`QosEngine` from a ``[qos]`` TOML block, or None
+    when absent/disabled. Schema (subset-parser-safe — scalar values,
+    dotted tables only)::
+
+        [qos]
+        enabled = true
+        default_class = "standard"
+        watermark = 0.75
+
+        [qos.class.gold]
+        priority = 0          # 0 = guaranteed, never pressure-shed
+        rate_per_second = 0.0 # 0 = unlimited
+        burst = 0.0
+        concurrency = 0       # 0 = unlimited
+
+        [qos.tenant]
+        alice = "gold"
+    """
+    sec = (conf or {}).get("qos")
+    if not isinstance(sec, dict) or not sec.get("enabled", False):
+        return None
+    classes = {}
+    for name, c in (sec.get("class") or {}).items():
+        if not isinstance(c, dict):
+            continue
+        classes[name] = QosClass(
+            name, priority=int(c.get("priority", 1)),
+            rate=float(c.get("rate_per_second", 0.0)),
+            burst=float(c.get("burst", 0.0)),
+            concurrency=int(c.get("concurrency", 0)))
+    tenants = {k: v for k, v in (sec.get("tenant") or {}).items()
+               if isinstance(v, str)}
+    return QosEngine(
+        classes, tenants,
+        default_class=str(sec.get("default_class", "standard")),
+        watermark=float(sec.get("watermark", _DEFAULT.shed_watermark)))

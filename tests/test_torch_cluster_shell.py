@@ -10,7 +10,8 @@ of the cluster commands (``volume.move``, ``collection.delete``,
 ``volume.balance``, ``volume.fix.replication``, ``volume.mark``,
 ``volume.deleteEmpty``, ``volumeServer.evacuate``,
 ``volume.check.disk``, ``volume.unmount``/``mount``,
-``volume.configure.replication``, ``cluster.check``) run the JAX
+``volume.configure.replication``, ``cluster.check``,
+``volume.tier.upload``/``download``) run the JAX
 ``tests/test_cluster_shell.py`` cases through each shell on twin port
 clusters: the printed lines (addresses masked) and the resulting
 holdings are equal. Port servers run ``device="cpu"``."""
@@ -239,13 +240,15 @@ def test_shell_ec_lifecycle(tmp_path, shell_pkg, cluster_pkg):
         _stop(ms, servers)
 
 
-_URL = re.compile(r"127\.0\.0\.1:\d+")
+#: an address, or the dashed form a tiered object's key carries
+_URL = re.compile(r"127\.0\.0\.1[:-]\d+")
 
 
 def _masked(text: str, ms, servers) -> list[str]:
     names = {ms.url: "M", **{vs.url: f"S{i}" for i, vs in
                              enumerate(servers)}}
-    return [_URL.sub(lambda m: names.get(m.group(0), "?"), line)
+    return [_URL.sub(lambda m: names.get(m.group(0).replace("-", ":"),
+                                         "?"), line)
             for line in text.splitlines()]
 
 
@@ -787,3 +790,55 @@ def test_fix_replication_prefers_rack_diversity_and_check_flags(tmp_path):
     outs, res = _twin(tmp_path, scenario)
     assert res == (2, 2, ["r0", "r1"])
     assert "placement violation" not in outs[1] and "0 problems" in outs[1]
+
+
+def test_volume_tier_upload_and_download(tmp_path):
+    """``volume.tier.upload`` to the twin cluster's own S3 gateway and
+    ``volume.tier.download`` back (JAX ``cluster_commands.py``): both
+    shells print the same lines, the holder serves every needle through
+    the tier while the volume is read-only, and the .dat comes back
+    sha256-equal."""
+    from seaweedfs_tpu_torch.ckpt import GatewayClient
+    from seaweedfs_tpu_torch.cluster.filer_server import FilerServer
+    from seaweedfs_tpu_torch.filer import Filer
+    from seaweedfs_tpu_torch.gateway.s3 import S3Gateway
+
+    blobs = _blobs(21, n=12)
+
+    def scenario(ms, servers, mc, run):
+        fids = operation.submit(mc, blobs, collection="cold")
+        vid = int(fids[0].split(",")[0])
+        _settle(servers)
+        holder = next(vs for vs in servers if vs.store.has_volume(vid,
+                                                                  "cold"))
+        base = holder.store.get_volume(vid, "cold").base
+        dat = _sha(str(base) + ".dat")
+        filer = FilerServer(Filer(), port=_free_port_pair(),
+                            master_url=ms.url).start()
+        gw = S3Gateway(filer.url, port=_free_port_pair()).start()
+        try:
+            GatewayClient(gw.url).ensure_bucket("coldstore")
+            run("volume.tier.upload -volumeId 99 -dest x/y")
+            run(f"volume.tier.upload -volumeId {vid} -collection cold "
+                f"-dest {gw.url}/coldstore")
+            tiered = (not Path(str(base) + ".dat").exists(),
+                      holder.store.get_volume(vid, "cold").backend_kind,
+                      holder.store.is_readonly(vid, "cold"))
+            reads = all(operation.download(mc, f, collection="cold") == b
+                        for f, b in zip(fids, blobs))
+            run(f"volume.tier.download -volumeId {vid} -collection cold")
+            back = (_sha(str(base) + ".dat") == dat,
+                    holder.store.get_volume(vid, "cold").backend_kind,
+                    holder.store.is_readonly(vid, "cold"))
+        finally:
+            gw.stop()
+            filer.stop()
+        return tiered, reads, back
+
+    outs, (tiered, reads, back) = _twin(tmp_path, scenario)
+    assert outs[0] == "error: volume 99 not found"
+    assert re.fullmatch(r"volume\.tier\.upload \d+ on S\d: \d+ bytes -> "
+                        r"\?/coldstore/cold_\d+\.S\d\.dat", outs[1]), outs[1]
+    assert tiered == (True, "s3", True) and reads
+    assert "bytes local again" in outs[2]
+    assert back == (True, "disk", False)

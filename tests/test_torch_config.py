@@ -1,7 +1,7 @@
 """The port's config loader (seaweedfs_tpu_torch/util/config.py) against
 the JAX package's (seaweedfs_tpu/util/config.py), on the same TOML text:
 equal dicts from tomllib and from the subset parser, equal lookups,
-byte-equal scaffolds of the three sections the port reads, and the same
+byte-equal scaffolds of the sections the port reads, and the same
 errors. Tolerance 0: dicts and texts compare equal."""
 
 import pytest
@@ -10,7 +10,7 @@ from seaweedfs_tpu.util import config as jax_config
 from seaweedfs_tpu_torch.util import config
 from torch_teardown import collect_jax_garbage  # noqa: F401
 
-SECTIONS = ("pipeline", "mesh", "flight", "cache")
+SECTIONS = ("pipeline", "mesh", "flight", "cache", "qos")
 
 #: every scalar type the subset parser reads, nested tables, comments
 SCALARS = """\

@@ -807,3 +807,57 @@ def test_job_worker_ec_encode_launches_the_transpose_kernel(tmp_path):
         env.close()
         vs.stop()
         ms.stop()
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_cuda_tensors_round_trips_bit_equal(tmp_path):
+    """A tree of float16 and bfloat16 tensors on the card, sharded over
+    a 2 x 2 grid of four ``cuda:0`` cells and replicated, saved through
+    a port S3 gateway (master, volume server on the card, filer) and
+    restored onto the same grid: every block ``torch.equal`` on the card
+    to what was saved, staged through pinned slabs, with no launch."""
+    _need_card()
+    from seaweedfs_tpu_torch.ckpt import (CheckpointStore, NamedSharding,
+                                          PartitionSpec, device_put)
+    from seaweedfs_tpu_torch.cluster.filer_server import FilerServer
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
+                                                           free_port_pair)
+    from seaweedfs_tpu_torch.filer import Filer
+    from seaweedfs_tpu_torch.gateway.s3 import S3Gateway
+    from seaweedfs_tpu_torch.parallel.mesh import Mesh
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    ms = MasterServer(port=free_port_pair(), pulse_seconds=0.5).start()
+    vs = VolumeServer(Store([tmp_path]), port=free_port_pair(),
+                      master_url=ms.url, pulse_seconds=0.5).start()
+    vs.heartbeat_now()
+    filer = FilerServer(Filer(), port=free_port_pair(),
+                        master_url=ms.url).start()
+    gw = S3Gateway(filer.url, port=free_port_pair()).start()
+    try:
+        mesh = Mesh([torch.device("cuda", 0)] * 4, 2, 2)
+        g = torch.Generator("cuda").manual_seed(3)
+        w = torch.randn((512, 256), generator=g, device="cuda").half()
+        tree = {"w": device_put(w, NamedSharding(
+                    mesh, PartitionSpec("dp", "sp"))),
+                "n": device_put(torch.randn(256, generator=g,
+                                            device="cuda").bfloat16(),
+                                NamedSharding(mesh, PartitionSpec()))}
+        st = CheckpointStore(gw.url)
+        man = st.save("card", tree)
+        assert {p.name: p.dtype for p in man.params} == {
+            "n": "bfloat16", "w": "float16"}
+        n = rs_cuda.apply_gf_matrix_transpose.launches
+        out = st.restore("card", mesh=mesh, template=tree)
+        assert rs_cuda.apply_gf_matrix_transpose.launches == n
+        for k in tree:
+            assert len(out[k].blocks) == 4
+            for a, b in zip(tree[k].blocks, out[k].blocks):
+                assert b.data.device == torch.device("cuda", 0)
+                assert (a.start, a.stop) == (b.start, b.stop)
+                assert torch.equal(a.data, b.data)
+        assert torch.equal(out["w"].to_tensor(), w)
+    finally:
+        for obj in (gw, filer, vs, ms):
+            obj.stop()

@@ -1,7 +1,8 @@
 """The port's ``fs.*`` commands, ``volume.fsck`` and ``fs.configure``
 (``shell/fs_commands.py``, ``shell -filer``) against the JAX shell's, on
 the CPU, and gRPC auth on the port volume server's admin plane. Mirrors
-``tests/test_fs_shell_auth.py`` without its ``s3.*`` parts.
+``tests/test_fs_shell_auth.py``, its ``s3.bucket.*`` parts included, and
+runs ``s3.configure`` and ``s3.clean.uploads`` through both shells.
 
 Each scenario runs once per shell on twin port stacks (a master with the
 same seed and signing key, one volume server, one filer, the same
@@ -372,3 +373,87 @@ def test_shell_cli_takes_filer(stacks, capsys):
     assert "via the cli" in outs["port"] and "total 1" in outs["port"]
     assert cli.main(["-master", master.url, "-c", "fs.ls /"]) == 1
     assert "no filer configured" in capsys.readouterr().err
+
+
+def test_fs_tree_and_bucket_commands(stacks, tmp_path):
+    """``s3.bucket.create|list|delete`` beside ``fs.tree``: the JAX
+    test's bucket steps through both shells, lines equal."""
+    def scenario(pkg, stack, run, tmp):
+        run("s3.bucket.create -name shellbkt")
+        fc = FilerClient(stack[2].url)
+        try:
+            fc.put_data("/buckets/shellbkt/obj1.txt", b"one")
+            fc.put_data("/buckets/shellbkt/sub/obj2.txt", b"twotwo")
+            run("s3.bucket.list")
+            run("fs.tree /buckets/shellbkt")
+            run("s3.bucket.create -name shellbkt")
+            run("s3.bucket.delete -name shellbkt")
+            run("s3.bucket.delete -name shellbkt -force")
+            run("s3.bucket.delete -name shellbkt")
+            assert fc.lookup("/buckets", "shellbkt") is None
+        finally:
+            fc.close()
+
+    outs = _both(stacks, tmp_path, scenario)
+    assert outs[0] == "created bucket shellbkt\n"
+    assert "shellbkt  9 bytes, 2 objects" in outs[1]
+    assert outs[1].endswith("1 buckets\n")
+    assert "1 directories, 2 files" in outs[2]
+    assert "exists" in outs[3] and outs[3].startswith("error:")
+    assert "not empty" in outs[4]
+    assert outs[5] == "deleted bucket shellbkt\n"
+    assert "not found" in outs[6]
+
+
+def test_s3_configure_and_clean_uploads(stacks, tmp_path):
+    """``s3.configure`` (dry run, -apply, -delete, -reset, refusals) and
+    ``s3.clean.uploads`` over aged scaffolding, through both shells."""
+    def scenario(pkg, stack, run, tmp):
+        run("s3.configure -user ann -access_key AK1 -secret_key SK1 "
+            "-actions Read,Write:b1")
+        run("s3.configure -user ann -access_key AK1 -secret_key SK1 "
+            "-actions Read,Write:b1 -apply")
+        run("s3.configure -user bob -access_key AK2 -secret_key SK2 "
+            "-apply")
+        run("s3.configure -user ann -delete -apply")
+        run("s3.configure -user cat")
+        run("s3.configure -delete")
+        fc = FilerClient(stack[2].url)
+        try:
+            fc.put_data("/etc/s3/identities.json", b"{broken")
+            run("s3.configure -user dan -access_key A -secret_key S")
+            run("s3.configure -reset -apply")
+            # two uploads' scaffolding as the gateway lays it out: one
+            # idle for two days, one fresh
+            now = int(time.time())
+            for upload, age in (("stale01", 48 * 3600), ("fresh01", 0)):
+                fc.mkdir("/buckets/.uploads", upload)
+                fc.put_data(f"/buckets/.uploads/{upload}/00001.part",
+                            b"p" * 10)
+                marker = fc.lookup(f"/buckets/.uploads/{upload}",
+                                   "00001.part")
+                marker.extended["key"] = b"k.bin"
+                marker.extended["bucket"] = b"b1"
+                for e in (marker, fc.lookup("/buckets/.uploads", upload)):
+                    e.attributes.mtime = now - age
+                    fc.create(f"/buckets/.uploads/{upload}"
+                              if e.name != upload else "/buckets/.uploads",
+                              e)
+            run("s3.clean.uploads -timeAgo 24h")
+            run("s3.clean.uploads -timeAgo 24h -force")
+            run("s3.clean.uploads -timeAgo 1x")
+            assert fc.lookup("/buckets/.uploads", "stale01") is None
+            assert fc.lookup("/buckets/.uploads", "fresh01") is not None
+        finally:
+            fc.close()
+
+    outs = _both(stacks, tmp_path, scenario)
+    assert outs[0].endswith("dry run (use -apply to persist)\n")
+    assert '"name": "ann"' in outs[1] and "applied to" in outs[1]
+    assert '"name": "ann"' not in outs[3] and '"name": "bob"' in outs[3]
+    assert "required" in outs[4] and "needs -user" in outs[5]
+    assert "invalid JSON" in outs[6] and "-reset" in outs[6]
+    assert '"identities": []' in outs[7]
+    assert "upload stale01" in outs[8] and "(dry run; use -force)" in outs[8]
+    assert "1 stale uploads aborted, 1 active kept" in outs[9]
+    assert "bad -timeAgo" in outs[10]

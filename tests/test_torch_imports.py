@@ -75,7 +75,15 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.images", "seaweedfs_tpu_torch.images.resize",
        "seaweedfs_tpu_torch.cluster.filer_client",
        "seaweedfs_tpu_torch.cluster.filer_server",
-       "seaweedfs_tpu_torch.shell.fs_commands"}
+       "seaweedfs_tpu_torch.shell.fs_commands",
+       "seaweedfs_tpu_torch.gateway", "seaweedfs_tpu_torch.gateway.s3",
+       "seaweedfs_tpu_torch.gateway.s3_auth",
+       "seaweedfs_tpu_torch.ckpt", "seaweedfs_tpu_torch.ckpt.manifest",
+       "seaweedfs_tpu_torch.ckpt.s3client",
+       "seaweedfs_tpu_torch.ckpt.loader",
+       "seaweedfs_tpu_torch.ckpt.sharding",
+       "seaweedfs_tpu_torch.ckpt.store",
+       "seaweedfs_tpu_torch.storage.tier"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -91,9 +99,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # Volume engine, the multi-device split, the config loader, the
     # flight recorder, the needle maps, vacuum, the scrubber, the crash
     # harness, the pb copies, the volume server and its wire utilities,
-    # the master, its clients, the cluster shell and the jobs plane
+    # the master, its clients, the cluster shell, the jobs plane, the
+    # filer stack, the S3 gateway, the checkpoint plane and the S3 tier
     # among them
-    assert int(out.stdout.split()[0]) >= 70
+    assert int(out.stdout.split()[0]) >= 80
     assert "missing: []" in out.stdout
 
 
@@ -156,6 +165,7 @@ def test_shell_master_runs_cluster_commands(capsys):
             "volume.configure.replication", "cluster.check",
             "volume.fsck", "fs.ls", "fs.du", "fs.cat", "fs.mkdir",
             "fs.rm", "fs.mv", "fs.tree", "fs.configure", "fs.meta.cat",
-            "fs.meta.save", "fs.meta.load"} == set(listed)
-    # the s3.* commands come with the port's S3 gateway
-    assert not any(c.startswith("s3.") for c in listed)
+            "fs.meta.save", "fs.meta.load", "s3.bucket.list",
+            "s3.bucket.create", "s3.bucket.delete", "s3.clean.uploads",
+            "s3.configure", "volume.tier.upload",
+            "volume.tier.download"} == set(listed)

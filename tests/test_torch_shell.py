@@ -5,7 +5,10 @@ Ports the ten cases of tests/test_shell.py. Each case makes one volume
 directory from a seed, copies it for each package, runs the same command
 lines in both (the port with ``CommandEnv(device="cpu")``), and then
 compares every file byte for byte (a symlink by its target) and every
-printed line. GF(2^8) coding is exact: tolerance 0."""
+printed line. GF(2^8) coding is exact: tolerance 0. The ``volume.tier.*``
+and ``ckpt.*`` cases run against a port S3 gateway on a port cluster
+(the ``ckpt.save`` values differ between the packages, so those cases
+hold the printed geometry equal)."""
 
 import io
 import os
@@ -259,10 +262,12 @@ def test_volume_list_and_errors(tmp_path):
         listed = env.out.getvalue().splitlines()
         assert listed == sorted(commands.COMMANDS) == [
             "cache.clear", "cache.status",
+            "ckpt.list", "ckpt.restore", "ckpt.save",
             "ec.balance", "ec.decode", "ec.encode", "ec.rebuild",
             "fault.clear", "fault.inject", "fault.list",
             "pipeline.analyze", "pipeline.dump", "pipeline.status",
-            "volume.delete", "volume.list", "volume.vacuum"]
+            "volume.delete", "volume.list", "volume.tier.download",
+            "volume.tier.upload", "volume.vacuum"]
         assert set(listed) <= set(jax_commands.COMMANDS)
         # -mesh is known; a spec that cannot tile the one CPU device is
         # a ShellError that names the dp,sp it wants
@@ -824,3 +829,111 @@ def test_fault_clear_breakers_resets_breakers_equal_jax(tmp_path,
     assert rc == 0 and err == []
     assert lines[-1] == "fault.clear: all points disarmed + breakers reset"
     assert port_faults.specs() == []
+
+
+@pytest.fixture(scope="module")
+def gateway(tmp_path_factory):
+    """A port master, volume server, filer and S3 gateway (device cpu),
+    with the buckets ``coldstore`` and ``ckpt``."""
+    import time as time_mod
+
+    from seaweedfs_tpu_torch.ckpt import GatewayClient
+    from seaweedfs_tpu_torch.cluster.filer_server import FilerServer
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.filer import Filer
+    from seaweedfs_tpu_torch.gateway.s3 import S3Gateway
+
+    from test_cluster_integration import _free_port_pair
+    ms = MasterServer(port=_free_port_pair(), volume_size_limit_mb=64,
+                      pulse_seconds=0.2, seed=3).start()
+    vs = VolumeServer(port_store.Store([tmp_path_factory.mktemp("gwv")],
+                                       max_volumes=8),
+                      port=_free_port_pair(), master_url=ms.url,
+                      pulse_seconds=0.2, device="cpu").start()
+    deadline = time_mod.time() + 10
+    while time_mod.time() < deadline and not ms.topology.nodes:
+        time_mod.sleep(0.05)
+    filer = FilerServer(Filer(), port=_free_port_pair(),
+                        master_url=ms.url).start()
+    gw = S3Gateway(filer.url, port=_free_port_pair()).start()
+    for b in ("coldstore", "ckpt"):
+        GatewayClient(gw.url).ensure_bucket(b)
+    yield gw
+    for obj in (gw, filer, vs, ms):
+        obj.stop()
+
+
+def test_volume_tier_commands_equal_jax(tmp_path, gateway):
+    """``volume.tier.upload`` (with and without -keepLocal) and
+    ``volume.tier.download`` through both shells: equal lines and, after
+    each step, equal files (the .tier sidecar included); ec.encode is
+    refused while tiered and seals alike after the download."""
+    dest = f"{gateway.url}/coldstore"
+
+    def make(root):
+        _volume(3, 30, 2000, seed=4)(root)
+        _volume(5, 10, 1000, seed=6)(root)
+
+    def tiered(root, env):
+        return sorted(p.name for p in (root / "a").iterdir())
+
+    log, files = drive(tmp_path, make, [
+        f"volume.tier.upload -volumeId 3 -dest {dest}",
+        f"volume.tier.upload -volumeId 5 -dest {dest} -keepLocal",
+        "volume.tier.upload -volumeId 42 -dest x/y",
+        "volume.tier.upload -volumeId 3 -dest nobucket", tiered,
+        "ec.encode -volumeId 3",
+        "volume.tier.download -volumeId 3",
+        "volume.tier.download -volumeId 5",
+        "volume.tier.download -volumeId 5",
+        "ec.encode -volumeId 3", "volume.list"], relative=True)
+    assert log[0][0].startswith("volume.tier.upload 3: ")
+    assert log[0][0].endswith(f"-> {dest}/3.dat")
+    assert log[1][0].endswith("(local copy kept)")
+    assert log[2] == ("error", "volume 42 not found")
+    assert "bad -dest" in log[3][1]
+    assert "3.tier" in log[4] and "3.dat" not in log[4]
+    assert "5.tier" in log[4] and "5.dat" in log[4]
+    assert log[5][0] == "error" and "tier.download" in log[5][1]
+    assert log[6] == ["volume.tier.download 3: local again"]
+    assert log[8][0] == "error" and "not tiered" in log[8][1]
+    assert log[9] == ["ec.encode volume 3: 14 shards, version 3"]
+    assert "a/3.ecx" in files and "a/3.tier" not in files
+
+
+def test_ckpt_commands_print_jax_geometry(tmp_path, gateway,
+                                          eight_cpu_devices):
+    """``ckpt.save``, ``ckpt.list`` and ``ckpt.restore`` through both
+    shells on 8 CPU devices (the JAX package's 8 virtual ones, the
+    port's 8 CPU entries): equal printed lines — the geometry, the
+    ranged-read profile, the refusals — though the saved values differ
+    (``jax.random`` against a seeded ``torch.Generator``)."""
+    g = f"-gateway {gateway.url}"
+    log, _ = drive(tmp_path, lambda root: None, [
+        f"ckpt.save {g} -name shellck",
+        f"ckpt.save {g} -name wide -mesh 1,8 -params 1 -rows 64 "
+        f"-cols 32",
+        f"ckpt.list {g}",
+        f"ckpt.restore {g} -name shellck",
+        f"ckpt.restore {g} -name shellck -mesh 4,2",
+        f"ckpt.restore {g} -name wide",
+        f"ckpt.restore {g} -name nothere",
+        f"ckpt.save -name x",
+        f"ckpt.save {g} -name y -mesh 3,3"])
+    assert log[0] == ["ckpt.save shellck: 2 params 16 shards 131072 "
+                      "bytes -> s3://ckpt"]
+    assert log[1] == ["ckpt.save wide: 1 params 8 shards 8192 bytes "
+                      "-> s3://ckpt"]
+    assert log[2] == ["  shellck: params=2 shards=16 bytes=131072",
+                      "  wide: params=1 shards=8 bytes=8192",
+                      "ckpt.list: 2 checkpoint(s) in s3://ckpt"]
+    assert log[3][:2] == [
+        "  param0: float32[256, 64] spec=PartitionSpec('dp', 'sp')",
+        "  param1: float32[256, 64] spec=PartitionSpec('dp', 'sp')"]
+    assert log[3][2].startswith("ckpt.restore shellck: 2 params, "
+                                "16 ranged reads ")
+    assert log[5][0] == "error" and "axis-0" in log[5][1]
+    assert log[6][0] == "error" and "no manifest.json" in log[6][1]
+    assert "-gateway" in log[7][1]
+    assert log[8][0] == "error" and "dp,sp" in log[8][1]

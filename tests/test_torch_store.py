@@ -290,51 +290,72 @@ def test_mmap_file_remaps_and_truncates(tmp_path):
 
 
 def test_backend_registry_refuses_s3_and_unknown_kinds(tmp_path):
-    """``disk`` and ``mmap`` open; the JAX package's ``s3`` cold tier is
-    refused with a "not ported yet" error, an unknown kind as in the JAX
-    package, and a Volume or Store asked for either writes nothing."""
+    """``disk`` and ``mmap`` open. The ``s3`` cold tier opens only from
+    a volume's ``.tier`` sidecar and refuses to create a volume, with
+    the JAX package's errors (it refused every use before the port had
+    its S3 tier); an unknown kind is refused as in the JAX package, and
+    a Volume or Store asked for either writes nothing."""
+    from seaweedfs_tpu.storage import backend as jax_backend
+    from seaweedfs_tpu.storage import tier as jax_tier
     from seaweedfs_tpu_torch.storage import backend as port_backend
+    from seaweedfs_tpu_torch.storage import tier as port_tier
     for kind, cls in (("disk", port_backend.DiskFile),
                       ("mmap", port_backend.MmapFile)):
         b = port_backend.open_backend(kind, tmp_path / f"{kind}.dat",
                                       create=True)
         assert type(b) is cls
         b.close()
-    with pytest.raises(port_backend.BackendNotPorted, match="not ported"):
-        port_backend.open_backend("s3", tmp_path / "s3.dat")
-    with pytest.raises(ValueError, match="unknown backend"):
-        port_backend.open_backend("s4", tmp_path / "s4.dat")
+    for mod, tier_mod in ((port_backend, port_tier),
+                          (jax_backend, jax_tier)):
+        with pytest.raises(tier_mod.TierError, match="no .tier sidecar"):
+            mod.open_backend("s3", tmp_path / "s3.dat")
+        with pytest.raises(tier_mod.TierError, match="cannot create"):
+            mod.open_backend("s3", tmp_path / "s3.dat", create=True)
+        with pytest.raises(ValueError, match="unknown backend"):
+            mod.open_backend("s4", tmp_path / "s4.dat")
     d = tmp_path / "store"
     d.mkdir()
-    for kind in ("s3", "s4"):
-        with pytest.raises(port_volume.VolumeError, match="backend"):
-            port_volume.Volume(d / "1", 1, backend=kind).create()
-        st = port_store.Store([d], backend=kind)
-        with pytest.raises(port_volume.VolumeError, match="backend"):
-            st.create_volume(1)
+    with pytest.raises(port_tier.TierError, match="cannot create"):
+        port_volume.Volume(d / "1", 1, backend="s3").create()
+    with pytest.raises(port_tier.TierError, match="cannot create"):
+        port_store.Store([d], backend="s3").create_volume(1)
+    with pytest.raises(port_volume.VolumeError, match="backend"):
+        port_volume.Volume(d / "1", 1, backend="s4").create()
+    with pytest.raises(port_volume.VolumeError, match="backend"):
+        port_store.Store([d], backend="s4").create_volume(1)
     assert list(d.iterdir()) == []
 
 
 def test_tier_sidecar_and_s3_backend_raise(tmp_path):
+    """A sidecar that does not parse (here one without its key and
+    size) fails the load, the store scan and the mount with the JAX
+    package's "corrupt tier sidecar" error, whether or not a local .dat
+    is left (before the port had its S3 tier, any sidecar did)."""
+    from seaweedfs_tpu.storage import tier as jax_tier
+    from seaweedfs_tpu_torch.storage import tier as port_tier
     with port_volume.Volume(tmp_path / "6", 6).create() as v:
         v.write_needle(needle.Needle(cookie=1, id=1, data=b"x",
                                      append_at_ns=1))
     (tmp_path / "6.tier").write_text('{"endpoint": "e", "bucket": "b"}')
-    with pytest.raises(port_volume.VolumeError, match="tier"):
+    with pytest.raises(port_tier.TierError, match="corrupt tier sidecar"):
         port_volume.Volume(tmp_path / "6").load()
+    with pytest.raises(jax_tier.TierError, match="corrupt tier sidecar"):
+        jax_volume.Volume(tmp_path / "6").load()
     st = port_store.Store([tmp_path])
-    with pytest.raises(port_volume.VolumeError, match="tier"):
+    with pytest.raises(port_tier.TierError, match="corrupt tier sidecar"):
         st.load_existing()
     (tmp_path / "6.dat").unlink()       # tiered with no local .dat
-    with pytest.raises(port_volume.VolumeError, match="tier"):
+    with pytest.raises(port_tier.TierError, match="corrupt tier sidecar"):
         st.mount_volume(6)
+    assert st.volumes == {}
 
 
 def test_shell_refuses_a_tiered_store_and_closes_what_it_loaded(
         tmp_path, monkeypatch, capsys):
-    """A .tier sidecar (the S3 tier is not ported) makes the shell print
-    one ``error:`` line naming the volume and exit non-zero, with every
-    volume loaded before it closed."""
+    """A .tier sidecar the store cannot read makes the shell print one
+    ``error:`` line naming the volume and exit non-zero, with every
+    volume loaded before it closed. (Before the port had its S3 tier,
+    any sidecar did; a readable one now loads, tests/test_torch_tier.py.)"""
     from seaweedfs_tpu_torch.shell import cli
     a, b = tmp_path / "a", tmp_path / "b"
     a.mkdir()

@@ -287,17 +287,38 @@ def test_http_ranges_head_404_and_metrics(cluster):
 
 
 def test_tier_rpcs_are_unimplemented(cluster):
+    """The tier RPCs answered UNIMPLEMENTED before the port had its S3
+    tier; now they run ``Store.tier_move`` / ``tier_restore``
+    (``tests/test_torch_tier.py`` and ``test_torch_cluster_shell.py``
+    move volumes through them). Here: what they refuse, with the JAX
+    server's reasons, and no file touched."""
     _, servers = cluster
-    stub, ch = _stub(servers[0])
-    for name, req in (("VolumeTierMoveDatToRemote",
-                       vpb.VolumeTierMoveDatToRemoteRequest(
-                           volume_id=1, destination_backend_name="e/b")),
-                      ("VolumeTierMoveDatFromRemote",
-                       vpb.VolumeTierMoveDatFromRemoteRequest(volume_id=1))):
+    vs = servers[0]
+    stub, ch = _stub(vs)
+    if not vs.store.volumes:
+        vs.store.create_volume(91)
+    col, vid = next(iter(vs.store.volumes))
+    files = sorted(p.name for p in vs.store.locations[0].directory.iterdir())
+    for name, req, why in (
+            ("VolumeTierMoveDatToRemote",
+             vpb.VolumeTierMoveDatToRemoteRequest(
+                 volume_id=vid, collection=col,
+                 destination_backend_name="nobucket"),
+             "bad destination 'nobucket'; want endpoint/bucket"),
+            ("VolumeTierMoveDatFromRemote",
+             vpb.VolumeTierMoveDatFromRemoteRequest(volume_id=vid,
+                                                    collection=col),
+             f"volume {vid} is not tiered"),
+            ("VolumeTierMoveDatFromRemote",
+             vpb.VolumeTierMoveDatFromRemoteRequest(volume_id=4242),
+             "4242")):
         with pytest.raises(grpc.RpcError) as e:
             getattr(stub, name)(req)
-        assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-        assert "S3 tier" in e.value.details()
+        assert e.value.code() != grpc.StatusCode.UNIMPLEMENTED
+        assert why in e.value.details(), e.value.details()
+    assert sorted(p.name for p in
+                  vs.store.locations[0].directory.iterdir()) == files
+    assert not vs.store.is_readonly(vid, col)
     ch.close()
 
 
