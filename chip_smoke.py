@@ -108,7 +108,21 @@ of which fails the run on any mismatch:
    servers' post-decode caches (no launch, each server's hits),
    ``ec.rebuild`` dropping every cached entry of both volumes and the hot
    set read back with no launch; then ``python -m seaweedfs_tpu_torch
-   filer`` in its own process (one PUT and one GET, SIGTERM);
+   filer`` in its own process (one PUT and one GET, SIGTERM); last the
+   trace step, after every rate above: ``[tracing]
+   push_threshold_seconds = 0`` (every root pushed to the master), every
+   chunk cache cleared, shards 0, 5, 11 and 13 lost again, 8 files read
+   through the filer under trace ids of the step's own, one
+   ``ec.rebuild`` through the cluster shell (the ``pipe.compute``
+   series counts its batches), a burst profile of A through the
+   master's ``/cluster/profile`` while reads are in flight, and the
+   master's ``/cluster/traces``: each GET stitched with its filer and
+   volume legs and its root, every child inside its parent (a remote
+   leg's end up to 50 ms past its caller's), the transpose kernel
+   launched inside the traced window; it prints each span name's share
+   of a GET's wall time (p50, p99; inclusive and self), the rebuild's
+   ``grpc.*`` legs and ``n_bytes``, each server's ``/debug/vars``, the
+   burst's top stacks and the cost of one span enter and exit;
 10. s3 (the S3 gateway, the checkpoint plane on the card's tensors, the
    S3 tier): a port master, two port volume servers A and B, one port
    filer (collection ``s3``) and two ``S3Gateway`` objects over it (one open,
@@ -169,7 +183,7 @@ of which fails the run on any mismatch:
    with both medians and their ratio, launches checked on every encode
    and the files sha256-checked on one of each side;
 15. storage (the engine at rest, on config 1's volume): (a) a seeded
-   .idx of 1,000,000 needles with 10% deleted loaded by the memory,
+   .idx of 500,000 needles with 10% deleted loaded by the memory,
    native and sqlite needle maps (equal live entries and counters, the
    native library built), with each load's seconds; (b) every third
    needle deleted and ``volume.vacuum`` run through ``shell.cli.main``,
@@ -206,7 +220,10 @@ the cluster phase's degraded GETs from B and degraded
 phase's A/B from A, B, B, A to A, B, the config phase's two A/Bs from A,
 B, B, A to A, B (each after its warm-ups), the read phase's two reads to
 every 2nd needle, the filer phase's files from 64 to 32, config 5 from
-8 s to 5 s and config 3's three checked passes from 200 volumes to 100.
+8 s to 5 s and config 3's three checked passes from 200 volumes to 100;
+for the filer phase's trace step, the storage phase's needle-map loads
+from 1,000,000 needles (1,100,000 ``.idx`` entries) to 500,000
+(550,000).
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1979,6 +1996,354 @@ FILER_COLLECTION = "filer"
 FILER_PULSE = 0.5
 
 
+#: The filer phase's trace step: this many files read through the filer
+#: with shards LOST_READ lost, each under a trace id of the step's own.
+TRACE_GETS = 8
+#: The span names of a degraded GET whose share of the GET's wall time
+#: the step prints.
+TRACE_GET_NAMES = ("filer.GET", "filer.read_file", "cache.get",
+                   "volume.read", "read.degraded", "volume.GET",
+                   "ec.reconstruct", "grpc.VolumeEcShardRead")
+#: A remote leg's root (an HTTP verb's or a gRPC method's span) is closed
+#: by its server after the response is written, so its end may trail the
+#: caller's span by a thread switch; every other child is held to its
+#: parent up to the 1 us rounding of the durations.
+TRACE_REMOTE_SLACK = 0.05
+#: span enters and exits timed for the cost of one span, outside a
+#: trace and inside one (100 roots of 1000 children)
+SPAN_COST_N = 100_000
+
+
+def _is_remote_root(name: str) -> bool:
+    head, _, verb = name.rpartition(".")
+    return name.startswith("grpc.") or (
+        head.isidentifier() and verb in ("GET", "PUT", "POST", "DELETE",
+                                         "HEAD"))
+
+
+def _children_outside_parents(trace: dict) -> list:
+    spans = {s["span_id"]: s for s in trace["spans"]}
+    bad = []
+    for s in trace["spans"]:
+        p = spans.get(s["parent_id"])
+        if p is None:
+            continue
+        slack = TRACE_REMOTE_SLACK if _is_remote_root(s["name"]) else 1e-5
+        s_end = s["start"] + s["duration_seconds"]
+        p_end = p["start"] + p["duration_seconds"]
+        if s["start"] < p["start"] or s_end > p_end + slack:
+            bad.append(f"{s['name']} outside {p['name']}")
+    return bad
+
+
+def _self_seconds(trace: dict) -> dict:
+    """Per span name: the seconds under that span and under none of its
+    children (the union of the children's intervals taken out)."""
+    kids: dict = {}
+    for s in trace["spans"]:
+        kids.setdefault(s["parent_id"], []).append(s)
+    out: dict = {}
+    for s in trace["spans"]:
+        lo, hi = s["start"], s["start"] + s["duration_seconds"]
+        ivals = sorted((max(lo, c["start"]),
+                        min(hi, c["start"] + c["duration_seconds"]))
+                       for c in kids.get(s["span_id"], ()))
+        covered, cur_lo, cur_hi = 0.0, None, None
+        for a, b in ivals:
+            if b <= a:
+                continue
+            if cur_hi is None or a > cur_hi:
+                if cur_hi is not None:
+                    covered += cur_hi - cur_lo
+                cur_lo, cur_hi = a, b
+            else:
+                cur_hi = max(cur_hi, b)
+        if cur_hi is not None:
+            covered += cur_hi - cur_lo
+        out[s["name"]] = out.get(s["name"], 0.0) + max(
+            0.0, s["duration_seconds"] - covered)
+    return out
+
+
+def span_cost_ns() -> dict:
+    """The cost of one ``tracing.span`` enter and exit, in ns: outside a
+    trace (the no-op path), and inside one. The roots of the inside
+    measurement are neither pushed nor kept."""
+    from seaweedfs_tpu_torch.util import tracing
+
+    t0 = time.perf_counter_ns()
+    for _ in range(SPAN_COST_N):
+        with tracing.span("bench.noop"):
+            pass
+    outside = (time.perf_counter_ns() - t0) / SPAN_COST_N
+    saved = tracing._PUSH_THRESHOLD
+    tracing._PUSH_THRESHOLD = 1e9
+    inside_ns = 0
+    try:
+        for _ in range(SPAN_COST_N // 1000):
+            with tracing.start_trace("bench.root"):
+                t0 = time.perf_counter_ns()
+                for _ in range(1000):
+                    with tracing.span("bench.child"):
+                        pass
+                inside_ns += time.perf_counter_ns() - t0
+    finally:
+        tracing._PUSH_THRESHOLD = saved
+        tracing.reset()
+    return {"outside_ns": outside, "inside_ns": inside_ns / SPAN_COST_N}
+
+
+def trace_step(master, servers: dict, filer, conn, files: dict,
+               digests: dict, fcache, label: str,
+               launches: dict) -> dict:
+    """The filer phase's trace step, after its measured rates: every
+    root pushed to the master (``[tracing] push_threshold_seconds =
+    0``), every chunk cache cleared, shards LOST_READ lost again, then
+    TRACE_GETS files read through the filer under trace ids of the
+    step's own, one ``ec.rebuild`` through the cluster shell, a burst
+    profile of server A through ``/cluster/profile`` while reads are in
+    flight, and the master's ``/cluster/traces`` read back. In this one
+    process every bundle carries the node of the last server that set
+    the push target (the filer); the legs are told apart by their span
+    names. The burst's own reads come after the traces are read back,
+    with the push threshold at its default again."""
+    import http.client
+    import urllib.request
+
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.shell.cluster_commands import ClusterEnv
+    from seaweedfs_tpu_torch.util import tracing
+
+    t_step = time.perf_counter()
+    result = {}
+    tracing.configure_from({"tracing": {"push_threshold_seconds": 0.0}})
+    base = f"http://{master.url}"
+
+    def get_json(url):
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return json.loads(r.read())
+
+    def settle():
+        for vs in servers.values():
+            vs.heartbeat_now()
+
+    def drain():
+        deadline = time.time() + 60
+        while tracing.push_stats()["queued"] and time.time() < deadline:
+            time.sleep(0.01)
+
+    vids = sorted({v for vs in servers.values()
+                   for (_c, v) in vs.store.ec_mounts})
+    env = ClusterEnv(master_url=master.url, out=io.StringIO())
+    try:
+        for vs in servers.values():
+            for (col, v), m in list(vs.store.ec_mounts.items()):
+                gone = [s for s in m.shard_ids if s in LOST_READ]
+                if gone:
+                    env.volume(vs.url).VolumeEcShardsDelete(
+                        vpb.VolumeEcShardsDeleteRequest(
+                            volume_id=v, collection=col, shard_ids=gone))
+    finally:
+        env.close()
+    settle()
+    check(all(not set(master.topology.lookup_ec_volume(v)) & set(LOST_READ)
+              for v in vids),
+          f"trace step: shards {list(LOST_READ)} of volumes {vids} lost "
+          f"again")
+    time.sleep(1.1)    # the servers' shard-location caches expire
+    fcache.clear()
+    for vs in servers.values():
+        vs.chunk_cache.clear()
+    before = {t["trace_id"] for t in get_json(
+        f"{base}/cluster/traces")["traces"]}
+
+    # 1-2. the traced degraded GETs
+    paths = list(files)[:TRACE_GETS]
+    tids = {p: f"{SEED:08x}{i:08x}" for i, p in enumerate(paths)}
+
+    def gets():
+        for p in paths:
+            conn.request("GET", p, headers={
+                tracing.TRACE_HEADER: f"{tids[p]}-"})
+            r = conn.getresponse()
+            body = r.read()
+            if r.status != 200 or \
+                    hashlib.sha256(body).digest() != digests[p]:
+                raise SmokeError(f"trace step: GET {p} gave {r.status}")
+            drain()
+    reset_counts()
+    t0 = time.perf_counter()
+    gets()
+    get_wall = time.perf_counter() - t0
+    got = counts()
+    host_calls = rs_native.apply_gf_matrix.calls
+    for k, v in got.items():
+        launches[k] += v
+
+    # 3. one ec.rebuild through the cluster shell, its pipeline series
+    hist = tracing.METRICS.histogram("request_stage_seconds",
+                                     stage="pipe.compute")
+    n0, batches0 = hist.n, pipe.debug_payload()["batches"]
+    _, log = cluster_shell(master.url, f"lock; ec.rebuild -collection "
+                           f"{FILER_COLLECTION}; unlock",
+                           "trace step rebuild",
+                           {"ec.rebuild": {"transpose": True,
+                                           "swar": False}}, launches)
+    settle()
+    rebuild_batches = pipe.debug_payload()["batches"] - batches0
+    check(hist.n - n0 == rebuild_batches > 0,
+          f"trace step: the pipe.compute series counted "
+          f"{hist.n - n0} batches, the ec.rebuild runs {rebuild_batches}")
+    for name, _w, g in log:
+        for k, v in g.items():
+            got[k] += v
+
+    drain()
+    time.sleep(0.2)
+    # 5. (read before the burst's reads, which are not pushed) the
+    # master's stitched traces
+    doc = get_json(f"{base}/cluster/traces")
+    push = tracing.push_stats()
+    tracing._PUSH_THRESHOLD = None
+
+    # 4. a burst profile of A while reads are in flight
+    stop = threading.Event()
+    others = [p for p in files if p not in tids]
+
+    def load():
+        lconn = http.client.HTTPConnection("127.0.0.1", filer.port,
+                                           timeout=120)
+        try:
+            i = 0
+            while not stop.is_set():
+                fcache.clear()
+                _http(lconn, "GET", others[i % len(others)])
+                i += 1
+        finally:
+            lconn.close()
+    th = threading.Thread(target=load, name="trace-step-load")
+    th.start()
+    try:
+        with urllib.request.urlopen(
+                f"{base}/cluster/profile?node={servers['A'].url}"
+                f"&seconds=0.5", timeout=60) as r:
+            burst = r.read().decode()
+    finally:
+        stop.set()
+        th.join()
+    stacks = [ln for ln in burst.strip().splitlines() if ln]
+    check(len(stacks) >= 1 and all(int(ln.rsplit(" ", 1)[1]) >= 1
+                                   for ln in stacks),
+          f"trace step: the burst profile of A through /cluster/profile "
+          f"has {len(stacks)} collapsed stacks")
+    by_id = {t["trace_id"]: t for t in doc["traces"]}
+    traced = [by_id.get(tids[p]) for p in paths]
+    check(all(t is not None and t["has_root"] and t["name"] == "filer.GET"
+              and {"filer.GET", "volume.GET"} <= {s["name"]
+                                                  for s in t["spans"]}
+              for t in traced),
+          f"trace step: each of the {TRACE_GETS} GETs stitched at the "
+          f"master with its filer and volume legs and its root")
+    outside = [b for t in traced for b in _children_outside_parents(t)]
+    check(not outside, f"trace step: every child span lies inside its "
+          f"parent ({outside[:3]})")
+    check(got["transpose"] > 0,
+          f"trace step: the transpose kernel launched {got['transpose']} "
+          f"times inside the traced window")
+    shares, selfs = {n: [] for n in TRACE_GET_NAMES}, {}
+    walls = []
+    for t in traced:
+        root = next(s for s in t["spans"] if s["name"] == "filer.GET"
+                    and not s["parent_id"])
+        wall = root["duration_seconds"]
+        walls.append(wall)
+        for n in TRACE_GET_NAMES:
+            shares[n].append(sum(s["duration_seconds"] for s in t["spans"]
+                                 if s["name"] == n) / wall)
+        for n, v in _self_seconds(t).items():
+            selfs.setdefault(n, []).append(v / wall)
+    for n in selfs:
+        selfs[n] += [0.0] * (len(traced) - len(selfs[n]))
+
+    def med_p99(v):
+        return {"p50": float(np.percentile(v, 50)),
+                "p99": float(np.percentile(v, 99))}
+    result["get"] = {
+        "wall_ms": {k: 1e3 * x for k, x in med_p99(walls).items()},
+        "spans": {n: med_p99(v) for n, v in shares.items()},
+        "self": {n: med_p99(v) for n, v in sorted(selfs.items())},
+        "span_counts": [t["span_count"] for t in traced]}
+    say(f"  trace step on {label}:")
+    say(f"  degraded GETs through the filer, {TRACE_GETS} stitched traces, "
+        f"wall ms {json.dumps(result['get']['wall_ms'])}, spans per trace "
+        f"{result['get']['span_counts']}")
+    say(f"  share of a GET's wall time in each span name (p50, p99): "
+        f"{json.dumps(result['get']['spans'])}")
+    say(f"  share under each span name and under none of its children "
+        f"(self time; the root's is the time under no child span): "
+        f"{json.dumps(result['get']['self'])}")
+    new_rebuilds = [t for t in doc["traces"]
+                    if t["name"] == "shell.ec.rebuild"
+                    and t["trace_id"] not in before]
+    check(len(new_rebuilds) == 1 and new_rebuilds[0]["has_root"],
+          "trace step: one stitched shell.ec.rebuild trace")
+    rt = new_rebuilds[0]
+    legs: dict = {}
+    for s in rt["spans"]:
+        if s["name"].startswith("grpc.") or s["name"] in (
+                "shell.ec.rebuild", "ec.rebuild"):
+            legs.setdefault(s["name"], [0, 0.0])
+            legs[s["name"]][0] += 1
+            legs[s["name"]][1] += s["duration_seconds"]
+    rb_bytes = sum(s["bytes"] for s in rt["spans"]
+                   if s["name"] == "ec.rebuild")
+    result["rebuild"] = {"legs": {n: {"calls": c, "s": sec}
+                                  for n, (c, sec) in sorted(legs.items())},
+                         "self_s": _self_seconds(rt),
+                         "ec_rebuild_bytes": rb_bytes}
+    check(rb_bytes > 0 and "grpc.VolumeEcShardsRebuild" in legs,
+          f"trace step: the ec.rebuild trace holds the servers' legs and "
+          f"{rb_bytes} rebuilt bytes")
+    say(f"  ec.rebuild legs (calls, seconds): "
+        f"{json.dumps(result['rebuild']['legs'])}; ec.rebuild spans' "
+        f"n_bytes {rb_bytes}; seconds under each span name and under "
+        f"none of its children: {json.dumps(result['rebuild']['self_s'])}")
+    say(f"  launches inside the step: {json.dumps(got)} (the GETs "
+        f"{get_wall:.3f} s; host-codec calls of the GETs {host_calls}); "
+        f"the push worker: {json.dumps(push)}")
+    for name, url in [("master", master.url)] + [
+            (n, vs.url) for n, vs in servers.items()] + [
+            ("filer", filer.url)]:
+        vz = get_json(f"http://{url}/debug/vars")
+        served = [(s["component"], s["served_total"])
+                  for s in vz["ingress"]["servers"]]
+        say(f"  /debug/vars of {name}: pipeline.runs "
+            f"{vz['pipeline'].get('runs')}, slow_requests "
+            f"{len(vz['slow_requests'])}, trace_push "
+            f"{json.dumps(vz['trace_push'])}, ingress served "
+            f"{json.dumps(served)}, shed "
+            f"{json.dumps(vz['ingress']['shed'])}")
+    parked = ("wait", "select", "_serve", "_worker", "sleep", "accept",
+              "get", "poll", "_wait_once", "channel_spin", "readinto")
+    busy = [ln for ln in stacks
+            if ln.rsplit(" ", 1)[0].rsplit(":", 1)[-1] not in parked]
+    for what, rows in (("top 5", stacks[:5]),
+                       ("top 5 not parked in a wait", busy[:5])):
+        say(f"  the burst's {what} collapsed stacks (the last 6 frames):")
+        for ln in rows:
+            stack, n = ln.rsplit(" ", 1)
+            say(f"    {n} samples: ...;{';'.join(stack.split(';')[-6:])}")
+    result["span_cost"] = span_cost_ns()
+    say(f"  one tracing.span enter and exit, {SPAN_COST_N} of each: "
+        f"{result['span_cost']['outside_ns']:.0f} ns outside a trace, "
+        f"{result['span_cost']['inside_ns']:.0f} ns inside one")
+    tracing.configure_push(None)
+    tracing._PUSH_THRESHOLD = None
+    result["seconds"] = time.perf_counter() - t_step
+    say(f"  trace step: {result['seconds']:.1f} s")
+    return result
+
+
 def filer_phase(dev, workdir: str, label: str, launches: dict) -> dict:
     """The filer stack in this process on the card: a port master, two
     port volume servers A and B (their default 64 MiB post-decode
@@ -2277,6 +2642,10 @@ def filer_phase(dev, workdir: str, label: str, launches: dict) -> dict:
               f"python -m seaweedfs_tpu_torch filer: PUT {put_code}, GET "
               f"byte-equal, exit {rc} on SIGTERM "
               f"({result['subprocess_s']:.1f} s)")
+
+        # 9. the trace step, after every rate above
+        result["trace"] = trace_step(master, servers, filer, conn, files,
+                                     digests, fcache, label, launches)
     finally:
         if conn is not None:
             conn.close()
@@ -2287,6 +2656,9 @@ def filer_phase(dev, workdir: str, label: str, launches: dict) -> dict:
         for vs in servers.values():
             vs.stop()
         master.stop()
+        from seaweedfs_tpu_torch.util import tracing
+        tracing.configure_push(None)
+        tracing._PUSH_THRESHOLD = None
         cache_mod.configure_global()
         shutil.rmtree(workdir, ignore_errors=True)
     result["seconds"] = time.perf_counter() - t_phase
@@ -3186,9 +3558,10 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
 # storage: the engine at rest (needle maps, vacuum, crash, scrub)
 # --------------------------------------------------------------------------
 
-#: (a): a seeded .idx of a volume of a million ~30 KiB files, about 10%
-#: of them deleted (one tombstone appended per deleted key).
-MAP_NEEDLES = 1_000_000
+#: (a): a seeded .idx of a volume of half a million ~30 KiB files, about
+#: 10% of them deleted (one tombstone appended per deleted key); a
+#: million before the trace step came.
+MAP_NEEDLES = 500_000
 MAP_NEEDLE_BYTES = 30 * 1024
 MAP_DELETED = 0.1
 #: (d): the bytes one parity-proof product covers per shard.

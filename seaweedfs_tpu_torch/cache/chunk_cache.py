@@ -14,9 +14,11 @@ Both tiers honor TTL and explicit invalidation (per key, per volume,
 or clear). Every cache registers with cache/invalidation.py so vacuum
 and EC rebuild drop stale volumes everywhere.
 
-The port of ``seaweedfs_tpu/cache/chunk_cache.py``, without its
-``cache.get`` and ``cache.put`` spans and its race-checker registration
-(ROADMAP Queue 1, observability).
+The port of ``seaweedfs_tpu/cache/chunk_cache.py``. Inside a trace,
+``get`` and ``put`` run under ``cache.get`` (tagged ``hit``) and
+``cache.put`` (tagged ``admitted``) spans. Not ported yet: the race
+checker's registration (ROADMAP Queue 1, "The sim harness, the lint and
+the checkers").
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import time
 from collections import OrderedDict
 from typing import Optional
 
+from ..util import tracing
 from ..util.stats import Counter, Metrics
 from . import invalidation
 from .disk_tier import DiskTier
@@ -221,7 +224,8 @@ class ChunkCache:
                     self._volumes.setdefault(vol, set()).add(key)
         invalidation.register_cache(self)
         # the race checker registers the cache here in the JAX package;
-        # the port has no checkers yet (ROADMAP Queue 1, observability)
+        # the port has no checkers yet (ROADMAP Queue 1, "The sim
+        # harness, the lint and the checkers")
 
     # ------------- internal -------------
 
@@ -286,9 +290,16 @@ class ChunkCache:
     # ------------- api -------------
 
     def get(self, key: str) -> Optional[bytes]:
-        # no ``cache.get`` span: the port has no tracing yet (ROADMAP
-        # Queue 1, observability)
-        return self._get_inner(key)
+        if not tracing.active():
+            return self._get_inner(key)
+        with tracing.span("cache.get") as sp:
+            data = self._get_inner(key)
+            if data is None:
+                sp.tags = {"hit": "false"}
+            else:
+                sp.n_bytes = len(data)
+                sp.tags = {"hit": "true"}
+            return data
 
     def _get_inner(self, key: str) -> Optional[bytes]:
         now = self.clock()
@@ -324,8 +335,13 @@ class ChunkCache:
 
     def put(self, key: str, data: bytes, volume: Optional[int] = None,
             ttl: Optional[float] = None) -> bool:
-        # no ``cache.put`` span (ROADMAP Queue 1, observability)
-        return self._put_inner(key, data, volume, ttl)
+        if not tracing.active():
+            return self._put_inner(key, data, volume, ttl)
+        with tracing.span("cache.put") as sp:
+            sp.n_bytes = len(data)
+            admitted = self._put_inner(key, data, volume, ttl)
+            sp.tag(admitted=str(admitted).lower())
+            return admitted
 
     def _put_inner(self, key: str, data: bytes,
                    volume: Optional[int] = None,

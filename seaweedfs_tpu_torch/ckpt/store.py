@@ -34,8 +34,9 @@ a :class:`~.sharding.ShardedTensor` (the counterpart of a ``jax.Array``
 with a ``NamedSharding``) or a plain tensor or array, which counts as
 replicated. Tree paths name params as the JAX package's do (dict keys in
 sorted order, list and tuple indices, joined by ``/``), so either
-package restores the other's checkpoints. Not ported yet: the
-``ckpt.save`` / ``ckpt.restore`` spans (ROADMAP Queue 1, observability).
+package restores the other's checkpoints. A save runs under a
+``ckpt.save`` trace span, and a restore's reads and copies under
+``ckpt.restore``.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..util import faults, glog
+from ..util import faults, glog, tracing
 from .manifest import (Manifest, ManifestError, ParamSpec, ShardEntry,
                        spec_from_json, spec_to_json)
 from .s3client import GatewayClient
@@ -135,6 +136,10 @@ class CheckpointStore:
         """Write one checkpoint; every participating process calls this
         with its own view of ``tree``. Returns the merged manifest (rank
         0 builds it; the others re-read the committed one)."""
+        with tracing.span("ckpt.save"):
+            return self._save(name, tree)
+
+    def _save(self, name: str, tree: Any) -> Manifest:
         pid, nproc = _process()
         root = self._root(name)
         self.client.ensure_bucket(self.bucket)
@@ -291,8 +296,9 @@ class CheckpointStore:
                      for p in man.params]
         if pool is None:
             pool = self._make_pool(man, shardings, mesh)
-        arrays = {p.name: self._restore_param(p, sh, pool)
-                  for p, sh in zip(man.params, shardings)}
+        with tracing.span("ckpt.restore"):
+            arrays = {p.name: self._restore_param(p, sh, pool)
+                      for p, sh in zip(man.params, shardings)}
         if template is None:
             return arrays
         return _unflatten(template, arrays)

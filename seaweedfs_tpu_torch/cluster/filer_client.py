@@ -1,7 +1,8 @@
 """Client for a filer: gRPC for metadata, HTTP for chunked data.
 
-The port of ``seaweedfs_tpu/cluster/filer_client.py``, without its
-``filer.put`` / ``filer.get`` spans (ROADMAP Queue 1, observability).
+The port of ``seaweedfs_tpu/cluster/filer_client.py``: the data calls
+run under ``filer.put`` / ``filer.get`` trace spans, and the HTTP call
+carries the trace context to the filer.
 
 The reference's gateways (S3, WebDAV, mount) all sit on filer.proto plus
 the filer HTTP data path (SURVEY.md §2 "S3 gateway", "FUSE mount");
@@ -23,7 +24,7 @@ from typing import Iterator, Optional
 from .. import pb
 from ..pb import filer_pb2
 from .master import _grpc_port
-from ..util import faults, retry
+from ..util import faults, retry, tracing
 from ..util import tls as tls_mod
 
 
@@ -141,10 +142,12 @@ class FilerClient:
         query = _with_signatures(query, signatures)
         headers = {"Content-Type": mime} if mime else None
         try:
-            r = retry.http_request(self._url(path, query), data=data,
-                                   method="PUT", headers=headers,
-                                   point="filer.data", timeout=120)
-            return json.loads(r.data or b"{}")
+            with tracing.span("filer.put", path=path) as sp:
+                sp.n_bytes = len(data)
+                r = retry.http_request(self._url(path, query), data=data,
+                                       method="PUT", headers=headers,
+                                       point="filer.data", timeout=120)
+                return json.loads(r.data or b"{}")
         except urllib.error.HTTPError as e:
             raise FilerClientError(
                 f"PUT {path}: {e.code} {e.read()!r}") from e
@@ -156,9 +159,11 @@ class FilerClient:
             stop = "" if length is None else str(offset + length - 1)
             headers["Range"] = f"bytes={offset}-{stop}"
         try:
-            r = retry.http_request(self._url(path), headers=headers,
-                                   point="filer.data", timeout=120)
-            return r.data
+            with tracing.span("filer.get", path=path) as sp:
+                r = retry.http_request(self._url(path), headers=headers,
+                                       point="filer.data", timeout=120)
+                sp.n_bytes = len(r.data)
+                return r.data
         except urllib.error.HTTPError as e:
             err = FilerClientError(f"GET {path}: {e.code}")
             err.code = e.code  # lets callers tell 404 from transient

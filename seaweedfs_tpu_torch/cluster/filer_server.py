@@ -12,12 +12,14 @@ The port of ``seaweedfs_tpu/cluster/filer_server.py``. The filer runs no
 kernel: its reads go through the process's chunk cache to the volume
 servers, whose EC reads repair on their own devices. Each filer's chunk
 cache subscribes to the master's invalidation hub
-(``invalidation.start_subscriber``). Not ported yet, each named in
-ROADMAP Queue 1, observability: the tracing push and the tracing
-counters on ``/metrics``, the usage collector and its pusher,
-``/debug/traces``, ``/debug/profile`` and ``/debug/vars`` (404, as on
-the port's volume server), and the ``-config`` sections that set them
-(refused, exit 2).
+(``invalidation.start_subscriber``). Every HTTP verb runs under a
+``filer.<VERB>`` trace root continuing the caller's context, slow or
+errored roots are pushed to the master's collector, and
+``/debug/traces``, ``/debug/profile`` and ``/debug/vars`` describe the
+process; ``-config`` applies ``[tracing]`` and ``[profiler]``. Not
+ported yet, named in ROADMAP Queue 1 ("Telemetry, SLO, usage and the
+policy engine"): the usage collector and its pusher, and the
+``[usage]`` section that sets them (refused, exit 2).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..pb import filer_pb2
 from ..util import faults as faults_mod
 from ..util import glog
 from ..util import httpserver
-from ..util import retry
+from ..util import profiler, retry, tracing, varz
 from ..util.stats import EXPOSITION_CONTENT_TYPE, Metrics
 from .master import _grpc_port
 from .wdclient import MasterClient
@@ -69,7 +71,8 @@ class FilerServer:
         #: Loaded at start and re-read on changes via the filer's own
         #: meta stream — empty when no conf exists.
         self.path_conf = path_conf_mod.PathConf()
-        # no usage collector nor pusher (ROADMAP Queue 1, observability)
+        # no usage collector nor pusher (ROADMAP Queue 1, "Telemetry,
+        # SLO, usage and the policy engine")
         self._conf_stop = threading.Event()
         self._grpc_server = None
         self._http_server: Optional[httpserver.IngressHTTPServer] = None
@@ -148,8 +151,9 @@ class FilerServer:
         t.start()
         self._threads.append(t)
         if self.master_url:
-            # no tracing push nor usage pusher (ROADMAP Queue 1,
-            # observability)
+            # Slow/errored filer roots join the master's stitched view.
+            tracing.configure_push(self.master_url, node=self.url,
+                                   component="filer")
             # Job-commit cache invalidation: register this filer's
             # chunk cache for the master's fan-out (docs/jobs.md).
             invalidation_mod.start_subscriber(self.master_url,
@@ -385,14 +389,27 @@ def _make_http_handler(fs: FilerServer):
             u = urlparse(self.path)
             if u.path == "/metrics":
                 self._send(200, (fs.metrics.render()
+                                 + tracing.METRICS.render()
                                  + retry.METRICS.render()
                                  + httpserver.METRICS.render()).encode(),
                            EXPOSITION_CONTENT_TYPE)
                 return
-            if u.path.startswith("/debug/"):
-                # traces, profile and vars: not ported yet (ROADMAP
-                # Queue 1, observability)
-                self._err(404, f"{u.path} is not ported yet")
+            if u.path == "/debug/traces":
+                q = {k: v[0] for k, v in parse_qs(u.query).items()}
+                self._send(200, json.dumps(tracing.debug_payload(
+                    int(q["limit"]) if "limit" in q else None)).encode())
+                return
+            if u.path == "/debug/profile":
+                q = {k: v[0] for k, v in parse_qs(u.query).items()}
+                self._send(200, profiler.profile(
+                    float(q.get("seconds", 2.0)),
+                    hz=float(q.get("hz", profiler.DEFAULT_BURST_HZ))
+                ).encode(), "text/plain; charset=utf-8")
+                return
+            if u.path == "/debug/vars":
+                # the JAX page's usage section waits for its plane
+                self._send(200, json.dumps(varz.payload(
+                    "filer", fs.metrics)).encode())
                 return
             dl = retry.deadline_from_headers(self.headers)
             if dl is not None and dl.expired():
@@ -561,8 +578,8 @@ def _make_http_handler(fs: FilerServer):
                 return
             self._send(204)
 
-    # no request spans (ROADMAP Queue 1, observability)
-    return httpserver.admission_gate(Handler)
+    return tracing.instrument_http_handler(
+        httpserver.admission_gate(Handler), "filer")
 
 
 #: The single-range parser now lives in util/httpserver.py so the
@@ -584,16 +601,19 @@ def _first_multipart_file(body: bytes, ctype: str) -> tuple[bytes, str]:
     return b"", ""
 
 
-#: ``-config`` sections of planes the port does not have yet: a file
-#: that sets one is refused rather than half applied.
-UNPORTED_SECTIONS = ("tracing", "usage", "profiler")
+#: ``-config`` sections of planes the port does not have yet (ROADMAP
+#: Queue 1, "Telemetry, SLO, usage and the policy engine"): a file that
+#: sets one is refused rather than half applied.
+UNPORTED_SECTIONS = ("usage",)
 
 
 def apply_config(conf: dict) -> None:
-    """Apply a loaded ``-config`` TOML: ``[grpc.tls]``, ``[retry]``,
-    ``[faults]``, ``[storage]`` (the fsync policy) and ``[ingress]``. A
-    section of a plane the port lacks (:data:`UNPORTED_SECTIONS`)
-    raises ``ValueError`` before anything is applied."""
+    """Apply a loaded ``-config`` TOML: ``[grpc.tls]``, ``[tracing]``,
+    ``[retry]``, ``[faults]``, ``[storage]`` (the fsync policy),
+    ``[profiler]`` (and start its sampler when enabled) and
+    ``[ingress]``. A section of a plane the port lacks
+    (:data:`UNPORTED_SECTIONS`) raises ``ValueError`` before anything is
+    applied."""
     from ..util import config as config_mod
     from ..util import durability as durability_mod
 
@@ -602,12 +622,16 @@ def apply_config(conf: dict) -> None:
     if bad:
         raise ValueError(
             f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1, "
-            f"observability); remove it from the file")
+            f"telemetry, SLO, usage and the policy engine); remove it "
+            f"from the file")
     tls_mod.install_from_config(conf)
+    tracing.configure_from(conf)
     retry.configure_from(conf)
     faults_mod.configure_from(conf)
     durability_mod.configure_from(conf)
+    profiler.configure_from(conf)
     httpserver.configure_from(conf)
+    profiler.ensure_started()
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -632,8 +656,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     p.add_argument("-notify.webhook", dest="notify_webhook", default="",
                    help="POST metadata events to this URL")
     p.add_argument("-config", default="",
-                   help="TOML: [grpc.tls], [retry], [faults], [storage], "
-                        "[ingress]")
+                   help="TOML: [grpc.tls], [tracing], [retry], [faults], "
+                        "[storage], [profiler], [ingress]")
     args = p.parse_args(argv)
     from ..util import config as config_mod
     try:

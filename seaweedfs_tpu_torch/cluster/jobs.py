@@ -39,9 +39,9 @@ Attempts still count, so ``max_attempts`` ends it as ``failed``. While
 another eligible worker is live, the excluded one stays excluded.
 
 The master passes ``on_commit`` (its cache-invalidation fan-out). Not
-ported yet, named in ROADMAP Queue 1: ``PolicyEngine``, which reads the
-telemetry registry (it comes with the observability plane;
-:func:`policy_payload` stands in for its disarmed payload).
+ported yet, named in ROADMAP Queue 1 ("Telemetry, SLO, usage and the
+policy engine"): ``PolicyEngine``, which reads the telemetry registry
+(:func:`policy_payload` stands in for its disarmed payload).
 """
 
 from __future__ import annotations
@@ -552,8 +552,8 @@ class JobManager:
                     "jobs": jobs}
 
     def summary(self) -> dict:
-        """Small per-state counts (the JAX master's ``/debug/vars``
-        block, which comes with the observability plane)."""
+        """Small per-state counts (the ``jobs`` block of the master's
+        ``/debug/vars``)."""
         with self._lock:
             states: dict[str, int] = {}
             tasks: dict[str, int] = {}

@@ -17,19 +17,25 @@ The maintenance plane rides along (``jobs.py``): the leader's
 job workers pull (``/cluster/jobs/*``, ``/cluster/scrub``), renews
 leases from ``Heartbeat.job_progress``, expires them from the reap loop
 and checkpoints to ``<meta_dir>/jobs.json``. ``/cluster/status`` keeps
-the JAX master's keys: the JAX master serves the jobs summary
-(``JobManager.summary``) on ``/debug/vars``, which comes with the
-observability plane.
+the JAX master's keys.
 
-Not ported yet, each named in ROADMAP Queue 1: the observability planes
-the JAX master carries — the trace collector, the SLO engine, the usage
-registry, the jobs policy engine, the telemetry registry (so replicas
-are ranked by heartbeat age alone, as the JAX master ranks them before
-any telemetry arrives), their ``/cluster/*`` routes, ``/debug/*`` (the
-JAX ``/debug/vars`` also carries the hub's ``cache_hub`` map, here
-``MasterServer.cache_hub.to_map()``) and the sections and keys of
-``-config`` that set them (refused, exit 2). Heartbeat fields of those
-planes (``telemetry``, ``usage``) are accepted and ignored.
+The tracing plane rides along too: servers push their slow or errored
+trace roots to ``POST /cluster/traces``, where :attr:`MasterServer.
+trace_collector` stitches the legs of one request into one trace
+(``GET /cluster/traces``; a follower proxies both to the leader), and
+the master's own roots go straight into it. ``/cluster/profile?node=``
+proxies a burst profile of any node, and ``/debug/traces``,
+``/debug/profile`` and ``/debug/vars`` (with the jobs summary, the
+hub's ``cache_hub`` map and the collector's counts) describe the master
+itself. ``-config`` applies ``[tracing]`` and ``[profiler]``.
+
+Not ported yet, named in ROADMAP Queue 1 ("Telemetry, SLO, usage and
+the policy engine"): the SLO engine, the usage registry, the jobs policy
+engine, the telemetry registry (so replicas are ranked by heartbeat age
+alone, as the JAX master ranks them before any telemetry arrives), their
+``/cluster/*`` routes and ``/debug/vars`` keys, and the sections and
+keys of ``-config`` that set them (refused, exit 2). Heartbeat fields of
+those planes (``telemetry``, ``usage``) are accepted and ignored.
 
 The cache-invalidation hub (``cache/invalidation.ClusterInvalidationHub``)
 is ported: filers subscribe with ``POST /cluster/cache_subscribe``, and a
@@ -55,7 +61,8 @@ from ..cache import invalidation as invalidation_mod
 from ..pb import master_pb2, volume_server_pb2
 from ..storage.superblock import ReplicaPlacement, Ttl
 from ..storage.types import FileId
-from ..util import glog, httpserver, retry, security
+from ..util import glog, httpserver, profiler, retry, security, tracing, \
+    varz
 from ..util import tls as tls_mod
 from ..util.stats import EXPOSITION_CONTENT_TYPE, Metrics
 from . import ha as ha_mod
@@ -64,9 +71,10 @@ from .ha import NotLeaderError
 from .sequence import MemorySequencer
 from .topology import Topology, TopologyError, VolumeInfo
 
-#: ``-config`` sections the JAX master reads for planes the port lacks:
-#: a file that sets one is refused rather than half applied.
-UNPORTED_SECTIONS = ("tracing", "profiler", "usage", "slo")
+#: ``-config`` sections the JAX master reads for planes the port lacks
+#: (ROADMAP Queue 1, "Telemetry, SLO, usage and the policy engine"): a
+#: file that sets one is refused rather than half applied.
+UNPORTED_SECTIONS = ("usage", "slo")
 
 
 def _grpc_port(http_port: int) -> int:
@@ -88,6 +96,7 @@ class MasterServer:
                  election_timeout: tuple[float, float] = (0.45, 0.9),
                  metrics_address: str = "",
                  metrics_interval_seconds: float = 15.0,
+                 trace_ring_size: int = 256,
                  clock=time.time):
         self.ip = ip
         self.port = port
@@ -159,6 +168,11 @@ class MasterServer:
         #: POST /cluster/cache_subscribe; job commits that mutate a
         #: volume's bytes publish to subscribers + all volume servers.
         self.cache_hub = invalidation_mod.ClusterInvalidationHub()
+        #: Stitched tail-sampled traces (servers POST /cluster/traces).
+        #: Lives on every master but only the leader's fills up — the
+        #: servers push to the leader, so the reads leader-proxy.
+        self.trace_collector = tracing.TraceCollector(
+            ring_size=trace_ring_size)
 
     # ------------- HA plumbing -------------
 
@@ -213,6 +227,10 @@ class MasterServer:
                                         name=f"master-reaper-{self.port}")
         self._reaper.start()
         self.ha.start()
+        # The master's own slow/errored roots go straight into the
+        # in-process collector — no HTTP round trip to self.
+        tracing.configure_push(self.trace_collector.ingest,
+                               node=self.url, component="master")
         if self.metrics_address:
             from ..util.stats import MetricsPusher
             self._pusher = MetricsPusher(
@@ -614,9 +632,11 @@ class MasterServer:
             max_volume_count=hb.max_volume_count or 8,
             volumes=volumes, ec_shards=ec)
         if node.last_heartbeat_changed:
-            glog.v(1, "master: heartbeat from %s changed topology "
-                   "(%d volumes, %d ec entries)", url, len(volumes),
-                   len(ec))
+            with tracing.span("master.heartbeat.topology", node=url,
+                              volumes=str(len(volumes))):
+                glog.v(1, "master: heartbeat from %s changed topology "
+                       "(%d volumes, %d ec entries)", url,
+                       len(volumes), len(ec))
         if hb.HasField("job_progress"):
             # The heartbeat IS the lease renewal for every task the
             # worker still reports in flight.
@@ -760,6 +780,9 @@ def _make_http_handler(ms: MasterServer):
         def _json(self, obj, code: int = 200) -> None:
             self._send(code, json.dumps(obj).encode())
 
+        def _text(self, body: bytes, code: int = 200) -> None:
+            self._send(code, body, "text/plain; charset=utf-8")
+
         def _proxy_to_leader(self) -> bool:
             """Forward this request to the current leader (follower
             masters stay useful to plain HTTP clients), preserving the
@@ -824,6 +847,7 @@ def _make_http_handler(ms: MasterServer):
                 elif u.path == "/metrics":
                     self._send(200, (ms.metrics.render()
                                      + ms.jobs.metrics.render()
+                                     + tracing.METRICS.render()
                                      + retry.METRICS.render()
                                      + httpserver.METRICS.render()
                                      ).encode(), EXPOSITION_CONTENT_TYPE)
@@ -851,6 +875,55 @@ def _make_http_handler(ms: MasterServer):
                                  if j["kind"] == "scrub"],
                         "candidates": len(ms.job_candidate_volumes(
                             "scrub", q.get("collection", "")))})
+                elif u.path == "/cluster/traces":
+                    # Tail-sampled traces land on the leader (that is
+                    # where servers push), so read from there.
+                    if self._proxy_to_leader():
+                        return
+                    self._json(ms.trace_collector.payload(
+                        int(q["limit"]) if q.get("limit") else None))
+                elif u.path == "/cluster/profile":
+                    # Master-side proxy to any node's /debug/profile so
+                    # operators profile the fleet from one place.
+                    node = q.get("node", "")
+                    if not node:
+                        self._json(
+                            {"error": "node query parameter required"},
+                            400)
+                        return
+                    seconds = min(float(q.get("seconds", 2.0)),
+                                  profiler.MAX_SECONDS)
+                    try:
+                        r = retry.http_request(
+                            f"http://{node}/debug/profile"
+                            f"?seconds={seconds}",
+                            point="master.profile_proxy",
+                            timeout=seconds + 30.0, use_breaker=False)
+                    except Exception as e:  # noqa: BLE001
+                        self._json({"error":
+                                    f"node {node} unreachable: {e}"},
+                                   502)
+                        return
+                    self._text(r.data)
+                elif u.path == "/debug/profile":
+                    self._text(profiler.profile(
+                        float(q.get("seconds", 2.0)),
+                        hz=float(q.get("hz",
+                                       profiler.DEFAULT_BURST_HZ))
+                    ).encode())
+                elif u.path == "/debug/traces":
+                    self._json(tracing.debug_payload(
+                        int(q.get("limit", -1))
+                        if q.get("limit") else None))
+                elif u.path == "/debug/vars":
+                    self._json(varz.payload(
+                        "master", ms.metrics,
+                        extra={"is_leader": ms.is_leader,
+                               "nodes": len(ms.topology.nodes),
+                               "jobs": ms.jobs.summary(),
+                               "cache_hub": ms.cache_hub.to_map(),
+                               "trace_collector":
+                                   ms.trace_collector.payload(0)}))
                 else:
                     self._json({"error": "not found"}, 404)
             except NotLeaderError as e:
@@ -900,6 +973,18 @@ def _make_http_handler(ms: MasterServer):
                     self._json({"ok": True,
                                 "subscribers":
                                     len(ms.cache_hub.to_map())})
+            elif u.path == "/cluster/traces":
+                # Tail-sample sink: servers push slow/errored root
+                # bundles here (tracing._push_loop).
+                if self._proxy_to_leader():
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0) or 0)
+                    payload = json.loads(self.rfile.read(n) or b"{}")
+                    ms.trace_collector.ingest(payload)
+                    self._json({"ok": True})
+                except (ValueError, OSError) as e:
+                    self._json({"error": str(e)}, 400)
             elif u.path == "/vol/grow":
                 if self._proxy_to_leader():
                     return
@@ -981,13 +1066,16 @@ def _make_http_handler(ms: MasterServer):
             else:
                 self._json({"error": "not found"}, 404)
 
-    return httpserver.admission_gate(Handler)
+    return tracing.instrument_http_handler(
+        httpserver.admission_gate(Handler), "master")
 
 
 def apply_config(conf: dict) -> str:
     """Apply a loaded ``-config`` TOML's process-wide settings: the JWT
-    signing key (returned), ``[grpc.tls]``, ``[retry]``, ``[faults]``,
-    ``[ingress]`` and the ``[jobs]`` kill switch. A section of a plane
+    signing key (returned), ``[grpc.tls]``, ``[tracing]``, ``[retry]``,
+    ``[faults]``, ``[profiler]``, ``[ingress]`` and the ``[jobs]`` kill
+    switch, and starts the always-on profiler when ``[profiler]`` leaves
+    it enabled. A section of a plane
     the port lacks (:data:`UNPORTED_SECTIONS`), or a ``[jobs]`` key of
     the policy engine (``jobs.POLICY_KEYS``), raises ``ValueError``
     before anything is applied. :func:`configure_jobs` applies the rest
@@ -999,22 +1087,26 @@ def apply_config(conf: dict) -> str:
            if config_mod.lookup(conf, s) is not None]
     if bad:
         raise ValueError(
-            f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1); "
-            f"remove it from the file")
+            f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1, "
+            f"telemetry, SLO, usage and the policy engine); remove it "
+            f"from the file")
     jsec = config_mod.lookup(conf, "jobs")
     policy = [k for k in jobs_mod.POLICY_KEYS
               if isinstance(jsec, dict) and k in jsec]
     if policy:
         raise ValueError(
             f"[jobs] {policy[0]} is not ported yet: the policy engine "
-            f"comes with the observability plane (ROADMAP Queue 1); "
+            f"comes with the telemetry plane (ROADMAP Queue 1); "
             f"remove it from the file")
     secret = config_mod.lookup(conf, "jwt.signing.key", "")
     tls_mod.install_from_config(conf)
+    tracing.configure_from(conf)
     retry.configure_from(conf)
     faults.configure_from(conf)
+    profiler.configure_from(conf)
     httpserver.configure_from(conf)
     jobs_mod.configure_from(conf)
+    profiler.ensure_started()
     return secret
 
 
@@ -1056,8 +1148,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     p.add_argument("-mdir", default="",
                    help="meta dir persisting raft state + sequence")
     p.add_argument("-config", default="",
-                   help="TOML: the JWT signing key, [grpc.tls], [retry], "
-                        "[faults], [ingress], [jobs]")
+                   help="TOML: the JWT signing key, [grpc.tls], "
+                        "[tracing], [retry], [faults], [profiler], "
+                        "[ingress], [jobs]")
     args = p.parse_args(argv)
     try:
         conf = config_mod.load(args.config) if args.config else {}
@@ -1072,7 +1165,9 @@ def main(argv: Optional[list[str]] = None) -> int:
                       peers=[x for x in args.peers.split(",") if x],
                       meta_dir=args.mdir or None,
                       metrics_address=args.metricsAddress,
-                      metrics_interval_seconds=args.metricsIntervalSeconds)
+                      metrics_interval_seconds=args.metricsIntervalSeconds,
+                      trace_ring_size=int(config_mod.lookup(
+                          conf, "tracing.collector_ring_size", 256)))
     configure_jobs(ms, conf)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

@@ -1,7 +1,8 @@
 """Client SDK: assign -> upload -> lookup -> delete, and submit.
 
 The port of ``seaweedfs_tpu/cluster/operation.py``, with its fault
-points and without its tracing spans (ROADMAP Queue 1, observability). Mirrors
+points and its tracing spans (``volume.write``, ``volume.read`` and a
+``read.degraded`` child per fallback hop). Mirrors
 weed/operation (SURVEY.md §2 "Operation client lib", §3.2 write call
 stack): ``assign`` asks the master for a file id + target server,
 ``upload`` POSTs the bytes (with the master-issued JWT), ``submit`` does
@@ -24,7 +25,7 @@ import urllib.error
 from dataclasses import dataclass
 from typing import Optional
 
-from ..util import faults, retry
+from ..util import faults, retry, tracing
 from .wdclient import MasterClient
 
 
@@ -84,9 +85,11 @@ def upload(server_url: str, fid: str, data: bytes, jwt: str = "",
            collection: str = "") -> dict:
     url = _fid_url(server_url, fid, collection)
     try:
-        resp = retry.http_request(url, data=data, method="POST",
-                                  point="volume.write", jwt=jwt)
-        return json.loads(resp.data or b"{}")
+        with tracing.span("volume.write", fid=fid) as sp:
+            sp.n_bytes = len(data)
+            resp = retry.http_request(url, data=data, method="POST",
+                                      point="volume.write", jwt=jwt)
+            return json.loads(resp.data or b"{}")
     except urllib.error.HTTPError as e:
         raise OperationError(
             f"upload to {url} failed: {e.code} {e.read()!r}") from e
@@ -98,34 +101,48 @@ def download(master: MasterClient, fid: str,
     in turn, then — when all replicas are dead — any server holding EC
     shards of the volume (its EC read path reassembles the needle from
     surviving shards). Hops past the first choice are degraded reads:
-    counted, never surfaced to the caller unless the whole ladder is
-    exhausted."""
+    traced and counted, never surfaced to the caller unless the whole
+    ladder is exhausted."""
     vid = int(fid.split(",")[0])
     try:
         locs = master.lookup(vid, collection)
     except (KeyError, RuntimeError):
         locs = []  # the volume may still live on as EC shards
     last: Optional[Exception] = None
-    for i, loc in enumerate(locs):
-        if i:
-            retry.record_degraded("replica_failover")
-        try:
-            return retry.http_request(_fid_url(loc["url"], fid, collection),
-                                      point="volume.read").data
-        except urllib.error.URLError as e:
-            last = e
-    if locs:
-        # every advertised location failed: the map is stale
-        master.invalidate(vid)
-    # EC rung: a sealed volume's replicas are gone by design; any
-    # server holding shards can reconstruct the needle server-side.
-    for server in _ec_servers(master, vid):
-        retry.record_degraded("ec_decode")
-        try:
-            return retry.http_request(_fid_url(server, fid, collection),
-                                      point="volume.read").data
-        except urllib.error.URLError as e:
-            last = e
+    with tracing.span("volume.read", fid=fid) as sp:
+        for i, loc in enumerate(locs):
+            url = _fid_url(loc["url"], fid, collection)
+            try:
+                if i:
+                    retry.record_degraded("replica_failover")
+                    with tracing.span("read.degraded", fid=fid,
+                                      stage="replica_failover",
+                                      server=loc["url"]):
+                        resp = retry.http_request(url,
+                                                  point="volume.read")
+                else:
+                    resp = retry.http_request(url, point="volume.read")
+                sp.n_bytes = len(resp.data)
+                return resp.data
+            except urllib.error.URLError as e:
+                last = e
+        if locs:
+            # every advertised location failed: the map is stale
+            master.invalidate(vid)
+        # EC rung: a sealed volume's replicas are gone by design; any
+        # server holding shards can reconstruct the needle server-side.
+        for server in _ec_servers(master, vid):
+            try:
+                retry.record_degraded("ec_decode")
+                with tracing.span("read.degraded", fid=fid,
+                                  stage="ec_decode", server=server):
+                    resp = retry.http_request(
+                        _fid_url(server, fid, collection),
+                        point="volume.read")
+                sp.n_bytes = len(resp.data)
+                return resp.data
+            except urllib.error.URLError as e:
+                last = e
     if last is None:
         raise OperationError(f"volume {vid} has no locations")
     raise OperationError(f"download {fid} failed: {last}")

@@ -1,9 +1,9 @@
 """Master-side in-memory cluster topology.
 
 The port of ``seaweedfs_tpu/cluster/topology.py``, without the
-telemetry registry (``ClusterTelemetry``, which comes with the
-observability plane) and without the sim harness's from-scratch index
-check (``_rebuild_indexes`` / ``check_indexes``).
+telemetry registry (``ClusterTelemetry``: ROADMAP Queue 1, "Telemetry,
+SLO, usage and the policy engine") and without the sim harness's
+from-scratch index check (``_rebuild_indexes`` / ``check_indexes``).
 
 Mirrors weed/topology/ (SURVEY.md §2 "Topology"): a DC -> rack ->
 data-node tree rebuilt from heartbeat snapshots, per-(collection, replication, ttl)

@@ -32,10 +32,16 @@ then served from the cache until vacuum, ``ec.rebuild``, a DELETE or a
 ``POST /cache/invalidate`` from the master's hub drops it. Its
 per-volume hit and miss counts ride the heartbeat's telemetry rows.
 
-Not ported yet, each named in ROADMAP Queue 1: the telemetry and usage
-collectors and the rest of their heartbeat fields (left unset), tracing
-spans and their push, and ``/debug/traces``, ``/debug/profile`` and
-``/debug/vars`` (404). The S3 tier RPCs move a volume's .dat to an S3
+Every HTTP verb and gRPC call runs under a trace span, a GET's needle
+read under ``store.read_needle`` or ``ec.reconstruct``; slow or errored
+roots are pushed to the master's trace collector. ``/debug/traces``,
+``/debug/profile`` and ``/debug/vars`` describe the process, and
+``-config`` applies ``[tracing]`` and ``[profiler]``.
+
+Not ported yet, named in ROADMAP Queue 1 ("Telemetry, SLO, usage and
+the policy engine"): the telemetry and usage collectors, the rest of
+their heartbeat fields (left unset) and their ``/debug/vars`` sections.
+The S3 tier RPCs move a volume's .dat to an S3
 endpoint and back (``Store.tier_move`` / ``tier_restore``), with the
 tier's credentials from the server's environment
 (``SEAWEEDFS_TORCH_TIER_ACCESS_KEY`` / ``_SECRET_KEY``).
@@ -72,16 +78,18 @@ from ..storage.store import Store, StoreError
 from ..storage.superblock import ReplicaPlacement, Ttl
 from ..storage.types import FileId
 from ..storage.volume import dat_path, idx_path
-from ..util import durability, faults, glog, httpserver, retry, security
+from ..util import durability, faults, glog, httpserver, profiler, retry, \
+    security, tracing, varz
 from ..util import tls as tls_mod
 from ..util.stats import EXPOSITION_CONTENT_TYPE, Metrics
 from . import jobs as jobs_mod
 
 _COPY_CHUNK = 1024 * 1024
 
-#: ``-config`` sections of planes the port does not have yet: a file
-#: that sets one is refused rather than half applied.
-UNPORTED_SECTIONS = ("tracing", "telemetry", "usage", "profiler")
+#: ``-config`` sections of planes the port does not have yet (ROADMAP
+#: Queue 1, "Telemetry, SLO, usage and the policy engine"): a file that
+#: sets one is refused rather than half applied.
+UNPORTED_SECTIONS = ("telemetry", "usage")
 
 
 def _grpc_port(http_port: int) -> int:
@@ -224,6 +232,10 @@ class VolumeServer:
         if self.master_url:
             threading.Thread(target=self._heartbeat_loop, daemon=True,
                              name=f"volume-hb-{self.port}").start()
+            # Tail-sampled slow/errored roots go to the master's
+            # collector; followers proxy the POST to the leader.
+            tracing.configure_push(self.master_url, node=self.url,
+                                   component="volume")
             self.job_worker = jobs_mod.JobWorker(
                 self, poll_seconds=self.job_poll_seconds).start()
         glog.info("volume server started at %s (grpc %d, device %s)",
@@ -351,7 +363,8 @@ class VolumeServer:
             # The post-decode cache's cumulative per-volume counts ride
             # the telemetry rows, as in the JAX package; the rows' other
             # fields and the usage field stay unset: those planes are
-            # not ported yet (ROADMAP Queue 1, observability)
+            # not ported yet (ROADMAP Queue 1, "Telemetry, SLO, usage
+            # and the policy engine")
             collections = {v["id"]: v["collection"]
                            for v in st["volumes"]}
             for s in st["ec_shards"]:
@@ -501,8 +514,10 @@ class VolumeServer:
         the post-decode cache (a hit decodes nothing)."""
         faults.check("volume.read")
         if self.store.has_volume(volume_id, collection):
-            n = self.store.read_needle(volume_id, fid.key, fid.cookie,
-                                       collection)
+            with tracing.span("store.read_needle", vid=volume_id) as sp:
+                n = self.store.read_needle(volume_id, fid.key,
+                                           fid.cookie, collection)
+                sp.n_bytes = len(n.data)
             return faults.mangle("volume.read", n.data)
         ckey = self._ec_cache_key(volume_id, fid)
         cached = self.chunk_cache.get(ckey)
@@ -517,10 +532,13 @@ class VolumeServer:
                     break
         if mount is None:
             raise StoreError(f"volume {volume_id} not found")
-        reader = ClusterEcReader(self, volume_id, mount.base,
-                                 _scheme_from_vif(mount.base),
-                                 device=self.device)
-        n = reader.read_needle(fid.key, fid.cookie)
+        with tracing.span("ec.reconstruct", vid=volume_id) as sp:
+            reader = ClusterEcReader(self, volume_id, mount.base,
+                                     _scheme_from_vif(mount.base),
+                                     device=self.device)
+            n = reader.read_needle(fid.key, fid.cookie)
+            sp.n_bytes = len(n.data)
+            sp.tag(intervals_repaired=reader.intervals_repaired)
         self.metrics.counter("ec_intervals_repaired").inc(
             reader.intervals_repaired)
         self.chunk_cache.put(ckey, n.data, volume=volume_id)
@@ -1065,16 +1083,34 @@ def _make_http_handler(vs: VolumeServer):
                 return
             if u.path == "/metrics":
                 self._send(200, (vs.metrics.render()
+                                 + tracing.METRICS.render()
                                  + retry.METRICS.render()
                                  + flight_mod.METRICS.render()
                                  + scrubber_mod.METRICS.render()
                                  + httpserver.METRICS.render()).encode(),
                            EXPOSITION_CONTENT_TYPE)
                 return
-            if u.path.startswith("/debug/"):
-                # traces, profile and vars: not ported yet (ROADMAP
-                # Queue 1, observability)
-                self._json({"error": f"{u.path} is not ported yet"}, 404)
+            if u.path == "/debug/traces":
+                q = {k: v[0] for k, v in parse_qs(u.query).items()}
+                self._json(tracing.debug_payload(
+                    int(q["limit"]) if "limit" in q else None))
+                return
+            if u.path == "/debug/profile":
+                q = {k: v[0] for k, v in parse_qs(u.query).items()}
+                self._send(200, profiler.profile(
+                    float(q.get("seconds", 2.0)),
+                    hz=float(q.get("hz", profiler.DEFAULT_BURST_HZ))
+                ).encode(), "text/plain; charset=utf-8")
+                return
+            if u.path == "/debug/vars":
+                # the JAX page's telemetry and usage sections wait for
+                # their planes (ROADMAP Queue 1, "Telemetry, SLO, usage
+                # and the policy engine")
+                self._json(varz.payload(
+                    "volume", vs.metrics,
+                    extra={"cache": vs.chunk_cache.stats(),
+                           "jobs": (vs.job_worker.summary()
+                                    if vs.job_worker else None)}))
                 return
             t0 = time.perf_counter()
             try:
@@ -1227,7 +1263,8 @@ def _make_http_handler(vs: VolumeServer):
             except Exception as e:
                 self._json({"error": str(e)}, 500)
 
-    return httpserver.admission_gate(Handler)
+    return tracing.instrument_http_handler(
+        httpserver.admission_gate(Handler), "volume")
 
 
 def _replicate_http(peer_url: str, fid: str, body: Optional[bytes],
@@ -1245,9 +1282,10 @@ def _replicate_http(peer_url: str, fid: str, body: Optional[bytes],
 
 
 def apply_config(conf: dict) -> dict:
-    """Apply a loaded ``-config`` TOML: ``[grpc.tls]``, ``[retry]``,
-    ``[faults]``, ``[storage]`` (the fsync policy), ``[storage.scrub]``
-    (the scrub pacer's rate), ``[ingress]``, ``[pipeline]``,
+    """Apply a loaded ``-config`` TOML: ``[grpc.tls]``, ``[tracing]``,
+    ``[retry]``, ``[faults]``, ``[storage]`` (the fsync policy),
+    ``[storage.scrub]`` (the scrub pacer's rate), ``[profiler]`` (and
+    start its sampler when enabled), ``[ingress]``, ``[pipeline]``,
     ``[flight]``, ``[mesh]`` and the ``[jobs]`` kill switch. Returns the
     :class:`VolumeServer` keywords the file sets: ``secret`` (the JWT
     signing key) and ``job_poll_seconds`` (``[jobs] poll_seconds``). A
@@ -1259,16 +1297,20 @@ def apply_config(conf: dict) -> dict:
            if config_mod.lookup(conf, s) is not None]
     if bad:
         raise ValueError(
-            f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1); "
-            f"remove it from the file")
+            f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1, "
+            f"telemetry, SLO, usage and the policy engine); remove it "
+            f"from the file")
     secret = config_mod.lookup(conf, "jwt.signing.key", "")
     tls_mod.install_from_config(conf)
+    tracing.configure_from(conf)
     retry.configure_from(conf)
     faults.configure_from(conf)
     durability.configure_from(conf)
     scrubber_mod.configure_from(conf)
+    profiler.configure_from(conf)
     httpserver.configure_from(conf)
     jobs_mod.configure_from(conf)
+    profiler.ensure_started()
     if config_mod.lookup(conf, "pipeline") is not None:
         from ..pipeline import pipe as pipe_mod
         pipe_mod.configure_from(conf)
@@ -1316,9 +1358,10 @@ def main(argv: Optional[list[str]] = None) -> int:
                    choices=["disk", "mmap"],
                    help=".dat storage backend")
     p.add_argument("-config", default="",
-                   help="TOML: the JWT signing key, [grpc.tls], [retry], "
-                        "[faults], [storage], [storage.scrub], [ingress], "
-                        "[pipeline], [flight], [mesh], [jobs]")
+                   help="TOML: the JWT signing key, [grpc.tls], [tracing], "
+                        "[retry], [faults], [storage], [storage.scrub], "
+                        "[profiler], [ingress], [pipeline], [flight], "
+                        "[mesh], [jobs]")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="where encode, rebuild, decode and EC reads run "
                         "(default: the card)")

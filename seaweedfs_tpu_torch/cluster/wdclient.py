@@ -1,7 +1,9 @@
 """Master client with a vid -> locations cache.
 
-The port of ``seaweedfs_tpu/cluster/wdclient.py``, without the
-chunk-cache counters and the tracing spans (ROADMAP Queue 1, observability).
+The port of ``seaweedfs_tpu/cluster/wdclient.py``, with its
+``master.lookup`` (tagged ``cached``) and ``master.assign`` trace spans
+and without the vid-map cache counters (ROADMAP Queue 1, "Telemetry,
+SLO, usage and the policy engine").
 Mirrors weed/wdclient (SURVEY.md §2 "Master client"): clients keep a
 cached volume-id -> server-locations map, refreshed through the master's
 LookupVolume, so repeated reads don't hit the master. It speaks the
@@ -17,7 +19,7 @@ from typing import Optional
 
 from .. import pb
 from ..pb import master_pb2
-from ..util import retry
+from ..util import retry, tracing
 from ..util import tls as tls_mod
 from .master import _grpc_port
 
@@ -115,7 +117,9 @@ class MasterClient:
         with self._lock:
             hit = self._vid_map.get(volume_id)
             if hit and now - hit[0] < self.cache_seconds:
-                return hit[1]
+                with tracing.span("master.lookup", vid=volume_id,
+                                  cached="true"):
+                    return hit[1]
 
         def call():
             resp = self._stub().LookupVolume(
@@ -127,7 +131,9 @@ class MasterClient:
                     raise RuntimeError(entry.error)
             return resp
 
-        resp = self._with_failover(call)
+        with tracing.span("master.lookup", vid=volume_id,
+                          cached="false"):
+            resp = self._with_failover(call)
         locs: list[dict] = []
         for entry in resp.volume_id_locations:
             if entry.error:
@@ -154,7 +160,8 @@ class MasterClient:
                 raise RuntimeError(resp.error)
             return resp
 
-        resp = self._with_failover(call)
+        with tracing.span("master.assign"):
+            resp = self._with_failover(call)
         return {"fid": resp.fid, "url": resp.url,
                 "publicUrl": resp.public_url, "count": resp.count,
                 "auth": resp.auth}

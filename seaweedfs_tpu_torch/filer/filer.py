@@ -13,9 +13,9 @@ chunk list; ``read_file`` resolves visible intervals and fetches the
 needed ranges. Both take the cluster connection as an argument, so the
 Filer itself stays a pure metadata object (testable without servers).
 
-The port of ``seaweedfs_tpu/filer/filer.py``, without its
-``filer.write_file`` and ``filer.read_file`` spans (ROADMAP Queue 1,
-observability). One fault of the reference is repaired: a subscriber
+The port of ``seaweedfs_tpu/filer/filer.py``: ``write_file`` and
+``read_file`` run under ``filer.write_file`` and ``filer.read_file``
+trace spans. One fault of the reference is repaired: a subscriber
 that dropped an event takes no later one (ROADMAP Queue 3).
 """
 
@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
 from ..cache import chunk_key, fid_volume, global_chunk_cache
+from ..util import tracing
 from .entry import Attr, Entry, FileChunk, normalize_path, split_path
 from .filechunks import chunk_file_ids, read_plan, total_size
 from .stores import FilerStore, MemoryStore
@@ -387,10 +388,11 @@ class Filer:
         from ..cluster import operation
 
         chunk_size = chunk_size or self.CHUNK_SIZE
-        # no ``filer.write_file`` span (ROADMAP Queue 1, observability)
-        return self._write_file_inner(
-            path, data, master, collection, replication, ttl, mime,
-            chunk_size, append, signatures, operation)
+        with tracing.span("filer.write_file", path=path) as sp:
+            sp.n_bytes = len(data)
+            return self._write_file_inner(
+                path, data, master, collection, replication, ttl, mime,
+                chunk_size, append, signatures, operation)
 
     def _write_file_inner(self, path, data, master, collection,
                           replication, ttl, mime, chunk_size, append,
@@ -452,25 +454,26 @@ class Filer:
 
     def read_file(self, path: str, master, offset: int = 0,
                   length: Optional[int] = None) -> bytes:
-        # no ``filer.read_file`` span (ROADMAP Queue 1, observability)
-        entry = self.find_entry(path)
-        if entry is None:
-            raise FilerError(f"{path} not found")
-        if entry.is_dir:
-            raise FilerError(f"{path} is a directory")
-        size = total_size(entry.chunks)
-        if length is None:
-            length = size - offset
-        length = max(0, min(length, size - offset))
-        buf = bytearray(length)
-        for piece in read_plan(entry.chunks, offset, length):
-            blob = self._fetch_chunk(master, piece.file_id,
-                                     entry.attr.collection)
-            part = blob[piece.chunk_offset:
-                        piece.chunk_offset + piece.length]
-            buf[piece.buffer_offset:
-                piece.buffer_offset + len(part)] = part
-        return bytes(buf)
+        with tracing.span("filer.read_file", path=path) as sp:
+            entry = self.find_entry(path)
+            if entry is None:
+                raise FilerError(f"{path} not found")
+            if entry.is_dir:
+                raise FilerError(f"{path} is a directory")
+            size = total_size(entry.chunks)
+            if length is None:
+                length = size - offset
+            length = max(0, min(length, size - offset))
+            buf = bytearray(length)
+            for piece in read_plan(entry.chunks, offset, length):
+                blob = self._fetch_chunk(master, piece.file_id,
+                                         entry.attr.collection)
+                part = blob[piece.chunk_offset:
+                            piece.chunk_offset + piece.length]
+                buf[piece.buffer_offset:
+                    piece.buffer_offset + len(part)] = part
+            sp.n_bytes = length
+            return bytes(buf)
 
     def _fetch_chunk(self, master, fid: str, collection: str) -> bytes:
         """One whole stored chunk, through the hot-read cache."""

@@ -17,11 +17,13 @@ The port of ``seaweedfs_tpu/gateway/s3.py``: the same routes, status
 codes, XML bodies, cache keys and readahead, over the port's filer
 client. The gateway runs no kernel: a degraded read is repaired by the
 volume servers under the filer (``ClusterEcReader``), on their devices.
-Not ported yet (ROADMAP Queue 1, observability): the per-tenant usage
-collector and its push to the master, the tracing wrapper and
-``[tracing]``, and ``/debug/vars`` and ``/debug/profile``, which answer
-404. ``-securityConfig`` comes with the other tools' TLS flags (ROADMAP
-Queue 1, the remaining front ends and tools).
+Every verb runs under an ``s3.<VERB>`` trace root, ``-toml`` applies
+``[tracing]`` and ``[profiler]``, and ``/debug/vars`` and
+``/debug/profile`` describe the process. Not ported yet: the per-tenant
+usage collector and its push to the master (ROADMAP Queue 1,
+"Telemetry, SLO, usage and the policy engine"). ``-securityConfig``
+comes with the other tools' TLS flags (ROADMAP Queue 1, the remaining
+front ends and tools).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..cluster.filer_client import FilerClient, FilerClientError
 from ..pb import filer_pb2
 from ..util import glog
 from ..util import httpserver
+from ..util import profiler, tracing, varz
 from ..util.stats import Metrics
 from .s3_auth import AuthError, Identity, SigV4Verifier
 
@@ -102,7 +105,8 @@ class S3Gateway:
         self.url = f"{ip}:{port}"
         #: The master whose cache-invalidation hub this gateway's chunk
         #: cache subscribes to. (The JAX package also pushes per-tenant
-        #: usage there: ROADMAP Queue 1, observability.)
+        #: usage there: ROADMAP Queue 1, "Telemetry, SLO, usage and the
+        #: policy engine".)
         self.master_url = master_url
         #: identities passed explicitly (-config file) are static; with
         #: none, the gateway follows the filer-stored config and
@@ -827,11 +831,17 @@ def _make_handler(gw: S3Gateway):
 
         def do_GET(self):
             u = urllib.parse.urlsplit(self.path)
-            if u.path in ("/debug/vars", "/debug/profile"):
-                # not ported yet (ROADMAP Queue 1, observability)
-                self._send(404, json.dumps(
-                    {"error": f"{u.path} is not ported yet"}).encode(),
-                    "application/json")
+            if u.path == "/debug/vars":
+                # the JAX page's usage section waits for its plane
+                self._send(200, json.dumps(varz.payload(
+                    "s3", gw.metrics)).encode(), "application/json")
+                return
+            if u.path == "/debug/profile":
+                q = dict(urllib.parse.parse_qsl(u.query))
+                self._send(200, profiler.profile(
+                    float(q.get("seconds", 2.0)),
+                    hz=float(q.get("hz", profiler.DEFAULT_BURST_HZ))
+                ).encode(), "text/plain; charset=utf-8")
                 return
             bucket, key, q, _ = self._split()
             gw.metrics.counter("request_total", method="GET").inc()
@@ -992,9 +1002,8 @@ def _make_handler(gw: S3Gateway):
                 if lease is not None:
                     lease.release()
 
-    # the JAX package wraps this in tracing.instrument_http_handler
-    # (ROADMAP Queue 1, observability)
-    return httpserver.admission_gate(Handler)
+    return tracing.instrument_http_handler(
+        httpserver.admission_gate(Handler), "s3")
 
 
 def parse_identities(cfg: dict) -> list[Identity]:
@@ -1038,7 +1047,8 @@ def main(argv: list[str]) -> int:
     p.add_argument("-config", default="",
                    help="identities JSON (empty = open access)")
     p.add_argument("-toml", default="",
-                   help="server TOML ([ingress], [qos], [retry])")
+                   help="server TOML ([ingress], [qos], [retry], "
+                        "[tracing], [profiler])")
     args = p.parse_args(argv)
     qos = None
     if args.toml:
@@ -1046,16 +1056,16 @@ def main(argv: list[str]) -> int:
         from ..util import retry as retry_mod
         try:
             conf = config_mod.load(args.toml)
-            if "tracing" in conf:
-                raise ValueError("[tracing] is not ported yet (ROADMAP "
-                                 "Queue 1, observability)")
             httpserver.configure_from(conf)
             retry_mod.configure_from(conf)
+            tracing.configure_from(conf)
+            profiler.configure_from(conf)
             qos = httpserver.qos_from_conf(conf)
         except (OSError, TypeError, ValueError) as e:
             print(f"error: -toml {args.toml}: {e}", file=sys.stderr)
             return 2
     idents = load_identities(args.config) if args.config else None
+    profiler.ensure_started()
     gw = S3Gateway(args.filer, ip=args.ip, port=args.port,
                    identities=idents, master_url=args.master,
                    qos=qos).start()

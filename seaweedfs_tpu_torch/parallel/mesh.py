@@ -38,8 +38,10 @@ shell flag, which overrides it for one command, pins a mesh over the
 local devices of the command's device type; more than one card with no
 mesh configured splits adaptively (:data:`AUTO`); anything else stays on
 the single-device path of ``rs_torch``. Prepare records the flight
-recorder's H2D events. Not ported yet: the tracing series of the
-telemetry totals (ROADMAP, observability).
+recorder's H2D events. Each prepare and apply lands in the tracing
+series ``trace_request_stage_seconds{stage=pipe.compute.dispatch|
+pipe.compute.collective}``, and the axis sizes in the
+``trace_mesh_axis_size`` gauges.
 """
 
 from __future__ import annotations
@@ -530,18 +532,43 @@ def _granule(sp: int) -> int:
 
 
 # --------------------------------------------------------------------------
-# telemetry — prepare ("dispatch") vs apply ("collective") time
+# telemetry — pipe.compute split into dispatch (H2D shard placement)
+# vs collective (the per-cell apply) time, plus per-axis gauges
 # --------------------------------------------------------------------------
 
 _STATS_LOCK = threading.Lock()
 _TOTALS = {"batches": 0, "bytes_in": 0, "bytes_out": 0,
            "dispatch_seconds": 0.0, "collective_seconds": 0.0}
 _LAST_SHAPE = {"dp": 0, "sp": 0}
+#: the closed stage vocabulary — prepare is "dispatch", the apply is
+#: "collective"; nothing else ever reaches _observe
+_STAGE_NAMES = {"dispatch": "pipe.compute.dispatch",
+                "collective": "pipe.compute.collective"}
+#: stage suffix -> (latency histogram, bytes counter); cached like
+#: pipe._STAGE_INSTRUMENTS — a rare double-create just wins the same
+#: registry entry.
+_INSTRUMENTS: dict = {}
 
 
 def _observe(kind: str, seconds: float, nbytes: int, mesh: Mesh) -> None:
     """Fold one prepare ("dispatch") or apply ("collective")
-    measurement into the module totals and the last axis shape."""
+    measurement into the module totals, the shared
+    ``request_stage_seconds{stage=pipe.compute.<kind>}`` tracing series
+    and the per-axis ``mesh_axis_size`` gauges."""
+    from ..util import tracing
+    tup = _INSTRUMENTS.get(kind)
+    if tup is None:
+        stage = _STAGE_NAMES[kind]
+        tup = (tracing.METRICS.histogram("request_stage_seconds",
+                                         stage=stage),
+               tracing.METRICS.counter("stage_bytes_total",
+                                       stage=stage))
+        _INSTRUMENTS[kind] = tup
+    tup[0].observe(seconds)
+    if nbytes:
+        tup[1].inc(nbytes)
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    shape_changed = False
     with _STATS_LOCK:
         _TOTALS[f"{kind}_seconds"] += seconds
         if kind == "dispatch":
@@ -549,8 +576,12 @@ def _observe(kind: str, seconds: float, nbytes: int, mesh: Mesh) -> None:
             _TOTALS["bytes_in"] += nbytes
         else:
             _TOTALS["bytes_out"] += nbytes
-        _LAST_SHAPE["dp"] = mesh.shape["dp"]
-        _LAST_SHAPE["sp"] = mesh.shape["sp"]
+        if (_LAST_SHAPE["dp"], _LAST_SHAPE["sp"]) != (dp, sp):
+            _LAST_SHAPE["dp"], _LAST_SHAPE["sp"] = dp, sp
+            shape_changed = True
+    if shape_changed:
+        for axis, size in (("dp", dp), ("sp", sp)):
+            tracing.METRICS.gauge("mesh_axis_size", axis=axis).set(size)
 
 
 def debug_payload() -> dict:

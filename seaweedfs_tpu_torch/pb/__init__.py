@@ -17,8 +17,9 @@ packages is a matter of the wire, and the tests prove it there. If these
 copies' descriptor bytes ever differ from the JAX package's, importing
 both packages in one process fails.
 
-Not ported yet: the tracing wrappers the JAX package puts around each
-handler (ROADMAP Queue 1, observability).
+:func:`generic_handler` runs every unary and server-streaming handler
+under a ``grpc.<Method>`` trace span that continues the caller's
+``x-seaweed-trace`` metadata.
 """
 
 from __future__ import annotations
@@ -166,17 +167,19 @@ def generic_handler(service_name: str, methods: list[Method],
     """
     import grpc
 
+    from ..util import tracing
+
     handlers: dict[str, object] = {}
     for m in methods:
         fn: Callable = getattr(servicer, m.name)
         if m.kind == UNARY:
             handlers[m.name] = grpc.unary_unary_rpc_method_handler(
-                fn,
+                tracing.wrap_grpc_unary(fn, m.name),
                 request_deserializer=m.request_cls.FromString,
                 response_serializer=m.response_cls.SerializeToString)
         elif m.kind == SERVER_STREAM:
             handlers[m.name] = grpc.unary_stream_rpc_method_handler(
-                fn,
+                tracing.wrap_grpc_stream(fn, m.name),
                 request_deserializer=m.request_cls.FromString,
                 response_serializer=m.response_cls.SerializeToString)
         elif m.kind == BIDI_STREAM:

@@ -120,7 +120,11 @@ def decode_volume(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
                   device=None) -> int:
     """Full ec.decode on ``device`` (None = the card; raises when there
     is none): .dat + .idx restored; returns the .dat size."""
+    from ..util import tracing
+
     rs_torch.resolve_device(device)
-    size = write_dat_file(base, scheme, device=device)
+    with tracing.span("ec.decode", base=str(base)) as sp:
+        size = write_dat_file(base, scheme, device=device)
+        sp.n_bytes = size
     write_idx_file_from_ecx(base)
     return size

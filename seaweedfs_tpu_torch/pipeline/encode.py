@@ -331,12 +331,19 @@ def encode_volume(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
     """Full seal on ``device`` (None = the card; raises when there is
     none): shards + .ecx + .vif, optionally dropping .dat/.idx the way
     ``ec.encode`` deletes the source volume after spreading shards. The
-    .vif records the volume's needle version from the superblock."""
+    .vif records the volume's needle version from the superblock. The
+    shard write runs under an ``ec.encode`` span carrying the .dat
+    size."""
+    from ..util import tracing
+
     rs_torch.resolve_device(device)
     with open(_require_local_dat(base), "rb") as f:
         version = superblock_mod.SuperBlock.parse(f.read(8)).version
-    dat_size = write_ec_files(base, scheme, max_batch_bytes, stats=stats,
-                              overlapped=overlapped, device=device)
+    with tracing.span("ec.encode", base=str(base)) as sp:
+        dat_size = write_ec_files(base, scheme, max_batch_bytes,
+                                  stats=stats, overlapped=overlapped,
+                                  device=device)
+        sp.n_bytes = dat_size
     write_ecx_file(base)
     vi = ec_files.VolumeInfo(version=version, replication=replication,
                              dat_file_size=dat_size,

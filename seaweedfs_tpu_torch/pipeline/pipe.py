@@ -29,10 +29,13 @@ Left out against the JAX package: grouped dispatch (the group drain,
 would enqueue the same per-slab copies and launches as one dispatch per
 batch, and only shrink the batches, so it waits for a launch that
 covers many slabs (ROADMAP); its ``[pipeline]`` fields are accepted and
-shown, and change nothing. The race and buffer checkers
-(``racecheck.register``, ``bufcheck``) and the per-stage tracing series
-(``_stage_observe``) wait for the port of ``util/tracing`` and the
-checkers (ROADMAP Queue 1, observability); comments mark where they go.
+shown, and change nothing. Each batch's read, compute (its dispatch
+share plus the wait on its result) and write land in the tracing series
+``trace_request_stage_seconds{stage=pipe.read|pipe.compute|pipe.write}``
+(``_stage_observe``). The race and buffer checkers
+(``racecheck.register``, ``bufcheck``) wait for their port (ROADMAP
+Queue 1, "The sim harness, the lint and the checkers"); comments mark
+where they go.
 A failed run publishes nothing here, where the JAX package folds its
 partial stats into the totals.
 """
@@ -162,7 +165,7 @@ class HostBufferPool:
         # the tensors own the memory the numpy views point into; the
         # JAX package registers each buffer with its buffer checker and
         # the pool with its race checker here (bufcheck, racecheck:
-        # ROADMAP, observability)
+        # ROADMAP Queue 1, "The sim harness, the lint and the checkers")
         self._tensors = [torch.empty(nbytes, dtype=torch.uint8,
                                      pin_memory=pinned)
                          for _ in range(count)]
@@ -285,6 +288,27 @@ def reset_telemetry() -> None:
         RECENT.clear()
 
 
+#: stage name -> latency histogram + bytes counter in the tracing
+#: metrics family, so the pipeline's stage breakdown lands in the same
+#: ``trace_request_stage_seconds{stage=...}`` series every other
+#: subsystem reports into. Cached like tracing._INSTRUMENTS: plain
+#: dict, a rare double-create just wins the same registry entry.
+_STAGE_INSTRUMENTS: dict = {}
+
+
+def _stage_observe(stage: str, seconds: float, nbytes: int = 0) -> None:
+    tup = _STAGE_INSTRUMENTS.get(stage)
+    if tup is None:
+        from ..util import tracing
+        tup = (tracing.METRICS.histogram("request_stage_seconds",
+                                         stage=stage),
+               tracing.METRICS.counter("stage_bytes_total", stage=stage))
+        _STAGE_INSTRUMENTS[stage] = tup
+    tup[0].observe(seconds)
+    if nbytes:
+        tup[1].inc(nbytes)
+
+
 class PipelineError(RuntimeError):
     pass
 
@@ -397,6 +421,7 @@ def _run_sync(batches, encode_fn, write_fn, recycle_fn, st: PipeStats,
         st.read_seconds += t1 - t0
         flight.record(flight.EV_READ_END, batch=seq,
                       arg=_batch_nbytes(batch))
+        _stage_observe("pipe.read", t1 - t0, _batch_nbytes(batch))
         try:
             flight.record(flight.EV_DISPATCH, batch=seq)
             result = encode_fn(batch if prepare_fn is None
@@ -410,6 +435,7 @@ def _run_sync(batches, encode_fn, write_fn, recycle_fn, st: PipeStats,
             st.sync_seconds += t3 - t2
             flight.record(flight.EV_SYNC_END, batch=seq,
                           arg=result_np.nbytes)
+            _stage_observe("pipe.compute", t3 - t1, result_np.nbytes)
             flight.record(flight.EV_WRITE_START, batch=seq)
             write_fn(meta, batch, result_np)
         except Exception as e:
@@ -418,8 +444,10 @@ def _run_sync(batches, encode_fn, write_fn, recycle_fn, st: PipeStats,
             raise PipelineError(f"pipeline stage failed: {e!r}") from e
         if recycle_fn is not None:
             recycle_fn(meta, batch)
-        st.write_seconds += time.perf_counter() - t3
+        dt = time.perf_counter() - t3
+        st.write_seconds += dt
         flight.record(flight.EV_WRITE_END, batch=seq)
+        _stage_observe("pipe.write", dt)
         st.batches += 1
         st.groups += 1
         st.max_group = max(st.max_group, 1)
@@ -474,8 +502,7 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
                 flight.record(flight.EV_READ_END, batch=seq,
                               arg=_batch_nbytes(item[1]))
                 seq += 1
-                # _stage_observe("pipe.read", ...) goes here once
-                # util/tracing is ported (ROADMAP, observability)
+                _stage_observe("pipe.read", dt, _batch_nbytes(item[1]))
                 read_q.put(item)
                 _record_depth(read_q, 0)
         except Exception as e:  # noqa: BLE001 — re-raised by the caller
@@ -491,7 +518,7 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
             if item is _END:
                 return
             _record_depth(write_q, 1)
-            meta, batch, result = item
+            meta, batch, result, disp_share = item
             if stop.is_set():
                 recycle_quietly(meta, batch)
                 continue
@@ -503,12 +530,18 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
                 st.sync_seconds += t1 - t0
                 flight.record(flight.EV_SYNC_END, batch=seq,
                               arg=result_np.nbytes)
+                # the batch's compute stage: its dispatch share plus the
+                # wait on its result (the card's event, on CUDA)
+                _stage_observe("pipe.compute", disp_share + (t1 - t0),
+                               result_np.nbytes)
                 flight.record(flight.EV_WRITE_START, batch=seq)
                 write_fn(meta, batch, result_np)
                 if recycle_fn is not None:
                     recycle_fn(meta, batch)
-                st.write_seconds += time.perf_counter() - t1
+                dt = time.perf_counter() - t1
+                st.write_seconds += dt
                 flight.record(flight.EV_WRITE_END, batch=seq)
+                _stage_observe("pipe.write", dt)
                 seq += 1
                 st.batches += 1
                 st.bytes_in += _batch_nbytes(batch)
@@ -538,10 +571,11 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
             return
         flight.record(flight.EV_DISPATCH_DONE, batch=cseq, arg=1)
         cseq += 1
-        st.dispatch_seconds += time.perf_counter() - t0
+        disp = time.perf_counter() - t0
+        st.dispatch_seconds += disp
         st.groups += 1
         st.max_group = 1
-        write_q.put((meta, batch, result))
+        write_q.put((meta, batch, result, disp))
         _record_depth(write_q, 1)
 
     rt = threading.Thread(target=reader, name="ec-pipe-read", daemon=True)

@@ -16,8 +16,9 @@ buffers recycle as soon as a chunk's result has synced.
 When ``parallel/mesh.routing_mesh`` says to split, every chunk splits
 over the mesh's devices (:func:`_pick_reconstruct_fn`). A completed
 rebuild is published to the ring of recent runs as ``ec.rebuild``, and
-every live chunk cache drops the volume (``base_invalidated``). Not
-ported yet: tracing spans (ROADMAP Queue 1, observability).
+every live chunk cache drops the volume (``base_invalidated``). The run
+lies inside an ``ec.rebuild`` trace span carrying the rebuilt bytes and
+a ``shards`` tag.
 """
 
 from __future__ import annotations
@@ -137,23 +138,28 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
     def recycle(meta, _chunk):
         pool.release(meta[0])
 
+    from ..util import tracing
+
     try:
-        t0 = time.perf_counter()
-        for path in out_paths:
-            writer.open_file(path, size)
-        try:
-            pipe.run_pipeline(
-                chunks(), _pick_reconstruct_fn(enc, present, missing),
-                write, recycle_fn=recycle, stats=st, publish=False)
-        except pipe.PipelineError:
-            writer.abort()
+        with tracing.span("ec.rebuild", base=str(base)) as sp:
+            sp.n_bytes = size * len(missing)
+            sp.tag(shards=",".join(str(i) for i in missing))
+            t0 = time.perf_counter()
+            for path in out_paths:
+                writer.open_file(path, size)
+            try:
+                pipe.run_pipeline(
+                    chunks(), _pick_reconstruct_fn(enc, present, missing),
+                    write, recycle_fn=recycle, stats=st, publish=False)
+            except pipe.PipelineError:
+                writer.abort()
+                writer = None
+                raise
+            writer.close()
+            st.write_seconds += writer.busy_seconds
             writer = None
-            raise
-        writer.close()
-        st.write_seconds += writer.busy_seconds
-        writer = None
-        st.wall_seconds = time.perf_counter() - t0
-        pipe.publish_stats(st, kind="ec.rebuild")
+            st.wall_seconds = time.perf_counter() - t0
+            pipe.publish_stats(st, kind="ec.rebuild")
     finally:
         if writer is not None:
             writer.abort()

@@ -21,10 +21,16 @@ sweep on the master's jobs plane), ``ec.rebuild``, ``ec.decode``,
 ``cluster.status``, ``cluster.check`` (without the telemetry and SLO
 verdicts), ``lock``, ``unlock``, ``job.submit``, ``job.status``,
 ``job.pause``, ``job.resume``, ``job.cancel``, ``scrub.start``,
-``scrub.status``, ``volume.tier.upload`` and ``volume.tier.download``;
+``scrub.status``, ``volume.tier.upload``, ``volume.tier.download``,
+``trace.status``, ``trace.dump``, ``trace.top`` and ``ingress.status``;
 ``fs.*`` and the S3 gateway's ``s3.*`` live in ``fs_commands.py``. The
-commands of the observability planes come with a later slice (ROADMAP
-Queue 1, observability).
+commands of the telemetry, SLO and usage planes come with a later slice
+(ROADMAP Queue 1, "Telemetry, SLO, usage and the policy engine").
+
+Unlike the JAX cluster shell, every command runs under a
+``shell.<name>`` trace root, so the servers' gRPC and HTTP legs of one
+command (``ec.rebuild``'s shard copies and rebuild, say) stitch under
+it at the master.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from typing import Callable, Optional
 from .. import pb
 from ..pb import master_pb2, volume_server_pb2
 from ..storage.ec_files import ShardBits
-from ..util import retry, security
+from ..util import retry, security, tracing
 from ..util import tls as tls_mod
 from .commands import ShellError, _parser
 
@@ -1875,6 +1881,163 @@ class _CappedLines:
             self.env.println(f"… {self.suppressed} more")
 
 
+def _trace_hosts(env: ClusterEnv) -> list[tuple[str, str]]:
+    """(role, host) pairs whose /debug/traces we can poll: the master,
+    every data node in its topology, and the filer when configured."""
+    hosts = [("master", env.master_url)]
+    try:
+        for node in env.collect_ec_nodes():
+            hosts.append(("volume", node.url))
+    except Exception:  # noqa: BLE001 — master down; report what we can
+        pass
+    if env.filer_url:
+        hosts.append(("filer", env.filer_url))
+    return hosts
+
+
+@cluster_command("trace.status")
+def cmd_trace_status(env: ClusterEnv, argv: list[str]) -> None:
+    """Per-server tracing state: ring occupancy and config, polled from
+    each server's /debug/traces endpoint."""
+    p = _parser("trace.status")
+    p.parse_args(argv)
+    for role, host in _trace_hosts(env):
+        try:
+            d = env._master_http("/debug/traces?limit=0", host=host)
+        except ShellError as e:
+            env.println(f"{role} {host}: unreachable ({e})")
+            continue
+        env.println(f"{role} {host}: enabled={d['enabled']} "
+                    f"ring={d['count']}/{d['ring_size']} "
+                    f"slow_threshold={d['slow_threshold_seconds']}s")
+
+
+@cluster_command("ingress.status")
+def cmd_ingress_status(env: ClusterEnv, argv: list[str]) -> None:
+    """Per-server ingress-plane state (worker pool, queue pressure,
+    parked keep-alive connections, shed counters), polled from each
+    server's /debug/vars."""
+    p = _parser("ingress.status")
+    p.parse_args(argv)
+    for role, host in _trace_hosts(env):
+        try:
+            d = env._master_http("/debug/vars", host=host)
+        except ShellError as e:
+            env.println(f"{role} {host}: unreachable ({e})")
+            continue
+        ing = d.get("ingress") or {}
+        servers = ing.get("servers") or []
+        if not servers:
+            env.println(f"{role} {host}: no ingress servers")
+            continue
+        for s in servers:
+            env.println(
+                f"{role} {host}: [{s['component']}] "
+                f"busy={s['busy']}/{s['workers']} "
+                f"queued={s['queued']}/{s['queue_depth']} "
+                f"pressure={s['pressure']:.2f} "
+                f"conns={s['connections']}/{s['max_connections']} "
+                f"parked={s['parked']} served={s['served_total']}")
+        shed = ing.get("shed") or {}
+        if shed:
+            env.println(f"{role} {host}: shed " + " ".join(
+                f"{k}={v}" for k, v in sorted(shed.items())))
+
+
+@cluster_command("trace.dump")
+def cmd_trace_dump(env: ClusterEnv, argv: list[str]) -> None:
+    """Span trees of recent traces across the cluster. With -traceId,
+    stitches that trace's spans from every server into one tree."""
+    p = _parser("trace.dump")
+    p.add_argument("-n", type=int, default=1,
+                   help="recent traces per server (without -traceId)")
+    p.add_argument("-traceId", default="")
+    args = p.parse_args(argv)
+    found = False
+    if args.traceId:
+        # One logical trace leaves partial span sets on several
+        # processes; merge them before rendering the tree. The header
+        # line comes from the ingress piece: the one with no remote
+        # parent, or — when the caller supplied a parent span id, so
+        # every piece has one — the piece that started first.
+        pieces: list[dict] = []
+        for _, host in _trace_hosts(env):
+            try:
+                d = env._master_http("/debug/traces", host=host)
+            except ShellError:
+                continue
+            pieces.extend(t for t in d["traces"]
+                          if t["trace_id"] == args.traceId)
+        if pieces:
+            root = min(pieces, key=lambda t: (t["remote_parent"] != "",
+                                              t["start"]))
+            spans = [s for t in pieces for s in t["spans"]]
+            merged = dict(root, spans=spans, span_count=len(spans))
+            env.println(tracing.render_trace(merged))
+            found = True
+    else:
+        for role, host in _trace_hosts(env):
+            try:
+                d = env._master_http(f"/debug/traces?limit={args.n}",
+                                     host=host)
+            except ShellError:
+                continue
+            for t in d["traces"]:
+                env.println(f"[{role} {host}]")
+                env.println(tracing.render_trace(t))
+                found = True
+    if not found:
+        env.println("trace.dump: no completed traces")
+
+
+@cluster_command("trace.top")
+def cmd_trace_top(env: ClusterEnv, argv: list[str]) -> None:
+    """Worst cross-process traces from the master's tail-sampling
+    collector (/cluster/traces): errored traces first, then slowest,
+    each with a per-stage time breakdown so the slow hop is named."""
+    p = _parser("trace.top")
+    p.add_argument("-n", type=int, default=10,
+                   help="traces to show (worst first)")
+    p.add_argument("-stages", type=int, default=4,
+                   help="stages to show per trace")
+    args = p.parse_args(argv)
+    doc = env._master_http("/cluster/traces")
+    traces = doc.get("traces", [])
+    if not traces:
+        env.println(
+            "trace.top: no traces collected yet (servers push roots "
+            "slower than [tracing] push_threshold_seconds, and "
+            "errored ones, to the master)")
+        return
+    for t in traces:
+        stages: dict = {}
+        for s in t.get("spans", []):
+            stages[s["name"]] = (stages.get(s["name"], 0.0)
+                                 + float(s.get("duration_seconds")
+                                         or 0.0))
+        t["_stages"] = sorted(stages.items(), key=lambda kv: kv[1],
+                              reverse=True)
+    traces.sort(key=lambda t: (t.get("status", "ok") == "ok",
+                               -float(t.get("duration_seconds") or 0)))
+    shown = traces[:max(1, args.n)]
+    env.println(f"trace.top: {doc.get('count', len(traces))} stitched "
+                f"traces on the master (ring {doc.get('ring_size')}, "
+                f"ingested {doc.get('ingested')})")
+    for t in shown:
+        srcs = ",".join(sorted(t.get("sources", {})))
+        env.println(
+            f"{t['trace_id']}  {_fmt_ms(t.get('duration_seconds'))}ms "
+            f"{t.get('status', 'ok'):<5} {t.get('name') or '?'} "
+            f"[{'+'.join(t.get('reasons', []))}] "
+            f"spans={t.get('span_count', 0)} sources={srcs}")
+        for name, secs in t["_stages"][:max(0, args.stages)]:
+            env.println(f"    {_fmt_ms(secs):>9}ms  {name}")
+
+
+def _fmt_ms(seconds) -> str:
+    return "-" if seconds is None else f"{seconds * 1e3:.1f}"
+
+
 @cluster_command("cluster.check")
 def cmd_cluster_check(env: ClusterEnv, argv: list[str]) -> None:
     """Read-only cluster health sweep (the reference's cluster.check):
@@ -1959,7 +2122,8 @@ def cmd_cluster_check(env: ClusterEnv, argv: list[str]) -> None:
             problems += 1
     # The JAX command also reads node health from /cluster/telemetry
     # and burn rates from /cluster/slo here; those planes are not
-    # ported yet (ROADMAP Queue 1, observability)
+    # ported yet (ROADMAP Queue 1, "Telemetry, SLO, usage and the policy
+    # engine")
     out.footer()
     env.println(f"cluster.check: {n_nodes} nodes, {len(vols)} volumes, "
                 f"{len(present)} ec volumes, {problems} problems")
@@ -1980,14 +2144,15 @@ def run_cluster_command(env: ClusterEnv, line: str) -> None:
     if fn is None:
         raise ShellError(f"unknown command {name!r} (try 'help')")
     try:
-        if name in DESTRUCTIVE_COMMANDS:
-            # mutating choreography runs under the master's exclusive
-            # admin lease: held REPL locks pass through, one-shots
-            # acquire/release around this single command
-            with env.exclusive():
+        with tracing.start_trace(f"shell.{name}"):
+            if name in DESTRUCTIVE_COMMANDS:
+                # mutating choreography runs under the master's
+                # exclusive admin lease: held REPL locks pass through,
+                # one-shots acquire/release around this single command
+                with env.exclusive():
+                    fn(env, argv)
+            else:
                 fn(env, argv)
-        else:
-            fn(env, argv)
     except ShellError:
         raise
     except (argparse.ArgumentError, SystemExit) as e:

@@ -28,6 +28,8 @@ semantics stay the reference's:
     ckpt.save -gateway h:p -name N           seeded sharded checkpoint
     ckpt.restore -gateway h:p -name N        restore onto the mesh
     ckpt.list -gateway h:p                   committed checkpoints
+    trace.status                             tracing config + span counts
+    trace.dump [-n 3] [-traceId T]           recent traces' span trees
 
 ``ec.encode`` and ``ec.rebuild`` take ``-mesh dp,sp`` (or ``auto``):
 split the command's pipeline work over a (dp, sp) mesh of the local
@@ -36,9 +38,9 @@ shell's ``-config`` set in ``[mesh]``. The ``pipeline.*`` commands read
 back what ``[pipeline]``, ``[mesh]`` and ``[flight]`` set and what the
 session's runs recorded. ``fault.clear -breakers`` also resets the
 retry layer's circuit breakers (util/retry.py). ``ckpt.*`` run on the
-env's device (None = the card) and take ``-mesh`` too. Not ported yet:
-the trace root around each command and the ``trace.*`` commands
-(ROADMAP Queue 1, observability).
+env's device (None = the card) and take ``-mesh`` too. Every command
+runs under a ``shell.<name>`` trace root, which ``trace.status`` and
+``trace.dump`` read back from this process's ring.
 """
 
 from __future__ import annotations
@@ -440,6 +442,48 @@ def cmd_volume_vacuum(env: CommandEnv, argv: list[str]) -> None:
                         f"reclaimed, now {new_size} bytes")
 
 
+@command("trace.status")
+def cmd_trace_status(env: CommandEnv, argv: list[str]) -> None:
+    """Tracing config + ring-buffer occupancy + per-stage span counts
+    of this process (docs/observability.md)."""
+    p = _parser("trace.status")
+    p.parse_args(argv)
+    from ..util import tracing
+    payload = tracing.debug_payload()
+    env.println(f"trace.status enabled={payload['enabled']} "
+                f"ring={payload['count']}/{payload['ring_size']} "
+                f"slow_threshold="
+                f"{payload['slow_threshold_seconds']}s")
+    stages: dict[str, int] = {}
+    for t in payload["traces"]:
+        for s in t["spans"]:
+            stages[s["name"]] = stages.get(s["name"], 0) + 1
+    for name in sorted(stages):
+        env.println(f"  {name}: {stages[name]} spans")
+
+
+@command("trace.dump")
+def cmd_trace_dump(env: CommandEnv, argv: list[str]) -> None:
+    """Span trees of the most recent completed traces."""
+    p = _parser("trace.dump")
+    p.add_argument("-n", type=int, default=3,
+                   help="how many recent traces to print")
+    p.add_argument("-traceId", default="",
+                   help="dump one specific trace id")
+    args = p.parse_args(argv)
+    from ..util import tracing
+    traces = tracing.recent_traces()
+    if args.traceId:
+        traces = [t for t in traces if t["trace_id"] == args.traceId]
+    else:
+        traces = traces[-max(0, args.n):]
+    if not traces:
+        env.println("trace.dump: no completed traces")
+        return
+    for t in traces:
+        env.println(tracing.render_trace(t))
+
+
 @command("fault.inject")
 def cmd_fault_inject(env: CommandEnv, argv: list[str]) -> None:
     """Arm a fault at a named point:
@@ -800,8 +844,10 @@ def run_command(env: CommandEnv, line: str) -> None:
     fn = COMMANDS.get(name)
     if fn is None:
         raise ShellError(f"unknown command {name!r} (try 'help')")
+    from ..util import tracing
     try:
-        fn(env, argv)
+        with tracing.start_trace(f"shell.{name}"):
+            fn(env, argv)
     except ShellError:
         raise
     except (argparse.ArgumentError, SystemExit) as e:

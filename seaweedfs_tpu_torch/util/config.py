@@ -6,8 +6,9 @@ sections the port reads; hard defaults sit underneath.
 
 :data:`SCAFFOLDS` holds the templates of the sections the port reads —
 ``[pipeline]`` (pipeline/pipe.py), ``[mesh]`` (parallel/mesh.py),
-``[flight]`` (pipeline/flight.py), ``[cache]`` (cache/chunk_cache.py)
-and ``[qos]`` (util/httpserver.py, the S3 gateway) — each text
+``[flight]`` (pipeline/flight.py), ``[cache]`` (cache/chunk_cache.py),
+``[qos]`` (util/httpserver.py, the S3 gateway), ``[tracing]``
+(util/tracing.py) and ``[profiler]`` (util/profiler.py) — each text
 byte-equal to the JAX package's, so a file written for one package reads
 the same in the other. (The ``[flight]`` text names the JAX package's environment
 variable; the port's is ``SEAWEEDFS_TORCH_FLIGHT``.) The other
@@ -94,6 +95,25 @@ concurrency = 16
 [qos.tenant]
 # alice = "gold"                 # identity name -> class name
 # mallory = "bronze"
+""",
+    "tracing": """\
+# tracing.toml — end-to-end request tracing (docs/observability.md).
+[tracing]
+enabled = true                   # false strips all span bookkeeping
+ring_size = 256                  # completed traces kept per process
+slow_threshold_seconds = 1.0     # slower roots log a span-tree line
+push_threshold_seconds = 1.0     # slower/errored roots push to master
+collector_url = ""               # master host:port override (servers
+                                 # that know their master set it)
+collector_ring_size = 256        # stitched traces kept on the master
+""",
+    "profiler": """\
+# profiler.toml — continuous sampling profiler (docs/observability.md).
+[profiler]
+enabled = true                   # always-on low-rate sampler thread
+hz = 1.0                         # background sampling rate
+top_k = 5                        # hot stacks carried on heartbeats
+max_stacks = 512                 # distinct collapsed stacks retained
 """,
     "mesh": """\
 # mesh.toml — explicit (dp, sp) device mesh for EC compute (docs/mesh.md).

@@ -141,3 +141,10 @@ def durable_replace(src: str | Path, dst: str | Path,
     os.replace(src, dst)
     fsync_dir(os.path.dirname(os.path.abspath(dst)) or ".")
 
+
+def debug_payload() -> dict:
+    """The ``durability`` section of ``/debug/vars``."""
+    with _LOCK:
+        return {"mode": _MODE, "batch_bytes": _BATCH_BYTES,
+                "batch_seconds": _BATCH_SECONDS,
+                "pending_fds": len(_PENDING)}

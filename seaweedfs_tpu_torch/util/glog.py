@@ -8,9 +8,9 @@ on the stdlib logging module so tests can capture records normally.
 
 The port's copy of ``seaweedfs_tpu/util/glog.py``, logging under the
 ``seaweedfs_tpu_torch.glog`` logger (not the package's own logger, whose
-children the port's modules log to: this one does not propagate). Not ported yet: the `` trace=<id>
-span=<id>`` suffix a line gets inside an active tracing span (the port
-has no spans; ROADMAP Queue 1, observability).
+children the port's modules log to: this one does not propagate). A line
+logged inside an active span of the port's tracing ends with
+`` trace=<id> span=<id>``.
 """
 
 from __future__ import annotations
@@ -38,18 +38,35 @@ def set_verbosity(n: int) -> None:
     VERBOSITY = n
 
 
+def _trace_suffix() -> str:
+    """`` trace=<id> span=<id>`` when this thread is inside an active
+    span, else "" — the glue that lets ``trace.top`` output grep
+    straight into server logs. Looked up through sys.modules because
+    tracing imports glog (never the other way around); until tracing is
+    loaded there is no span to correlate anyway. The name is the port's
+    module: a span the JAX package opened in the same process is not
+    this package's."""
+    tracing = sys.modules.get("seaweedfs_tpu_torch.util.tracing")
+    if tracing is None or not tracing.active():
+        return ""
+    sp = tracing.current_span()
+    if sp is None:
+        return ""
+    return f" trace={sp.trace_id} span={sp.span_id}"
+
+
 def v(level: int, fmt: str, *args) -> None:
     if VERBOSITY >= level:
-        _logger.info(fmt, *args)
+        _logger.info(fmt + _trace_suffix(), *args)
 
 
 def info(fmt: str, *args) -> None:
-    _logger.info(fmt, *args)
+    _logger.info(fmt + _trace_suffix(), *args)
 
 
 def warning(fmt: str, *args) -> None:
-    _logger.warning(fmt, *args)
+    _logger.warning(fmt + _trace_suffix(), *args)
 
 
 def error(fmt: str, *args) -> None:
-    _logger.error(fmt, *args)
+    _logger.error(fmt + _trace_suffix(), *args)

@@ -24,8 +24,8 @@ drop-in replacement that turns overload into policy:
   504 (the caller stopped waiting; doing the work is pure waste), and
   when dispatch-queue pressure passes ``shed_watermark`` requests are
   shed with 429 + ``Retry-After`` instead of queueing toward
-  collapse. Apply with :func:`admission_gate` to the handler class.
-
+  collapse. Apply with :func:`admission_gate` *under* the tracing
+  wrapper so shed decisions are tagged on the request's span.
 * **Per-tenant QoS** — :class:`QosEngine` (S3 gateway) maps the
   SigV4-authenticated identity to a priority class with token-bucket
   rate and concurrency limits. Under pressure, low-priority classes
@@ -33,14 +33,13 @@ drop-in replacement that turns overload into policy:
   priority-0 class is never pressure-shed, so a guaranteed tenant
   rides out another tenant's overload with zero failures.
 
-Every decision is observable in the ``seaweed_ingress_*`` metrics
-(rendered on ``/metrics`` next to the retry plane's); the ``ingress``
-payload of ``/debug/vars`` comes with that page (ROADMAP Queue 1,
-observability). Config lives in ``[ingress]`` / ``[qos]`` TOML blocks.
+Every decision is observable: ``seaweed_ingress_*`` metrics (rendered
+on ``/metrics`` next to the retry/tracing planes), an ``ingress``
+section in ``/debug/vars`` (:func:`debug_payload`), and ``shed=...``
+tags on trace spans. Config lives in ``[ingress]`` / ``[qos]`` TOML
+blocks.
 
-The port's copy of ``seaweedfs_tpu/util/httpserver.py``. Shed decisions
-are counted but tag no trace span: the port has no tracing yet (ROADMAP
-Queue 1, observability).
+The port's copy of ``seaweedfs_tpu/util/httpserver.py``.
 """
 
 from __future__ import annotations
@@ -53,10 +52,11 @@ import socket
 import socketserver
 import threading
 import time
+import weakref
 from http.server import HTTPServer
 from typing import Optional
 
-from . import glog, stats
+from . import glog, stats, tracing
 
 DEADLINE_HEADER = "X-Seaweed-Deadline"
 
@@ -101,6 +101,11 @@ _ENABLED = True
 #: uses to see *why* the server sheds would be self-defeating.
 _EXEMPT_PREFIXES = ("/debug/", "/metrics", "/status", "/healthz",
                     "/cluster/status")
+
+_SHED_LOCK = threading.Lock()
+_SHED_COUNTS: dict[tuple[str, str], int] = {}
+
+_SERVERS: "weakref.WeakSet[IngressHTTPServer]" = weakref.WeakSet()
 
 
 class IngressConfig:
@@ -175,8 +180,18 @@ def configure_from(conf: dict) -> None:
 def _count_shed(reason: str, cls_name: str) -> None:
     METRICS.counter("ingress_shed_total", reason=reason,
                     **{"class": cls_name}).inc()
-    # the JAX package tags the active tracing span with shed=<reason>
-    # here; the port has no spans yet (ROADMAP Queue 1, observability)
+    with _SHED_LOCK:
+        _SHED_COUNTS[(reason, cls_name)] = \
+            _SHED_COUNTS.get((reason, cls_name), 0) + 1
+    sp = tracing.current_span()
+    if sp is not None:
+        sp.tag(shed=reason)
+
+
+def shed_counts() -> dict[str, int]:
+    """``{"reason|class": n}`` snapshot (``/debug/vars``)."""
+    with _SHED_LOCK:
+        return {f"{r}|{c}": n for (r, c), n in _SHED_COUNTS.items()}
 
 
 # --------------------------------------------------------------------------
@@ -362,6 +377,7 @@ class IngressHTTPServer(HTTPServer):
             t.start()
         self._parker = _Parker(self)
         self._parker.start()
+        _SERVERS.add(self)
 
     # -- accept path (runs on the serve_forever thread) ------------------
 
@@ -503,6 +519,21 @@ class IngressHTTPServer(HTTPServer):
         (can exceed 1.0 — the physical bound is max_connections)."""
         return self._dispatch.qsize() / max(1, self.config.queue_depth)
 
+    def stats_payload(self) -> dict:
+        with self._lock:
+            busy, conns, served = self._busy, len(self._conns), \
+                self._served
+        return {"component": self.component,
+                "workers": self.config.workers, "busy": busy,
+                "queued": self._dispatch.qsize(),
+                "queue_depth": self.config.queue_depth,
+                "pressure": round(self.pressure(), 4),
+                "connections": conns,
+                "max_connections": self.config.max_connections,
+                "parked": self._parker.parked(),
+                "served_total": served,
+                "qos": self.qos.payload() if self.qos else None}
+
     # -- teardown ---------------------------------------------------------
 
     def server_close(self) -> None:
@@ -524,6 +555,14 @@ class IngressHTTPServer(HTTPServer):
         self._parker.join(timeout=2.0)
         with self._lock:
             self._conns.clear()
+
+
+def debug_payload() -> dict:
+    """The ``ingress`` section of ``/debug/vars``."""
+    return {"enabled": _ENABLED,
+            "servers": [s.stats_payload() for s in list(_SERVERS)
+                        if not s._closing],
+            "shed": shed_counts()}
 
 
 # --------------------------------------------------------------------------
@@ -591,7 +630,9 @@ def drop_connection(handler) -> None:
 
 
 def admission_gate(cls):
-    """Wrap every ``do_*`` verb with the admission check."""
+    """Wrap every ``do_*`` verb with the admission check. Apply
+    *before* ``tracing.instrument_http_handler`` so the trace span is
+    outermost and shed decisions land inside it as tags."""
     for name in dir(cls):
         if name.startswith("do_"):
             setattr(cls, name, _gated(getattr(cls, name)))

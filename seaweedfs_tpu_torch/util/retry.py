@@ -31,11 +31,11 @@ EC decode) calls :func:`record_degraded`.
 
 Config lives in a ``[retry]`` TOML block.
 
-The port's copy of ``seaweedfs_tpu/util/retry.py``. Not ported yet
-(ROADMAP Queue 1, observability): the trace context :func:`inject` stamps beside
-the deadline, and the span tag :func:`record_degraded` sets; the port
-has no tracing. :func:`degraded_counts` reads the degraded-read counts
-by stage without parsing the metrics text.
+The port's copy of ``seaweedfs_tpu/util/retry.py``: :func:`inject`
+stamps the trace context beside the deadline, and
+:func:`record_degraded` tags the active span.
+:func:`degraded_counts` reads the degraded-read counts by stage without
+parsing the metrics text.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ import urllib.parse
 import urllib.request
 from typing import Optional
 
-from . import faults, stats
+from . import faults, stats, tracing
 
 DEADLINE_HEADER = "X-Seaweed-Deadline"
 
@@ -217,8 +217,8 @@ def deadline_from_headers(headers) -> Optional[Deadline]:
 
 
 def inject(headers: dict, deadline: Optional[Deadline] = None) -> dict:
-    """Stamp the remaining deadline onto outgoing headers (the JAX
-    package stamps the trace context too; ROADMAP Queue 1, observability)."""
+    """Stamp trace context + remaining deadline onto outgoing headers."""
+    tracing.inject(headers)
     dl = deadline or current_deadline()
     if dl is not None:
         headers[DEADLINE_HEADER] = dl.header_value()
@@ -343,6 +343,13 @@ def breaker_for(endpoint: str) -> CircuitBreaker:
             brk = _BREAKERS.setdefault(endpoint,
                                        CircuitBreaker(endpoint))
     return brk
+
+
+def breakers_payload() -> list[dict]:
+    """The breakers section of ``/debug/vars``."""
+    with _BREAKERS_LOCK:
+        brks = list(_BREAKERS.values())
+    return [b.to_dict() for b in brks]
 
 
 def reset_breakers() -> None:
@@ -524,9 +531,12 @@ def _pooled_request(url: str, netloc: str, selector: str, method: str,
 
 def record_degraded(stage: str) -> None:
     """Count one hop of the read-degradation ladder
-    (``seaweed_degraded_reads_total{stage=...}``). The JAX package also
-    tags the active span; the port has none yet."""
+    (``seaweed_degraded_reads_total{stage=...}``) and tag the active
+    span so the hop shows up in the request's trace."""
     METRICS.counter("degraded_reads_total", stage=stage).inc()
+    sp = tracing.current_span()
+    if sp is not None:
+        sp.tag(degraded=stage)
     with _DEGRADED_LOCK:
         _DEGRADED[stage] = _DEGRADED.get(stage, 0) + 1
 

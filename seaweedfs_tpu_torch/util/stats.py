@@ -6,7 +6,8 @@ histograms addressable by name and labels, rendered in the Prometheus
 exposition format byte for byte as the JAX package renders them, and
 the ``MetricsPusher`` a volume server starts when its master advertises
 a push gateway. Left out: the ``Digest`` quantile sketch, which only the
-telemetry plane uses (not ported yet).
+telemetry plane uses (ROADMAP Queue 1, "Telemetry, SLO, usage and the
+policy engine").
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ class Metrics:
         self._lock = threading.Lock()
         self._metrics: dict[tuple[str, tuple, str], object] = {}
         # the JAX package registers the registry with its lockset race
-        # checker here; the checkers wait for their port (ROADMAP)
+        # checker here; the checkers wait for their port (ROADMAP
+        # Queue 1, "The sim harness, the lint and the checkers")
 
     def _get(self, kind: str, name: str, labels: dict[str, str],
              factory):

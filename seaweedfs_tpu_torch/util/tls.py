@@ -24,8 +24,8 @@ missing.
 
 The port's copy of ``seaweedfs_tpu/util/tls.py``, minus the client
 tools' ``-securityConfig`` flag helpers (the port has no client tool
-yet). Channels carry no trace context: the port has no tracing yet
-(ROADMAP Queue 1, observability).
+yet). Every channel :func:`dial` opens carries the active trace context
+in its call metadata.
 """
 
 from __future__ import annotations
@@ -102,14 +102,18 @@ def install_from_config(conf: dict) -> bool:
 
 
 def dial(target: str, options=None):
-    """Open a gRPC channel honoring the installed TLS config."""
+    """Open a gRPC channel honoring the installed TLS config. Every
+    channel carries the active trace context in call metadata."""
     import grpc
 
+    from . import tracing
     cfg = _INSTALLED
     if cfg is None:
-        return grpc.insecure_channel(target, options=options)
-    return grpc.secure_channel(target, cfg.channel_credentials(),
-                               options=options)
+        channel = grpc.insecure_channel(target, options=options)
+    else:
+        channel = grpc.secure_channel(target, cfg.channel_credentials(),
+                                      options=options)
+    return tracing.grpc_trace_channel(channel)
 
 
 def serve_port(server, address: str) -> int:

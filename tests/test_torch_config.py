@@ -10,7 +10,8 @@ from seaweedfs_tpu.util import config as jax_config
 from seaweedfs_tpu_torch.util import config
 from torch_teardown import collect_jax_garbage  # noqa: F401
 
-SECTIONS = ("pipeline", "mesh", "flight", "cache", "qos")
+SECTIONS = ("pipeline", "mesh", "flight", "cache", "qos", "tracing",
+            "profiler")
 
 #: every scalar type the subset parser reads, nested tables, comments
 SCALARS = """\

@@ -861,3 +861,29 @@ def test_checkpoint_of_cuda_tensors_round_trips_bit_equal(tmp_path):
     finally:
         for obj in (gw, filer, vs, ms):
             obj.stop()
+
+
+@pytest.mark.cuda
+def test_traced_encode_span_covers_the_compute_series(tmp_path):
+    """A traced ``encode_volume`` on ``cuda:0`` has an ``ec.encode`` span
+    at least as long as the sum of its run's ``pipe.compute`` series,
+    which counts one observation per batch and waits on the card's
+    events (dispatch share plus the sync wait)."""
+    _need_card()
+    from seaweedfs_tpu_torch.util import tracing
+    base = tmp_path / "v"
+    volume.write_synthetic_volume(base, 64 * 1024 * 1024,
+                                  avg_size=64 * 1024, seed=5)
+    h = tracing.METRICS.histogram("request_stage_seconds",
+                                  stage="pipe.compute")
+    n0, s0 = h.n, h.total
+    st = pipe.PipeStats()
+    rs_cuda.apply_gf_matrix_transpose.launches = 0
+    with tracing.start_trace("unit.seal.cuda"):
+        encode.encode_volume(base, device="cuda:0", stats=st)
+    assert rs_cuda.apply_gf_matrix_transpose.launches == st.batches >= 1
+    assert h.n - n0 == st.batches
+    t = tracing.recent_traces()[-1]
+    sp, = [s for s in t["spans"] if s["name"] == "ec.encode"]
+    assert sp["bytes"] == (tmp_path / "v.dat").stat().st_size
+    assert sp["duration_seconds"] >= h.total - s0 > 0

@@ -353,15 +353,26 @@ def test_clients_cross_packages(stacks):
 
 
 def test_debug_pages_and_metrics(stacks):
-    """The port filer answers ``/debug/*`` with 404 (not ported, as on
-    the port's volume server) and serves ``/metrics``."""
+    """The port filer serves ``/debug/vars``, ``/debug/traces`` and
+    ``/debug/profile`` as the JAX filer does, and ``/metrics`` with the
+    tracing family."""
     filer = stacks["port"]
-    for path in ("/debug/vars", "/debug/traces", "/debug/profile"):
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            _get(filer, path)
-        assert ei.value.code == 404
+    vz = json.loads(_get(filer, "/debug/vars"))
+    jvz = json.loads(_get(stacks["jax"], "/debug/vars"))
+    assert vz["component"] == jvz["component"] == "filer"
+    # the JAX page's keys, less the usage plane's (not ported yet)
+    assert set(jvz) - set(vz) == {"usage"}
+    tr = json.loads(_get(filer, "/debug/traces?limit=1"))
+    assert tr["enabled"] is True and "traces" in tr
+    assert set(tr) == set(json.loads(_get(stacks["jax"],
+                                          "/debug/traces?limit=1")))
+    text = _get(filer, "/debug/profile?seconds=0.1").decode()
+    for line in text.splitlines():
+        stack, count = line.rsplit(" ", 1)
+        assert int(count) >= 1 and ":" in stack
     body = _get(filer, "/metrics").decode()
     assert "filer_request_total" in body
+    assert "trace_request_stage_seconds" in body
 
 
 def test_filer_subprocess_round_trips(stacks, tmp_path):
@@ -403,11 +414,13 @@ def test_filer_subprocess_round_trips(stacks, tmp_path):
     assert st.find_entry("/sub/p.bin").size() == 10_000
     st.close()
     conf = tmp_path / "f.toml"
-    conf.write_text("[tracing]\nenabled = true\n")
+    # [tracing] is ported now: the refusal names the unported [usage]
+    conf.write_text("[tracing]\nenabled = true\n\n[usage]\nenabled = true\n")
     out = subprocess.run(
         [sys.executable, "-m", "seaweedfs_tpu_torch", "filer", "-port",
          "1", "-master", ms_url, "-config", str(conf)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
     err = out.stderr.strip().splitlines()
     assert out.returncode == 2 and len(err) == 1
-    assert "[tracing]" in err[0] and "not ported" in err[0]
+    assert "[usage]" in err[0] and "not ported" in err[0]
+    assert "[tracing]" not in err[0]

@@ -83,7 +83,10 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.ckpt.loader",
        "seaweedfs_tpu_torch.ckpt.sharding",
        "seaweedfs_tpu_torch.ckpt.store",
-       "seaweedfs_tpu_torch.storage.tier"}
+       "seaweedfs_tpu_torch.storage.tier",
+       "seaweedfs_tpu_torch.util.tracing",
+       "seaweedfs_tpu_torch.util.profiler",
+       "seaweedfs_tpu_torch.util.varz"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -100,10 +103,51 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # flight recorder, the needle maps, vacuum, the scrubber, the crash
     # harness, the pb copies, the volume server and its wire utilities,
     # the master, its clients, the cluster shell, the jobs plane, the
-    # filer stack, the S3 gateway, the checkpoint plane and the S3 tier
-    # among them
-    assert int(out.stdout.split()[0]) >= 80
+    # filer stack, the S3 gateway, the checkpoint plane, the S3 tier and
+    # the tracing plane (tracing, profiler, varz) among them
+    assert int(out.stdout.split()[0]) >= 83
     assert "missing: []" in out.stdout
+
+
+def _jax_package_literals(path: Path) -> list[tuple[int, str]]:
+    """String constants in ``path`` that name a module of the JAX package
+    (``seaweedfs_tpu.`` with the dot), docstrings left out."""
+    import ast
+    tree = ast.parse(path.read_text())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) \
+                    and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant)
+            and isinstance(node.value, str) and id(node) not in docs
+            and "seaweedfs_tpu." in node.value]
+
+
+def test_port_names_no_jax_package_module_in_its_strings(tmp_path):
+    """The lazy ``sys.modules`` lookups of ``util/varz.py`` and
+    ``util/glog.py`` (and any other string) name only the port's
+    modules: a literal ``"seaweedfs_tpu.<mod>"`` would read the JAX
+    package's state in a process that holds both. Comments and
+    docstrings may name the JAX package; code may not. The check
+    itself catches such a literal."""
+    files = sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 80
+    found = {str(f.relative_to(REPO)): hits for f in files
+             if (hits := _jax_package_literals(f))}
+    assert found == {}
+    planted = tmp_path / "planted.py"
+    planted.write_text('"""seaweedfs_tpu.util.tracing in a docstring"""\n'
+                       'import sys\n'
+                       '# seaweedfs_tpu.util.tracing in a comment\n'
+                       'm = sys.modules.get("seaweedfs_tpu.util.tracing")\n')
+    assert _jax_package_literals(planted) == [
+        (4, "seaweedfs_tpu.util.tracing")]
 
 
 def test_entry_points_refuse_the_cpu_without_cuda(tmp_path):
@@ -130,21 +174,32 @@ def test_master_refuses_unported_config_sections(tmp_path, capsys,
                                                  section):
     """``master -config`` with a section of a plane the port lacks exits
     2 with one ``error:`` line, before anything binds. ``[jobs]`` itself
-    is ported; its policy-engine keys are what the port lacks there."""
+    is ported; its policy-engine keys are what the port lacks there.
+    ``[tracing]`` and ``[profiler]`` are ported: beside an unported
+    ``[usage]`` the refusal names ``[usage]``, never them."""
     from seaweedfs_tpu_torch.cluster import jobs, master
+    refused = section
+    extra = ""
     if section == "jobs":
         assert "policy" in jobs.POLICY_KEYS
         key = "policy"
+    elif section in ("tracing", "profiler"):
+        assert section not in master.UNPORTED_SECTIONS
+        key = "enabled"
+        refused = "usage"
+        extra = "\n[usage]\nenabled = true\n"
     else:
         assert section in master.UNPORTED_SECTIONS
         key = "enabled"
     conf = tmp_path / "m.toml"
     conf.write_text(f"[retry]\nmax_attempts = 2\n\n[{section}]\n"
-                    f"{key} = true\n")
+                    f"{key} = true\n{extra}")
     assert master.main(["-port", "1", "-config", str(conf)]) == 2
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and err[0].startswith("error:")
-    assert f"[{section}]" in err[0] and "not ported" in err[0]
+    assert f"[{refused}]" in err[0] and "not ported" in err[0]
+    if refused != section:
+        assert f"[{section}]" not in err[0]
 
 
 def test_shell_master_runs_cluster_commands(capsys):
@@ -168,4 +223,5 @@ def test_shell_master_runs_cluster_commands(capsys):
             "fs.meta.save", "fs.meta.load", "s3.bucket.list",
             "s3.bucket.create", "s3.bucket.delete", "s3.clean.uploads",
             "s3.configure", "volume.tier.upload",
-            "volume.tier.download"} == set(listed)
+            "volume.tier.download", "trace.status", "trace.dump",
+            "trace.top", "ingress.status"} == set(listed)

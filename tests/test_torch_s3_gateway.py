@@ -607,9 +607,17 @@ def test_s3_clean_uploads(pair):
 # --------------------------------------------------------------------------
 
 def test_debug_pages_answer_404_and_invalidate_drops(pairs):
+    """``/debug/vars`` and ``/debug/profile`` answer as on the JAX
+    gateway; ``/debug/traces``, which neither gateway serves, is a GET
+    of bucket ``debug`` and answers 404 in both."""
     gw = pairs["port"].gw
-    for path in ("/debug/vars", "/debug/profile"):
-        assert Pair.call(gw, "GET", path).status == 404
+    vz = Pair.call(gw, "GET", "/debug/vars")
+    assert vz.status == 200 and json.loads(vz.body)["component"] == "s3"
+    assert Pair.call(gw, "GET", "/debug/profile?seconds=0.1").status \
+        == 200
+    assert Pair.call(gw, "GET", "/debug/traces").status == \
+        Pair.call(pairs["port"].ref, "GET", "/debug/traces").status \
+        == 404
     r = Pair.call(gw, "POST", "/cache/invalidate",
                   data=json.dumps({"volumeId": 12345}).encode())
     assert r.status == 200 and json.loads(r.body) == {"ok": True,

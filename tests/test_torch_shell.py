@@ -266,6 +266,7 @@ def test_volume_list_and_errors(tmp_path):
             "ec.balance", "ec.decode", "ec.encode", "ec.rebuild",
             "fault.clear", "fault.inject", "fault.list",
             "pipeline.analyze", "pipeline.dump", "pipeline.status",
+            "trace.dump", "trace.status",
             "volume.delete", "volume.list", "volume.tier.download",
             "volume.tier.upload", "volume.vacuum"]
         assert set(listed) <= set(jax_commands.COMMANDS)

@@ -268,16 +268,22 @@ def test_http_ranges_head_404_and_metrics(cluster):
     assert _get(f"http://{a.url}/{other}", method="HEAD")[0] == 404
     assert _get(f"http://{a.url}/999,01637037d6")[0] == 404
     # image resizing: a payload that is not an image comes back as is,
-    # a bad width is refused; left out of the port: /debug/* 404
+    # a bad width is refused; /debug/* describes the process
     code, _, got = _get(url + "?width=10")
     assert (code, got) == (200, body)
     assert _get(url + "?width=-1")[0] == 400
-    for path in ("/debug/vars", "/debug/traces", "/debug/profile"):
-        assert _get(f"http://{a.url}{path}")[0] == 404
+    code, _, got = _get(f"http://{a.url}/debug/vars")
+    assert code == 200 and json.loads(got)["component"] == "volume"
+    code, _, got = _get(f"http://{a.url}/debug/traces?limit=1")
+    assert code == 200 and json.loads(got)["enabled"] is True
+    code, h, _ = _get(f"http://{a.url}/debug/profile?seconds=0.1")
+    assert code == 200 and h["Content-Type"].startswith("text/plain")
     code, h, got = _get(f"http://{a.url}/metrics")
     assert code == 200 and h["Content-Type"] == EXPOSITION_CONTENT_TYPE
     samples = parse_exposition(got.decode())
     assert any(k.startswith("volume_server_read_requests")
+               for k in samples)
+    assert any(k.startswith("trace_request_stage_seconds")
                for k in samples)
     code, _, got = _get(f"http://{a.url}/status")
     doc = json.loads(got)
@@ -560,17 +566,31 @@ def test_volume_subcommand_joins_the_jax_master(tmp_path):
     assert proc.returncode == 0, err
 
 
-@pytest.mark.parametrize("section", volume_server.UNPORTED_SECTIONS)
+@pytest.mark.parametrize("section", ("tracing", "telemetry", "usage",
+                                     "profiler"))
 def test_unported_config_section_exits_2(tmp_path, capsys, section):
+    """A section of a plane the port lacks exits 2 with one line naming
+    it. ``[tracing]`` and ``[profiler]`` are ported: beside an unported
+    ``[telemetry]`` the refusal names ``[telemetry]``, never them."""
+    refused = section
+    extra = ""
+    if section in ("tracing", "profiler"):
+        assert section not in volume_server.UNPORTED_SECTIONS
+        refused = "telemetry"
+        extra = "\n[telemetry]\nenabled = true\n"
+    else:
+        assert section in volume_server.UNPORTED_SECTIONS
     conf = tmp_path / "v.toml"
     conf.write_text(f"[storage]\nfsync = \"commit\"\n\n[{section}]\n"
-                    f"enabled = true\n")
+                    f"enabled = true\n{extra}")
     rc = volume_server.main(["-dir", str(tmp_path), "-config", str(conf),
                              "-device", "cpu", "-mserver", ""])
     err = capsys.readouterr().err.strip().splitlines()
     assert rc == 2
     assert len(err) == 1 and err[0].startswith("error:")
-    assert f"[{section}]" in err[0] and "not ported" in err[0]
+    assert f"[{refused}]" in err[0] and "not ported" in err[0]
+    if refused != section:
+        assert f"[{section}]" not in err[0]
     assert list(tmp_path.iterdir()) == [conf]   # nothing else touched
 
 
