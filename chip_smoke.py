@@ -36,10 +36,11 @@ of which fails the run on any mismatch:
    losing shards 0 and 5, and encode + rebuild again with
    ``SEAWEEDFS_TORCH_KERNEL=swar``; launch counters prove each kernel ran,
    and the host codec's call counter which reads it served;
-6. shell (config 1 through the admin shell): the path phase's needles
-   written through ``Store.write_needle`` into a store of two disk
-   locations (.dat and .idx sha256-equal to the path phase's; the
-   ingest rate of the write_needle calls alone printed, with
+6. shell (config 1 through the admin shell): the path phase's first 513
+   needle records copied into a store of two disk locations and the
+   other 513 written through ``Store.write_needle`` (.dat and .idx
+   sha256-equal to the path phase's; the ingest rate of the write_needle
+   calls alone printed, with
    ``Needle.to_bytes`` timed apart on every 4th of the same needles), then ``shell.cli.main`` in this process with
    ``ec.encode; ec.balance; volume.list`` (shards, .ecx and .vif held
    against the path phase's, spread over both locations, one launch per
@@ -51,8 +52,9 @@ of which fails the run on any mismatch:
    GiB/s beside the direct call's;
 7. cluster (config 1 through a port master and two port volume servers,
    A and B on one rack, in this process, over localhost gRPC and HTTP):
-   by RPC, the path phase's needles POSTed to A (.dat and .idx
-   sha256-equal to the path phase's; MiB/s), ``VolumeEcShardsGenerate``
+   by RPC, the path phase's last 513 needles POSTed to A after its first
+   513 records were copied there (.dat and .idx sha256-equal to the
+   path phase's; MiB/s), ``VolumeEcShardsGenerate``
    (shards, .ecx and .vif sha256-equal to the sealed ones, one launch
    per batch; GiB/s beside the direct encode), every 4th needle read by
    HTTP GET from A's shards (no launch), ``VolumeEcShardsCopy`` of every
@@ -72,9 +74,11 @@ of which fails the run on any mismatch:
    server fetching what it lacks through ``ec_shard_peers`` (needles/s,
    p50, p99, launches); the shell's ``ec.rebuild`` and ``ec.decode``
    (sha256-equal; GiB/s); then ``python -m seaweedfs_tpu_torch master``,
-   ``volume`` joining it (status, one POST, one GET) and ``shell -master
-   ... -c volume.list`` naming it and an in-process server, each in its
-   own process (SIGTERM ends both servers);
+   ``volume`` joining it (status, one POST, one GET), each in its own
+   process, and the cluster shell's ``volume.list`` against them in
+   this process (a ``shell -master`` subprocess before the telemetry
+   phase came) naming the volume subprocess and an in-process server
+   (SIGTERM ends both servers);
 8. jobs (the jobs plane, config 1's volume): a port master (lease 5 s,
    checkpoint in its meta dir) and two port volume servers, A and B on
    two racks, both on the card and set up through the ``volume
@@ -93,7 +97,27 @@ of which fails the run on any mismatch:
    4 MiB chunk), then one byte of shard 3 rotten, quarantined and
    rebuilt to its sealed sha256 (GiB/s and launches beside the storage
    phase's direct ``scrub_ec``);
-9. filer (the filer stack with its chunk cache): a port master, two port
+9. telemetry (the telemetry, SLO, usage and policy planes): a port
+   master through ``master -config`` (a 1024 MB size limit, ``[jobs]
+   policy = true`` ticking every 0.5 s with a 600 s cooldown, a read
+   latency and an availability objective on short windows) and two port
+   volume servers A and B through ``volume -config`` (``[telemetry]``,
+   ``[usage]``), pulse 0.5 s, on the card, with a copy of the path
+   phase's volume unread in A's store (full at 0.9 of the limit): with
+   no command, the master's policy submits ``ec_encode`` and A's worker
+   seals it (one launch per batch, shards and .ecx sha256-equal to the
+   path phase's; the seconds from the submitting tick to done, the
+   policy's actions ring); the source and shards 0, 5, 11 and 13
+   dropped, every 8th needle read through the master's lookup by
+   ``operation.download`` (byte-equal; needles/s, p50, p99, launches),
+   the master's ``/cluster/telemetry`` counting each GET as one EC
+   decode, A's read p99 from the digests, both nodes healthy; the
+   cluster shell's ``ec.rebuild`` (sha256-equal), ``telemetry.status``,
+   ``volume.heatmap``, ``traffic.top``, ``tenant.usage`` and
+   ``cluster.check`` (0 problems), the SLO objectives ``ok`` with the
+   engine's evaluations, and ``record_read``'s ns per call with the
+   collector on and off;
+10. filer (the filer stack with its chunk cache): a port master, two port
    volume servers A and B (64 MiB post-decode caches each) and one port
    filer (the default ``[cache]``, 64 MiB), in this process: 32 files of
    seeded sizes over 1-8 MiB (about 144 MiB) PUT through the filer's HTTP
@@ -123,7 +147,7 @@ of which fails the run on any mismatch:
    of a GET's wall time (p50, p99; inclusive and self), the rebuild's
    ``grpc.*`` legs and ``n_bytes``, each server's ``/debug/vars``, the
    burst's top stacks and the cost of one span enter and exit;
-10. s3 (the S3 gateway, the checkpoint plane on the card's tensors, the
+11. s3 (the S3 gateway, the checkpoint plane on the card's tensors, the
    S3 tier): a port master, two port volume servers A and B, one port
    filer (collection ``s3``) and two ``S3Gateway`` objects over it (one open,
    one with a SigV4 identity), in this process: one decoder layer of
@@ -152,13 +176,13 @@ of which fails the run on any mismatch:
    sha256-equal to sealing the local copy); then ``python -m
    seaweedfs_tpu_torch s3`` in its own process (one PUT, one GET,
    SIGTERM);
-11. repair under load (BASELINE config 5): ``repair_bench.run`` for 5 s,
+12. repair under load (BASELINE config 5): ``repair_bench.run`` for 5 s,
    a bulk decode of 4 lost shards through the kernels while 8 reader
    threads send 64 QPS of 4 KiB interval repairs, all checked;
-12. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
+13. config 4: the restored volume sealed with RS(6,3) and RS(12,4), m
    shards rebuilt, and the volume decoded after losing data shards 0 and
    3, all sha256-checked, parity against ``rs_ref`` on sampled rows;
-13. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
+14. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
    normal routing, the shell's ``ec.encode -mesh 1,1`` in turns with the
    unsplit ``ec.encode`` (a warm-up, then A, B) on config 1's
    volume, shards and .ecx sha256-equal and launches equal (one per
@@ -169,7 +193,7 @@ of which fails the run on any mismatch:
    grid (B pads to 26, S splits in two: 4 launches), byte-equal to the
    unsplit path and to ``rs_ref`` on sampled rows; (c) ``-mesh 2,2``
    refused on one card with no file changed;
-14. config (the shell's ``-config``): on config 1's volume through
+15. config (the shell's ``-config``): on config 1's volume through
    ``shell.cli.main``, (a) a TOML of ``[pipeline] double_buffer``,
    ``[mesh]`` 1 x 1 and ``[flight]``: ``ec.encode -keepSource;
    pipeline.status; pipeline.analyze; pipeline.dump -trace`` (shards,
@@ -182,7 +206,7 @@ of which fails the run on any mismatch:
    ``pipeline.analyze``), each a warm-up of each side then A, B
    with both medians and their ratio, launches checked on every encode
    and the files sha256-checked on one of each side;
-15. storage (the engine at rest, on config 1's volume): (a) a seeded
+16. storage (the engine at rest, on config 1's volume): (a) a seeded
    .idx of 500,000 needles with 10% deleted loaded by the memory,
    native and sqlite needle maps (equal live entries and counters, the
    native library built), with each load's seconds; (b) every third
@@ -198,7 +222,7 @@ of which fails the run on any mismatch:
    4 MiB chunk, then one byte flipped in shards 3 and 12 and both
    quarantined and rebuilt to their sealed sha256; (e) ``scrub_volume``
    repairing one rotten needle from an intact copy, needles/s;
-16. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
+17. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
    ``batch.encode_packed`` over 100 of them with every parity span checked
    whole against ``rs_ref`` and the batch census printed, 100 volumes on the
@@ -223,7 +247,11 @@ every 2nd needle, the filer phase's files from 64 to 32, config 5 from
 8 s to 5 s and config 3's three checked passes from 200 volumes to 100;
 for the filer phase's trace step, the storage phase's needle-map loads
 from 1,000,000 needles (1,100,000 ``.idx`` entries) to 500,000
-(550,000).
+(550,000); for the telemetry phase, the cluster phase's ``python -m
+seaweedfs_tpu_torch shell -master ... -c volume.list`` subprocess (the
+cluster shell now runs that ``volume.list`` in this process), and the
+shell phase's ``write_needle`` calls and the cluster phase's HTTP POSTs
+from all 1026 needles to the last 513 (the first 513 are copied in).
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -276,6 +304,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 VOLUME_BYTES = 1 << 30
 #: The shell phase times ``Needle.to_bytes`` apart on every 4th needle.
 TO_BYTES_EVERY = 4
+#: The shell phase's ``write_needle`` calls and the cluster phase's HTTP
+#: POSTs write the needles after the first INGEST_FROM of config 1's
+#: volume; those come in as a copy of the path phase's records (all
+#: 1026 needles were written both ways before the telemetry phase came).
+INGEST_FROM = 513
 LOST_REBUILD = (2, 7, 11, 13)
 LOST_DECODE = (0, 5)
 #: The read phase's and config 5's lost shards: two data, two parity.
@@ -498,6 +531,20 @@ def sealed_digests(base, scheme=DEFAULT_SCHEME, shards=None) -> dict:
     if shards is None:
         names += [".ecx", ".vif"]
     return {n: sha256_file(str(base) + n) for n in names}
+
+
+def copy_prefix(pres: dict, base: str, k: int) -> int:
+    """Copy the path phase's superblock and its first ``k`` needle
+    records to ``<base>.dat``, their entries to ``<base>.idx``: the
+    volume as it stood after ``k`` writes. Returns its .dat size."""
+    from seaweedfs_tpu_torch.storage.types import NEEDLE_MAP_ENTRY_SIZE
+    e = pres["idx_entries"][k - 1]
+    end = e.byte_offset + needle_mod.record_size(e.size)
+    for ext, n in ((".dat", end), (".idx", k * NEEDLE_MAP_ENTRY_SIZE)):
+        with open(pres["base"] + ext, "rb") as src, \
+                open(base + ext, "wb") as dst:
+            dst.write(src.read(n))
+    return end
 
 
 def check_parity_sampled(base, dat_size: int, rng,
@@ -827,8 +874,9 @@ def shell_main(args: list, log: list, launches: dict, what: str,
 def shell_phase(dev, workdir: str, pres: dict, label: str,
                 launches: dict) -> dict:
     """Config 1 through the port's admin shell: the path phase's needles
-    written through ``Store.write_needle`` into a store of two disk
-    locations, then ``ec.encode; ec.balance; volume.list``, a rebuild of
+    after the first ``INGEST_FROM`` (whose records are copied in) written
+    through ``Store.write_needle`` into a store of two disk locations,
+    then ``ec.encode; ec.balance; volume.list``, a rebuild of
     4 lost shards, and a decode after losing 2 data shards, each held
     against the path phase's files; then one ``python -m
     seaweedfs_tpu_torch shell`` subprocess on a 16 MiB volume."""
@@ -843,18 +891,24 @@ def shell_phase(dev, workdir: str, pres: dict, label: str,
     shard_size = scheme.shard_file_size(dat_size)
     result = {}
 
-    # 1-4: the path phase's needles through the Store, every write
-    # acknowledged under the commit policy (2 fsyncs each). Only the
+    # 1-4: the path phase's needles after the first INGEST_FROM through
+    # the Store, every write acknowledged under the commit policy (2
+    # fsyncs each). Only the
     # write_needle calls are timed; making each needle and hashing it
     # for the check are not. Needle.to_bytes (the CRC32-C and the
     # record's assembly, which write_needle runs too) is timed on its
     # own on every TO_BYTES_EVERY-th needle (a sample keeps the script
     # in its time budget), outside the write_needle window.
+    copied = copy_prefix(pres, os.path.join(a, str(vid)), INGEST_FROM)
     store = store_mod.Store([a, b])
-    vol = store.create_volume(vid)
+    store.load_existing()
+    vol = store.get_volume(vid)
     version = vol.super_block.version
     needles = volume_mod.synthetic_needles(avg_size=MIB, seed=SEED)
     written = {}
+    for _ in range(INGEST_FROM):
+        n = next(needles)
+        written[n.id] = (n.cookie, hashlib.sha256(n.data).digest())
     write_s = to_bytes_s = 0.0
     timed = 0
     while vol.dat_size < VOLUME_BYTES:
@@ -870,22 +924,23 @@ def shell_phase(dev, workdir: str, pres: dict, label: str,
         written[n.id] = (n.cookie, hashlib.sha256(n.data).digest())
     store.close()
     vbase = os.path.join(os.path.dirname(vol.base), str(vid))
+    n_written = len(written) - INGEST_FROM
     result["ingest"] = {
-        "needles": len(written), "write_needle_s": write_s,
-        "needles_per_s": len(written) / write_s,
-        "mib_per_s": dat_size / MIB / write_s,
+        "needles": n_written, "write_needle_s": write_s,
+        "needles_per_s": n_written / write_s,
+        "mib_per_s": (dat_size - copied) / MIB / write_s,
         "to_bytes_s": to_bytes_s,
-        "ms_per_needle": 1e3 * write_s / len(written),
+        "ms_per_needle": 1e3 * write_s / n_written,
         "to_bytes_needles": timed,
         "to_bytes_ms_per_needle": 1e3 * to_bytes_s / timed,
-        "fsyncs": 2 * len(written)}
+        "fsyncs": 2 * n_written}
     say(f"  ingest through Store.write_needle on {label}: "
         f"{json.dumps(result['ingest'])}")
     check(len(written) == pres["n_needles"]
           and sha256_file(vbase + ".dat") == pres["dat_sha"],
-          f"{len(written)} needles written through Store.write_needle: "
-          f".dat sha256-equal to the path phase's volume, superblock "
-          f"included")
+          f"needles {INGEST_FROM + 1}-{len(written)} written through "
+          f"Store.write_needle after the first {INGEST_FROM} copied: .dat "
+          f"sha256-equal to the path phase's volume, superblock included")
     check(sha256_file(vbase + ".idx") == pres["idx_sha"],
           ".idx sha256-equal to the path phase's volume")
 
@@ -1051,8 +1106,8 @@ class _NeedleClock:
     path phase's needles (its base plus the needle id, the ids in
     order), so the ingested volume must be byte-equal to that one."""
 
-    def __init__(self):
-        self.n = 0
+    def __init__(self, n: int = 0):
+        self.n = n
 
     def time_ns(self) -> int:
         self.n += 1
@@ -1118,7 +1173,8 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
     """Config 1 through a port master and two port volume servers, A and
     B (one rack), in this process on the card, over localhost gRPC and
     HTTP. First this phase drives the choreography the shell would, by
-    RPC: allocate on A, ingest the path phase's needles by HTTP POST,
+    RPC: ingest the path phase's needles after the first ``INGEST_FROM``
+    (copied into A's store) by HTTP POST,
     seal with ``VolumeEcShardsGenerate``, read every needle from A's
     shards, copy all shards to B, read every needle from B with shards
     0, 5, 11 and 13 lost everywhere (reconstruct-on-read), rebuild them,
@@ -1128,9 +1184,9 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
     volume.list; unlock`` on the restored volume; degraded reads through
     ``operation.download`` with shards 0, 5, 11 and 13 gone, served
     through ``ec_shard_peers``; the shell's ``ec.rebuild`` and
-    ``ec.decode``. Last, ``python -m seaweedfs_tpu_torch master``,
-    ``volume`` (joining it) and ``shell -master ... -c volume.list`` in
-    their own processes."""
+    ``ec.decode``. Last, ``python -m seaweedfs_tpu_torch master`` and
+    ``volume`` (joining it) in their own processes, and the cluster
+    shell's ``volume.list`` against them."""
     import http.client
 
     import grpc
@@ -1163,10 +1219,16 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
     servers, channels = {}, []
     for name, d in dirs.items():
         os.makedirs(d)
+        st = store_mod.Store([d])
+        if name == "A":
+            # volume 1 as it stood after INGEST_FROM writes
+            copied = copy_prefix(pres, os.path.join(d, str(vid)),
+                                 INGEST_FROM)
+            st.load_existing()
         servers[name] = VolumeServer(
-            store_mod.Store([d]), port=free_port_pair(),
-            master_url=master.url, data_center="dc1", rack="r0",
-            pulse_seconds=CLUSTER_PULSE, device=dev).start()
+            st, port=free_port_pair(), master_url=master.url,
+            data_center="dc1", rack="r0", pulse_seconds=CLUSTER_PULSE,
+            device=dev).start()
         servers[name].heartbeat_now()
     check(sorted(master.topology.nodes) == sorted(
         vs.url for vs in servers.values()),
@@ -1192,14 +1254,17 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
     bbase = os.path.join(dirs["B"], str(vid))
     rpc = phase_launches["rpc"]
     try:
-        # 1-2: allocate on A, then the path phase's needles by HTTP POST
-        a.AllocateVolume(vpb.AllocateVolumeRequest(volume_id=vid))
+        # 1-2: the rest of the path phase's needles by HTTP POST to A
         vol = servers["A"].store.get_volume(vid)
         needles = volume_mod.synthetic_needles(avg_size=MIB, seed=SEED)
         written = {}
+        for _ in range(INGEST_FROM):
+            n = next(needles)
+            written[str(FileId(vid, n.id, n.cookie))] = \
+                hashlib.sha256(n.data).digest()
         post_s = 0.0
         real_time = needle_mod.time
-        needle_mod.time = _NeedleClock()
+        needle_mod.time = _NeedleClock(INGEST_FROM)
         try:
             while vol.dat_size < VOLUME_BYTES:
                 n = next(needles)
@@ -1212,17 +1277,19 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
                 written[fid] = hashlib.sha256(n.data).digest()
         finally:
             needle_mod.time = real_time
+        posted = len(written) - INGEST_FROM
         result["ingest"] = {
-            "needles": len(written), "post_s": post_s,
-            "needles_per_s": len(written) / post_s,
-            "mib_per_s": dat_size / MIB / post_s,
-            "ms_per_needle": 1e3 * post_s / len(written)}
+            "needles": posted, "post_s": post_s,
+            "needles_per_s": posted / post_s,
+            "mib_per_s": (dat_size - copied) / MIB / post_s,
+            "ms_per_needle": 1e3 * post_s / posted}
         say(f"  HTTP ingest into A on {label}: "
             f"{json.dumps(result['ingest'])}")
         check(len(written) == pres["n_needles"]
               and sha256_file(abase + ".dat") == pres["dat_sha"]
               and sha256_file(abase + ".idx") == pres["idx_sha"],
-              f"{len(written)} needles POSTed to A: .dat and .idx "
+              f"needles {INGEST_FROM + 1}-{len(written)} POSTed to A "
+              f"after the first {INGEST_FROM} copied: .dat and .idx "
               f"sha256-equal to the path phase's volume")
 
         def read_all(name: str, what: str, expect: dict,
@@ -1647,26 +1714,25 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
             master_url=f"127.0.0.1:{mport}", pulse_seconds=CLUSTER_PULSE,
             device=dev).start()
         d_server.heartbeat_now()
+        # the cluster shell in this process against the master
+        # subprocess (a shell subprocess of its own until the telemetry
+        # phase came)
         t1 = time.perf_counter()
         want = (f"DataNode 127.0.0.1:{port} volumes=1/",
                 f"DataNode {d_server.url} volumes=0/")
         listed = ""
         while time.perf_counter() - t1 < 120:
-            sh = subprocess.run(
-                [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
-                 "-master", f"127.0.0.1:{mport}", "-c", "volume.list"],
-                cwd=REPO, env=env, capture_output=True, text=True,
-                timeout=120)
-            listed = sh.stdout
-            if sh.returncode == 0 and all(w in listed for w in want):
+            lines, _log = cluster_shell(f"127.0.0.1:{mport}", "volume.list",
+                                        "master subprocess", {},
+                                        dict.fromkeys(KERNELS, 0))
+            listed = "\n".join(lines)
+            if all(w in listed for w in want):
                 break
             time.sleep(CLUSTER_PULSE)
-        for line in listed.splitlines():
-            say(f"  $ {line}")
         check(all(w in listed for w in want),
-              f"python -m seaweedfs_tpu_torch shell -master -c volume.list "
-              f"names the volume subprocess and the in-process server "
-              f"({time.perf_counter() - t1:.1f} s)")
+              f"the cluster shell's volume.list against the master "
+              f"subprocess names the volume subprocess and the in-process "
+              f"server ({time.perf_counter() - t1:.1f} s)")
     finally:
         if d_server is not None:
             d_server.stop()
@@ -1785,7 +1851,7 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
     master = master_mod.MasterServer(
         port=vs_mod.free_port_pair(), pulse_seconds=JOBS_PULSE,
         meta_dir=os.path.join(workdir, "meta"))
-    master_mod.configure_jobs(master, mconf)
+    master_mod.configure_master(master, mconf)
     master.start()
     servers = {}
     env = None
@@ -1976,6 +2042,315 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
         shutil.rmtree(workdir, ignore_errors=True)
     result["seconds"] = time.perf_counter() - t_phase
     say(f"  jobs phase: {result['seconds']:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
+# telemetry phase: a cold full volume sealed by the master's own policy
+# --------------------------------------------------------------------------
+
+#: The telemetry phase's pulse (master and servers) and size limit: the
+#: path phase's 1 GiB volume is past ``full_fraction`` 0.9 of 1024 MB.
+TELEMETRY_PULSE = 0.5
+TELEMETRY_LIMIT_MB = 1024
+TELEMETRY_VID = 21
+#: ... its degraded GETs go to every 8th needle of the volume.
+TELEMETRY_GET_EVERY = 8
+TELEMETRY_MASTER_CONFIG = (
+    "[jobs]\npolicy = true\npolicy_interval_seconds = 0.5\n"
+    "cooldown_seconds = 600.0\n\n"
+    "[slo]\nenabled = true\nread_p99_ms = 2000.0\navailability = 0.99\n"
+    "evaluation_interval_seconds = 0.5\nfast_window_seconds = 30.0\n"
+    "fast_long_window_seconds = 60.0\nslow_window_seconds = 120.0\n")
+TELEMETRY_VOLUME_CONFIG = ("[jobs]\npoll_seconds = 0.2\n\n"
+                           "[telemetry]\nenabled = true\n\n"
+                           "[usage]\nenabled = true\n")
+#: ``record_read`` calls timed with the collector on and off.
+RECORD_READ_N = 200_000
+
+
+def record_read_cost_ns(telemetry_mod) -> dict:
+    """ns per ``TelemetryCollector.record_read`` with the collector on
+    and off (the JAX package's ``--telemetry-overhead``, in process)."""
+    out = {}
+    for on in (True, False):
+        telemetry_mod.configure(enabled=on)
+        try:
+            c = telemetry_mod.TelemetryCollector()
+            t0 = time.perf_counter_ns()
+            for i in range(RECORD_READ_N):
+                c.record_read(i & 7, 1 << 20, 0.001)
+            out["on" if on else "off"] = \
+                (time.perf_counter_ns() - t0) / RECORD_READ_N
+        finally:
+            telemetry_mod.configure(enabled=True)
+    return out
+
+
+def telemetry_phase(dev, workdir: str, pres: dict, label: str,
+                    launches: dict) -> dict:
+    """The telemetry, SLO, usage and policy planes on the card: a port
+    master set up through ``master -config`` (``-volumeSizeLimitMB
+    1024``, ``[jobs] policy = true`` ticking every 0.5 s with a 600 s
+    cooldown, a latency and an availability objective on short windows)
+    and two port volume servers A and B through ``volume -config``
+    (``[telemetry]``, ``[usage]``; pulse 0.5 s), in this process, on
+    ``dev``. A copy of the path phase's 1 GiB volume sits unread in A's
+    store, full at ``full_fraction`` 0.9. With no command, the master's
+    policy submits ``ec_encode`` for it and A's job worker seals it on
+    the card (sha256-equal to the path phase's seal). Then, with the
+    source and shards 0, 5, 11 and 13 dropped, every 8th needle is read
+    through the master's lookup (byte-equal), the master's
+    ``/cluster/telemetry`` counts each as one EC decode, the four shell
+    commands of the planes and ``cluster.check`` answer, the SLO
+    objectives stay ``ok``, and ``record_read`` is timed with the
+    collector on and off."""
+    import urllib.request
+
+    from seaweedfs_tpu_torch.cluster import master as master_mod
+    from seaweedfs_tpu_torch.cluster import operation, telemetry, usage
+    from seaweedfs_tpu_torch.cluster import volume_server as vs_mod
+    from seaweedfs_tpu_torch.cluster.wdclient import MasterClient
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.storage.types import FileId
+    from seaweedfs_tpu_torch.util import config as config_mod
+
+    t_phase = time.perf_counter()
+    scheme = DEFAULT_SCHEME
+    total = scheme.total_shards
+    vid = TELEMETRY_VID
+    src = pres["base"]
+    dat_size = os.path.getsize(src + ".dat")
+    batches = len(list(encode.plan_batches(dat_size, scheme,
+                                           pipe.current().batch_bytes)))
+    want = {n: pres["sealed"][n] for n in
+            [ec_files.shard_ext(i) for i in range(total)] + [".ecx"]}
+    result = {}
+    dirs = {name: os.path.join(workdir, name) for name in "AB"}
+    for d in dirs.values():
+        os.makedirs(d)
+    base = os.path.join(dirs["A"], store_mod.volume_base_name(vid, ""))
+    for ext in (".dat", ".idx"):
+        shutil.copyfile(src + ext, base + ext)
+    check(dat_size >= 0.9 * TELEMETRY_LIMIT_MB * MIB,
+          f"volume {vid} on A: .dat {dat_size} bytes, full at 0.9 of "
+          f"{TELEMETRY_LIMIT_MB} MB")
+    # the needles the degraded GETs read back, from the copy before it
+    # is sealed: fid -> sha256 of the data
+    wanted = {}
+    vol = volume_mod.Volume(base, vid).load()
+    try:
+        for e in pres["idx_entries"][::TELEMETRY_GET_EVERY]:
+            n = vol.read_needle(e.key)
+            wanted[str(FileId(vid, n.id, n.cookie))] = \
+                hashlib.sha256(n.data).digest()
+    finally:
+        vol.close()
+
+    vconf = os.path.join(workdir, "volume.toml")
+    mconf_path = os.path.join(workdir, "master.toml")
+    with open(vconf, "w") as f:
+        f.write(TELEMETRY_VOLUME_CONFIG)
+    with open(mconf_path, "w") as f:
+        f.write(TELEMETRY_MASTER_CONFIG)
+    server_kw = vs_mod.apply_config(config_mod.load(vconf))
+    mconf = config_mod.load(mconf_path)
+    master_mod.apply_config(mconf)
+    master = master_mod.MasterServer(
+        port=vs_mod.free_port_pair(), pulse_seconds=TELEMETRY_PULSE,
+        volume_size_limit_mb=TELEMETRY_LIMIT_MB)
+    master_mod.configure_master(master, mconf)
+    pol = master.policy.payload()
+    check(telemetry.enabled() and usage.enabled() and pol["enabled"]
+          and pol["interval_seconds"] == 0.5
+          and pol["thresholds"]["cooldown_seconds"] == 600.0
+          and sorted(master.slo.payload()["objectives"])
+          == ["availability", "read_p99_ms"],
+          f"master -config: policy {json.dumps(pol['thresholds'])}, SLO "
+          f"objectives {sorted(master.slo.payload()['objectives'])}; "
+          f"volume -config: [telemetry] and [usage] on")
+    servers = {}
+    mc = None
+    try:
+        seal = {}
+
+        def sealed_by_policy():
+            # the main path: nothing but the master's own policy asks
+            # for this seal
+            master.start()
+            for i, (name, d) in enumerate(dirs.items()):
+                st = store_mod.Store([d])
+                st.load_existing()
+                servers[name] = vs_mod.VolumeServer(
+                    st, port=vs_mod.free_port_pair(),
+                    master_url=master.url, data_center="dc1",
+                    rack=f"r{i}", pulse_seconds=TELEMETRY_PULSE,
+                    device=dev, **server_kw).start()
+            servers["A"].heartbeat_now()
+            seal["joined"] = time.time()
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 120:
+                jobs = master.jobs.to_map()["jobs"]
+                if any(j["state"] in ("done", "failed", "cancelled")
+                       for j in jobs):
+                    seal["done"] = time.time()
+                    return jobs
+                time.sleep(0.02)
+            raise SmokeError(f"the policy sealed nothing in 120 s: "
+                             f"{json.dumps(master.policy.payload())}")
+        got = dict.fromkeys(launches, 0)
+        jobs, wall = drive("the policy's ec_encode of the cold full volume",
+                           sealed_by_policy,
+                           {"transpose": True, "swar": False}, got)
+        a = servers["A"]
+        check(len(jobs) == 1 and jobs[0]["kind"] == "ec_encode"
+              and jobs[0]["submittedBy"] == "policy"
+              and jobs[0]["state"] == "done"
+              and [t["volumeId"] for t in jobs[0]["tasks"]] == [vid]
+              and jobs[0]["tasks"][0]["worker"] == a.url,
+              f"job {jobs[0]['jobId']}: {jobs[0]['kind']} submitted by "
+              f"{jobs[0]['submittedBy']!r}, {jobs[0]['state']} on A")
+        fin = [f for f in a.job_worker.finished if f["volumeId"] == vid]
+        check(got["transpose"] == batches and fin and fin[0]["ok"]
+              and fin[0]["launches"] == {"transpose": batches},
+              f"the seal: {got['transpose']} transpose launches = "
+              f"{batches} batches, all on A's worker thread")
+        for k, v in got.items():
+            launches[k] += v
+        digests = _digests([base + n for n in want])
+        check(dict(zip(want, digests)) == want,
+              f"volume {vid}: 14 shards and .ecx sha256-equal to the path "
+              f"phase's seal")
+        acts = list(master.policy.actions)
+        check([x["action"] for x in acts] == ["ec_encode"]
+              and acts[0]["volumeId"] == vid,
+              f"the policy's actions ring: {json.dumps(acts)}")
+        result["seal"] = {
+            "first_tick_to_done_s": seal["done"] - acts[0]["ts"],
+            "join_to_done_s": seal["done"] - seal["joined"],
+            "task_s": fin[0]["seconds"], "ticks": master.policy.ticks}
+        say(f"  policy seal on {label}: {json.dumps(result['seal'])} "
+            f"(the task {dat_size / GIB / fin[0]['seconds']:.3f} GiB/s of "
+            f".dat)")
+
+        # 2: the source and shards 0, 5, 11 and 13 gone; every 8th
+        # needle read through the master's lookup
+        a.servicer.VolumeDelete(vpb.VolumeDeleteRequest(
+            volume_id=vid, collection=""), None)
+        a.servicer.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+            volume_id=vid, collection="", shard_ids=list(LOST_READ)), None)
+        a.heartbeat_now()
+        check(sorted(master.topology.lookup_ec_volume(vid)) ==
+              [s for s in range(total) if s not in LOST_READ]
+              and not master.topology.lookup_volume(vid),
+              f"the master: volume {vid} only as EC, shards "
+              f"{list(LOST_READ)} held nowhere")
+        for vs in servers.values():
+            vs.chunk_cache.clear()
+        mc = MasterClient(master.url)
+        times = []
+
+        def download_all():
+            for fid, digest in wanted.items():
+                t0 = time.perf_counter()
+                body = operation.download(mc, fid)
+                times.append(time.perf_counter() - t0)
+                if hashlib.sha256(body).digest() != digest:
+                    raise SmokeError(f"operation.download {fid}: bytes "
+                                     f"differ from the .dat's")
+        got = dict.fromkeys(launches, 0)
+        drive(f"operation.download of every {TELEMETRY_GET_EVERY}th "
+              f"needle with shards {list(LOST_READ)} gone",
+              download_all, {"transpose": True, "swar": False}, got)
+        for k, v in got.items():
+            launches[k] += v
+        ms = np.asarray(times) * 1e3
+        result["degraded"] = {
+            "gets": len(times), "needles_per_s": len(times) / sum(times),
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "launches": got}
+        say(f"  degraded GETs through the master on {label}: "
+            f"{json.dumps(result['degraded'])}")
+        t0 = time.perf_counter()
+        doc = None
+        while time.perf_counter() - t0 < 30:
+            for vs in servers.values():
+                vs.heartbeat_now()
+            with urllib.request.urlopen(
+                    f"http://{master.url}/cluster/telemetry",
+                    timeout=30) as r:
+                doc = json.loads(r.read())
+            row = doc["volumes"].get(str(vid), {}).get(a.url, {})
+            if row.get("ec_decodes") == len(wanted):
+                break
+            time.sleep(TELEMETRY_PULSE / 5)
+        row = doc["volumes"].get(str(vid), {}).get(a.url, {})
+        check(row.get("ec_decodes") == len(wanted)
+              and row.get("read_ops") == len(wanted),
+              f"/cluster/telemetry: volume {vid} on A, ec_decodes "
+              f"{row.get('ec_decodes')} = read_ops {row.get('read_ops')} "
+              f"= the {len(wanted)} GETs")
+        nodes = doc["nodes"]
+        p99 = nodes[a.url].get("read_p99_seconds")
+        scores = [nodes[vs.url]["health"]["score"]
+                  for vs in servers.values()]
+        check(p99 is not None and p99 > 0 and all(
+            nodes[vs.url]["health"]["verdict"] == "healthy"
+            for vs in servers.values()),
+            f"/cluster/telemetry: A's read p99 {p99} s from the digests; "
+            f"A and B healthy (scores {scores})")
+        result["telemetry"] = {
+            "read_p99_s": p99,
+            "read_latency": row.get("read_latency"),
+            "cluster_median_read_p99_s":
+                doc.get("cluster_median_read_p99_seconds")}
+        say(f"  /cluster/telemetry on {label}: "
+            f"{json.dumps(result['telemetry'])}")
+
+        # 3: the lost shards rebuilt by the cluster shell, then the
+        # planes' shell commands and cluster.check
+        lines, log = cluster_shell(
+            master.url, "lock; ec.rebuild; unlock; telemetry.status; "
+            "volume.heatmap; traffic.top; tenant.usage; cluster.check",
+            "telemetry shell", {"ec.rebuild": {"transpose": True,
+                                               "swar": False}}, launches)
+        rebuilt = next(g for name, _w, g in log if name == "ec.rebuild")
+        digests = _digests([base + n for n in want])
+        check(dict(zip(want, digests)) == want,
+              f"the shell's ec.rebuild ({rebuilt} launches): shards "
+              f"{list(LOST_READ)} sha256-equal to the path phase's seal")
+        check(lines and lines[-1].endswith(" 0 problems")
+              and any(ln.startswith(f"{a.url}: healthy") for ln in lines)
+              and any(ln.startswith("traffic.top: ") for ln in lines),
+              f"the shell: telemetry.status, volume.heatmap, traffic.top, "
+              f"tenant.usage and cluster.check answered ({len(lines)} "
+              f"lines; {lines[-1]!r})")
+        with urllib.request.urlopen(f"http://{master.url}/cluster/slo",
+                                    timeout=30) as r:
+            slo = json.loads(r.read())
+        states = {k: o["state"] for k, o in slo["objectives"].items()}
+        check(states == {"read_p99_ms": "ok", "availability": "ok"}
+              and slo["evaluations"] > 0,
+              f"/cluster/slo: {json.dumps(states)} after "
+              f"{slo['evaluations']} evaluations")
+        result["slo"] = {"evaluations": slo["evaluations"],
+                         "states": states}
+
+        # 4: what the collector costs a read
+        result["record_read_ns"] = record_read_cost_ns(telemetry)
+        say(f"  the SLO engine: {slo['evaluations']} evaluations; "
+            f"record_read on {label}'s host: "
+            f"{json.dumps(result['record_read_ns'])} ns per call "
+            f"(collector on / off)")
+    finally:
+        if mc is not None:
+            mc.close()
+        for vs in servers.values():
+            vs.stop()
+        master.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    say(f"  telemetry phase: {result['seconds']:.1f} s")
     return result
 
 
@@ -4107,6 +4482,10 @@ def main() -> int:
             "workers):")
         jres = jobs_phase(dev, os.path.join(workdir, "jobs"), pres, label,
                           launches)
+        say("phase telemetry (a cold full volume sealed by the master's "
+            "own policy):")
+        telemetry_phase(dev, os.path.join(workdir, "telemetry"), pres,
+                        label, launches)
         say("phase filer (the filer stack with its chunk cache, on a "
             "sealed volume):")
         filer_phase(dev, os.path.join(workdir, "filer"), label, launches)

@@ -9,7 +9,8 @@ family) and streams its heartbeat to a master, and the maintenance
 plane (``jobs.py``: the master's leased work-lists and the volume
 servers' job workers), and the filer's server and client
 (``filer_server.py``, ``filer_client.py``). The master also collects
-the cluster's stitched traces (``util/tracing.TraceCollector``). Not
-ported yet (ROADMAP Queue 1, "Telemetry, SLO, usage and the policy
-engine"): the jobs policy engine and the telemetry and usage planes.
+the cluster's stitched traces (``util/tracing.TraceCollector``), the
+telemetry registry and SLO engine (``telemetry.py``), the usage
+registry (``usage.py``) and the jobs policy engine that turns their
+signals into submitted jobs.
 """

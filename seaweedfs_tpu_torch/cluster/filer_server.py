@@ -16,16 +16,18 @@ cache subscribes to the master's invalidation hub
 ``filer.<VERB>`` trace root continuing the caller's context, slow or
 errored roots are pushed to the master's collector, and
 ``/debug/traces``, ``/debug/profile`` and ``/debug/vars`` describe the
-process; ``-config`` applies ``[tracing]`` and ``[profiler]``. Not
-ported yet, named in ROADMAP Queue 1 ("Telemetry, SLO, usage and the
-policy engine"): the usage collector and its pusher, and the
-``[usage]`` section that sets them (refused, exit 2).
+process; ``-config`` applies ``[tracing]`` and ``[profiler]``. Every
+request lands in the filer's usage collector (tenant ``anonymous``, the
+bucket of a ``/buckets/<name>/...`` path), which a pusher ships to the
+master's ``POST /cluster/usage`` as the JAX filer does; ``[usage]``
+switches it.
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 from concurrent import futures
 from http.server import BaseHTTPRequestHandler
 from typing import Optional
@@ -44,6 +46,7 @@ from ..util import glog
 from ..util import httpserver
 from ..util import profiler, retry, tracing, varz
 from ..util.stats import EXPOSITION_CONTENT_TYPE, Metrics
+from . import usage as usage_mod
 from .master import _grpc_port
 from .wdclient import MasterClient
 from ..util import tls as tls_mod
@@ -71,8 +74,12 @@ class FilerServer:
         #: Loaded at start and re-read on changes via the filer's own
         #: meta stream — empty when no conf exists.
         self.path_conf = path_conf_mod.PathConf()
-        # no usage collector nor pusher (ROADMAP Queue 1, "Telemetry,
-        # SLO, usage and the policy engine")
+        #: Traffic accounting (usage plane): the filer has no tenant
+        #: auth, so rows land under "anonymous" with the bucket drawn
+        #: from /buckets/<name> paths; a pusher ships the cumulative
+        #: snapshot to the master (the filer does not heartbeat).
+        self.usage = usage_mod.UsageCollector("filer")
+        self._usage_pusher: Optional[usage_mod.UsagePusher] = None
         self._conf_stop = threading.Event()
         self._grpc_server = None
         self._http_server: Optional[httpserver.IngressHTTPServer] = None
@@ -154,6 +161,8 @@ class FilerServer:
             # Slow/errored filer roots join the master's stitched view.
             tracing.configure_push(self.master_url, node=self.url,
                                    component="filer")
+            self._usage_pusher = usage_mod.UsagePusher(
+                self.usage, self.master_url, self.url).start()
             # Job-commit cache invalidation: register this filer's
             # chunk cache for the master's fan-out (docs/jobs.md).
             invalidation_mod.start_subscriber(self.master_url,
@@ -171,6 +180,8 @@ class FilerServer:
 
     def stop(self) -> None:
         self._conf_stop.set()
+        if self._usage_pusher is not None:
+            self._usage_pusher.stop()
         if self._grpc_server:
             self._grpc_server.stop(grace=0.5).wait(timeout=2)
         if self._http_server:
@@ -350,6 +361,15 @@ class _FilerServicer:
 # ------------- HTTP -------------
 
 
+def _bucket_of(path: str) -> str:
+    """Bucket attribution for usage rows: /buckets/<name>/... paths
+    (the S3 gateway's layout) map to <name>; everything else is ''."""
+    parts = path.strip("/").split("/")
+    if len(parts) >= 2 and parts[0] == "buckets":
+        return parts[1]
+    return ""
+
+
 def _parse_signatures(q: dict) -> tuple:
     """``signatures=12,34`` query param -> int tuple (the HTTP face of
     the rpc signatures field; non-numeric values are ignored)."""
@@ -407,9 +427,9 @@ def _make_http_handler(fs: FilerServer):
                 ).encode(), "text/plain; charset=utf-8")
                 return
             if u.path == "/debug/vars":
-                # the JAX page's usage section waits for its plane
                 self._send(200, json.dumps(varz.payload(
-                    "filer", fs.metrics)).encode())
+                    "filer", fs.metrics,
+                    extra={"usage": fs.usage.to_payload()})).encode())
                 return
             dl = retry.deadline_from_headers(self.headers)
             if dl is not None and dl.expired():
@@ -417,8 +437,11 @@ def _make_http_handler(fs: FilerServer):
                 return
             path, q = self._path()
             fs.metrics.counter("request_total", method="GET").inc()
+            t0 = time.perf_counter()
             entry = fs.filer.find_entry(path)
             if entry is None:
+                fs.usage.record("anonymous", _bucket_of(path),
+                                error=True, key=path)
                 self._err(404, f"{path} not found")
                 return
             if entry.is_dir:
@@ -457,6 +480,9 @@ def _make_http_handler(fs: FilerServer):
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
+            fs.usage.record("anonymous", _bucket_of(path),
+                            n_out=len(data),
+                            seconds=time.perf_counter() - t0, key=path)
 
         def do_HEAD(self):
             path, _ = self._path()
@@ -495,6 +521,7 @@ def _make_http_handler(fs: FilerServer):
         def _upload(self):
             path, q = self._path()
             fs.metrics.counter("request_total", method="PUT").inc()
+            t0 = time.perf_counter()
             if q.get("mkdir") == "true" or self.path.rstrip("?").endswith(
                     "/") and not self._body_expected():
                 fs.filer.create_entry(Entry(
@@ -545,17 +572,24 @@ def _make_http_handler(fs: FilerServer):
                         append=q.get("op") == "append",
                         signatures=_parse_signatures(q))
             except FilerError as e:
+                fs.usage.record("anonymous", _bucket_of(path),
+                                n_in=len(body), error=True, key=path)
                 self._err(409, str(e))
                 return
             except ValueError as e:
                 # bad replication/ttl reaching the assign path (e.g. a
                 # typo'd filer.conf rule) must be an HTTP error, not an
                 # aborted connection
+                fs.usage.record("anonymous", _bucket_of(path),
+                                n_in=len(body), error=True, key=path)
                 self._err(400, str(e))
                 return
             self._send(201, json.dumps(
                 {"name": entry.name,
                  "size": total_size(entry.chunks)}).encode())
+            fs.usage.record("anonymous", _bucket_of(path),
+                            n_in=len(body),
+                            seconds=time.perf_counter() - t0, key=path)
 
         def _body_expected(self) -> bool:
             return int(self.headers.get("Content-Length", "0")) > 0
@@ -574,9 +608,12 @@ def _make_http_handler(fs: FilerServer):
                     fs.filer.delete_entry(path, recursive=recursive,
                                           signatures=sigs)
             except FilerError as e:
+                fs.usage.record("anonymous", _bucket_of(path),
+                                error=True)
                 self._err(404 if "not found" in str(e) else 409, str(e))
                 return
             self._send(204)
+            fs.usage.record("anonymous", _bucket_of(path))
 
     return tracing.instrument_http_handler(
         httpserver.admission_gate(Handler), "filer")
@@ -601,35 +638,20 @@ def _first_multipart_file(body: bytes, ctype: str) -> tuple[bytes, str]:
     return b"", ""
 
 
-#: ``-config`` sections of planes the port does not have yet (ROADMAP
-#: Queue 1, "Telemetry, SLO, usage and the policy engine"): a file that
-#: sets one is refused rather than half applied.
-UNPORTED_SECTIONS = ("usage",)
-
-
 def apply_config(conf: dict) -> None:
     """Apply a loaded ``-config`` TOML: ``[grpc.tls]``, ``[tracing]``,
     ``[retry]``, ``[faults]``, ``[storage]`` (the fsync policy),
-    ``[profiler]`` (and start its sampler when enabled) and
-    ``[ingress]``. A section of a plane the port lacks
-    (:data:`UNPORTED_SECTIONS`) raises ``ValueError`` before anything is
-    applied."""
-    from ..util import config as config_mod
+    ``[profiler]`` (and start its sampler when enabled), ``[usage]`` and
+    ``[ingress]``."""
     from ..util import durability as durability_mod
 
-    bad = [s for s in UNPORTED_SECTIONS
-           if config_mod.lookup(conf, s) is not None]
-    if bad:
-        raise ValueError(
-            f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1, "
-            f"telemetry, SLO, usage and the policy engine); remove it "
-            f"from the file")
     tls_mod.install_from_config(conf)
     tracing.configure_from(conf)
     retry.configure_from(conf)
     faults_mod.configure_from(conf)
     durability_mod.configure_from(conf)
     profiler.configure_from(conf)
+    usage_mod.configure_from(conf)
     httpserver.configure_from(conf)
     profiler.ensure_started()
 
@@ -657,7 +679,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                    help="POST metadata events to this URL")
     p.add_argument("-config", default="",
                    help="TOML: [grpc.tls], [tracing], [retry], [faults], "
-                        "[storage], [profiler], [ingress]")
+                        "[storage], [profiler], [usage], [ingress]")
     args = p.parse_args(argv)
     from ..util import config as config_mod
     try:

@@ -1,6 +1,6 @@
 """Cluster maintenance plane: leased job orchestration.
 
-The port of ``seaweedfs_tpu/cluster/jobs.py`` without its policy engine.
+The port of ``seaweedfs_tpu/cluster/jobs.py``.
 Upstream SeaweedFS runs ``ec.encode`` / ``volume.grow`` as one shell
 process driving every rpc itself; a sweep over many volumes then
 bottlenecks on (and dies with) that one coordinator. This module moves
@@ -38,10 +38,17 @@ ends. Here an exclusion is a preference: when no live worker outside
 Attempts still count, so ``max_attempts`` ends it as ``failed``. While
 another eligible worker is live, the excluded one stays excluded.
 
-The master passes ``on_commit`` (its cache-invalidation fan-out). Not
-ported yet, named in ROADMAP Queue 1 ("Telemetry, SLO, usage and the
-policy engine"): ``PolicyEngine``, which reads the telemetry registry
-(:func:`policy_payload` stands in for its disarmed payload).
+On top of the queue, :class:`PolicyEngine` closes the loop the
+telemetry and usage planes only observe: cold **full** volumes (read-rate
+EWMA under ``cold_read_ops_per_second``) are queued for EC encode, hot
+volumes get replicas grown, cooling ones shrunk — with hysteresis (grow
+above ``hot``, shrink only below ``cool`` < ``hot``), a per-volume
+cooldown dwell, a per-tick submission cap, and a ``[jobs]`` kill switch.
+Its decisions equal the JAX engine's on the same rows. A sealed volume's
+``ec_encode`` runs on the holder's job worker, so a policy tick ends in
+the GF(2^8) kernel on the card.
+
+The master passes ``on_commit`` (its cache-invalidation fan-out).
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+from collections import deque
 from pathlib import Path
 from typing import Iterable, Optional
 
@@ -56,6 +64,7 @@ from ..ops import rs_cuda
 from ..pb import master_pb2, volume_server_pb2
 from ..pipeline import encode as encode_mod
 from ..pipeline.scheme import DEFAULT_SCHEME, EcScheme
+from ..storage.superblock import ReplicaPlacement
 from ..util import glog, retry
 from ..util.stats import Metrics
 
@@ -69,14 +78,6 @@ MUTATING_KINDS = frozenset(
     ("ec_encode", "ec_rebuild", "vacuum", "replica_drop"))
 
 _TERMINAL = ("done", "failed")
-
-#: ``[jobs]`` keys of the JAX package's policy engine, which the port
-#: does not have yet: a master ``-config`` that sets one is refused.
-POLICY_KEYS = ("policy", "policy_interval_seconds",
-               "cold_read_ops_per_second", "full_fraction",
-               "hot_read_ops_per_second", "cool_read_ops_per_second",
-               "warm_cache_hit_ratio", "max_replicas", "cooldown_seconds",
-               "max_actions_per_tick")
 
 _ENABLED = True
 
@@ -99,24 +100,6 @@ def configure_from(conf: dict) -> None:
 
 def enabled() -> bool:
     return _ENABLED
-
-
-def policy_payload() -> dict:
-    """What a disarmed JAX ``PolicyEngine().payload()`` says (its
-    defaults, no tick, no action): the ``policy`` key of the master's
-    ``/cluster/jobs``, so ``job.status`` prints the same ``policy:``
-    line against either package's master."""
-    return {"enabled": False, "ticks": 0, "interval_seconds": 15.0,
-            "thresholds": {
-                "cold_read_ops_per_second": 0.05,
-                "full_fraction": 0.9,
-                "hot_read_ops_per_second": 50.0,
-                "cool_read_ops_per_second": 10.0,
-                "warm_cache_hit_ratio": 0.5,
-                "max_replicas": 3,
-                "cooldown_seconds": 120.0,
-                "max_actions_per_tick": 2},
-            "actions": []}
 
 
 class JobError(RuntimeError):
@@ -626,6 +609,228 @@ class JobManager:
             self._refresh_gauges_locked()
         glog.info("jobs: resumed %d job(s) from %s", len(self._order),
                   path)
+
+
+# --------------------------------------------------------------------------
+# policy engine: telemetry/usage signals -> submitted jobs
+# --------------------------------------------------------------------------
+
+
+class PolicyEngine:
+    """Turns the observability planes into autonomous maintenance.
+
+    Every ``interval`` seconds (leader only, off the master's reap
+    loop) the engine folds the topology + telemetry registry into
+    per-volume rows and decides:
+
+    - **ec_encode** — volume is full (read-only, or size past
+      ``full_fraction`` of the limit) AND its cluster-wide read-rate
+      EWMA sits under ``cold_read_ops_per_second``: seal it to EC.
+    - **replicate** — read rate above ``hot_read_ops_per_second`` and
+      fewer than ``max_replicas`` copies: grow a replica.
+    - **replica_drop** — read rate below ``cool_read_ops_per_second``
+      and more copies than the placement requires: shrink back.
+
+    Chunk-cache warmth (cluster-wide hit ratio from telemetry) tilts
+    the decisions: a warm volume's observed read rate is mostly cache
+    hits, so sealing it to EC or dropping replicas would dump that
+    absorbed load back onto disks the moment caches churn. Volumes at
+    or above ``warm_cache_hit_ratio`` are never EC-encoded or shrunk,
+    and replicate already at ``cool_read_ops_per_second`` instead of
+    waiting for the hot threshold.
+
+    Flap control is structural: grow and shrink thresholds are split
+    (hysteresis band), every volume gets a ``cooldown_seconds`` dwell
+    after any action, volumes with live tasks are skipped, and at most
+    ``max_actions_per_tick`` jobs are submitted per evaluation.
+    """
+
+    def __init__(self, master=None, jobs: Optional[JobManager] = None,
+                 clock=time.time):
+        self.master = master
+        self.jobs = jobs
+        self.clock = clock
+        self.enabled = False
+        self.interval = 15.0
+        self.cold_read_rate = 0.05
+        self.full_fraction = 0.9
+        self.hot_read_rate = 50.0
+        self.cool_read_rate = 10.0
+        self.warm_cache_ratio = 0.5
+        self.max_replicas = 3
+        self.cooldown = 120.0
+        self.max_actions_per_tick = 2
+        self.ticks = 0
+        self.actions: deque = deque(maxlen=128)
+        self._last_action: dict[int, float] = {}
+        self._last_tick = 0.0
+        self._lock = threading.Lock()
+
+    def configure(self, conf: Optional[dict]) -> "PolicyEngine":
+        """Apply a ``[jobs]`` section (also accepts the section
+        itself). ``policy = true`` arms the engine; the section's
+        ``enabled = false`` module switch still overrides it."""
+        s = conf or {}
+        if isinstance(s.get("jobs"), dict):
+            s = s["jobs"]
+        with self._lock:
+            self.enabled = bool(s.get("policy", self.enabled))
+            self.interval = float(
+                s.get("policy_interval_seconds", self.interval))
+            self.cold_read_rate = float(
+                s.get("cold_read_ops_per_second", self.cold_read_rate))
+            self.full_fraction = float(
+                s.get("full_fraction", self.full_fraction))
+            self.hot_read_rate = float(
+                s.get("hot_read_ops_per_second", self.hot_read_rate))
+            self.cool_read_rate = float(
+                s.get("cool_read_ops_per_second", self.cool_read_rate))
+            self.warm_cache_ratio = float(
+                s.get("warm_cache_hit_ratio", self.warm_cache_ratio))
+            self.max_replicas = int(
+                s.get("max_replicas", self.max_replicas))
+            self.cooldown = float(
+                s.get("cooldown_seconds", self.cooldown))
+            self.max_actions_per_tick = int(
+                s.get("max_actions_per_tick", self.max_actions_per_tick))
+            if self.cool_read_rate >= self.hot_read_rate:
+                raise ValueError(
+                    "[jobs] cool_read_ops_per_second must sit below "
+                    "hot_read_ops_per_second (hysteresis band)")
+        return self
+
+    # ---------------- evaluation ----------------
+
+    def cluster_rows(self) -> list[dict]:
+        """Fold topology + telemetry into one row per volume."""
+        topo = self.master.topology
+        rates = topo.telemetry.volume_read_rates()
+        warmth = topo.telemetry.volume_cache_warmth()
+        rows: dict[int, dict] = {}
+        # copies taken under the topology lock: a concurrent grow adds
+        # to a node's volumes in place
+        for _node, vols, _ec in topo.snapshot_holdings():
+            for v in vols:
+                vid = v.id
+                r = rows.setdefault(vid, {
+                    "volume_id": vid, "collection": v.collection,
+                    "size": 0,
+                    "read_only": False, "replicas": 0,
+                    "placement": v.replica_placement,
+                    "read_rate": rates.get(vid, 0.0),
+                    "cache_warmth": warmth.get(vid, 0.0),
+                    "is_ec": False})
+                r["replicas"] += 1
+                r["size"] = max(r["size"], v.size)
+                r["read_only"] = r["read_only"] or v.read_only
+        for vid in list(topo.ec_locations):
+            if vid in rows:
+                rows[vid]["is_ec"] = True
+        for r in rows.values():
+            r["limit"] = topo.volume_size_limit
+        return [rows[vid] for vid in sorted(rows)]
+
+    def evaluate(self, rows: Iterable[dict],
+                 now: Optional[float] = None) -> list[dict]:
+        """Pure-ish decision pass over volume rows; records cooldown
+        state and returns the actions to submit. Split from tick() so
+        hysteresis is unit-testable without a cluster."""
+        now = self.clock() if now is None else now
+        busy = self.jobs.active_volume_ids() if self.jobs else set()
+        acts: list[dict] = []
+        with self._lock:
+            for r in rows:
+                if len(acts) >= self.max_actions_per_tick:
+                    break
+                vid = r["volume_id"]
+                if vid in busy:
+                    continue
+                if now - self._last_action.get(vid, -1e18) < self.cooldown:
+                    continue
+                rate = float(r.get("read_rate", 0.0))
+                warm = float(r.get("cache_warmth", 0.0)) \
+                    >= self.warm_cache_ratio
+                action = ""
+                if not r.get("is_ec"):
+                    limit = int(r.get("limit", 0) or 0)
+                    full = bool(r.get("read_only")) or (
+                        limit > 0 and r.get("size", 0)
+                        >= self.full_fraction * limit)
+                    base = ReplicaPlacement.parse(
+                        r.get("placement", "000")).copy_count()
+                    grow_at = self.cool_read_rate if warm \
+                        else self.hot_read_rate
+                    if full and rate <= self.cold_read_rate \
+                            and not warm:
+                        action = "ec_encode"
+                    elif (rate >= grow_at
+                          and r.get("replicas", 1) < self.max_replicas):
+                        action = "replicate"
+                    elif (rate <= self.cool_read_rate and not warm
+                          and r.get("replicas", 1) > base):
+                        action = "replica_drop"
+                if not action:
+                    continue
+                self._last_action[vid] = now
+                act = {"ts": now, "action": action, "volumeId": vid,
+                       "collection": r.get("collection", ""),
+                       "readRate": round(rate, 3),
+                       "cacheWarmth":
+                           round(float(r.get("cache_warmth", 0.0)), 3),
+                       "replicas": r.get("replicas", 1)}
+                self.actions.append(act)
+                if self.jobs is not None:
+                    self.jobs.metrics.counter(
+                        "jobs_policy_actions_total",
+                        action=action).inc()
+                acts.append(act)
+        return acts
+
+    def maybe_tick(self) -> None:
+        """Interval-gated tick, called from the master's reap loop
+        every pulse (leader checks live with the caller)."""
+        if not self.enabled or not _ENABLED:
+            return
+        now = self.clock()
+        if now - self._last_tick < self.interval:
+            return
+        self._last_tick = now
+        try:
+            self.tick(now)
+        except Exception as e:  # noqa: BLE001 — policy must not die
+            glog.warning("jobs: policy tick failed: %s: %s",
+                         type(e).__name__, e)
+
+    def tick(self, now: Optional[float] = None) -> list[dict]:
+        # only the master's single reap loop calls tick()
+        # seaweedlint: disable=SW802 — single reap-loop caller
+        self.ticks += 1
+        acts = self.evaluate(self.cluster_rows(), now)
+        for a in acts:
+            glog.info("jobs: policy -> %s volume %d (rate %.2f/s, "
+                      "%d replica(s))", a["action"], a["volumeId"],
+                      a["readRate"], a["replicas"])
+            self.jobs.submit(a["action"], [a["volumeId"]],
+                             collection=a["collection"],
+                             submitted_by="policy")
+        return acts
+
+    def payload(self) -> dict:
+        with self._lock:
+            return {"enabled": self.enabled and _ENABLED,
+                    "ticks": self.ticks,
+                    "interval_seconds": self.interval,
+                    "thresholds": {
+                        "cold_read_ops_per_second": self.cold_read_rate,
+                        "full_fraction": self.full_fraction,
+                        "hot_read_ops_per_second": self.hot_read_rate,
+                        "cool_read_ops_per_second": self.cool_read_rate,
+                        "warm_cache_hit_ratio": self.warm_cache_ratio,
+                        "max_replicas": self.max_replicas,
+                        "cooldown_seconds": self.cooldown,
+                        "max_actions_per_tick":
+                            self.max_actions_per_tick},
+                    "actions": list(self.actions)}
 
 
 # --------------------------------------------------------------------------

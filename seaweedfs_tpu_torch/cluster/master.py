@@ -29,13 +29,18 @@ proxies a burst profile of any node, and ``/debug/traces``,
 hub's ``cache_hub`` map and the collector's counts) describe the master
 itself. ``-config`` applies ``[tracing]`` and ``[profiler]``.
 
-Not ported yet, named in ROADMAP Queue 1 ("Telemetry, SLO, usage and
-the policy engine"): the SLO engine, the usage registry, the jobs policy
-engine, the telemetry registry (so replicas are ranked by heartbeat age
-alone, as the JAX master ranks them before any telemetry arrives), their
-``/cluster/*`` routes and ``/debug/vars`` keys, and the sections and
-keys of ``-config`` that set them (refused, exit 2). Heartbeat fields of
-those planes (``telemetry``, ``usage``) are accepted and ignored.
+The telemetry, SLO, usage and policy planes ride along as in the JAX
+master: the heartbeat's ``telemetry`` snapshot feeds the topology's
+:class:`~.telemetry.ClusterTelemetry` (decayed rates, latency digests,
+node health, which ranks the replicas a lookup returns) and its
+``usage`` snapshot :attr:`MasterServer.usage`, as do the gateways' and
+filers' pushes to ``POST /cluster/usage``; :attr:`MasterServer.slo`
+evaluates ``[slo]``'s objectives as multi-window burn rates, and
+:attr:`MasterServer.policy` (``[jobs] policy``) submits ``ec_encode``,
+``replicate`` and ``replica_drop`` jobs from the reap loop.
+``/cluster/telemetry``, ``/cluster/usage``, ``/cluster/topk`` and
+``/cluster/slo`` read them (a follower proxies to the leader), and
+``/metrics`` and ``/debug/vars`` carry their families and keys.
 
 The cache-invalidation hub (``cache/invalidation.ClusterInvalidationHub``)
 is ported: filers subscribe with ``POST /cluster/cache_subscribe``, and a
@@ -67,14 +72,11 @@ from ..util import tls as tls_mod
 from ..util.stats import EXPOSITION_CONTENT_TYPE, Metrics
 from . import ha as ha_mod
 from . import jobs as jobs_mod
+from . import usage as usage_mod
 from .ha import NotLeaderError
 from .sequence import MemorySequencer
+from .telemetry import ClusterTelemetry, SloEngine
 from .topology import Topology, TopologyError, VolumeInfo
-
-#: ``-config`` sections the JAX master reads for planes the port lacks
-#: (ROADMAP Queue 1, "Telemetry, SLO, usage and the policy engine"): a
-#: file that sets one is refused rather than half applied.
-UNPORTED_SECTIONS = ("usage", "slo")
 
 
 def _grpc_port(http_port: int) -> int:
@@ -164,6 +166,10 @@ class MasterServer:
             if meta_dir else None,
             clock=clock,
             on_commit=self._job_task_committed)
+        #: The policy engine that turns telemetry/usage signals into
+        #: submitted jobs (``[jobs] policy``); the reap loop ticks it.
+        self.policy = jobs_mod.PolicyEngine(master=self, jobs=self.jobs,
+                                            clock=clock)
         #: Cluster cache-invalidation fan-out: gateways subscribe via
         #: POST /cluster/cache_subscribe; job commits that mutate a
         #: volume's bytes publish to subscribers + all volume servers.
@@ -173,6 +179,14 @@ class MasterServer:
         #: servers push to the leader, so the reads leader-proxy.
         self.trace_collector = tracing.TraceCollector(
             ring_size=trace_ring_size)
+        #: SLO burn-rate engine over the telemetry registry; like the
+        #: trace collector, only the leader's fills up.
+        self.slo = SloEngine(self.topology.telemetry, clock=clock)
+        #: Traffic accounting registry: volume servers ride the
+        #: heartbeat (Heartbeat.usage); gateways/filer POST the same
+        #: payload to /cluster/usage. Leader-only for the same reason
+        #: as traces/telemetry.
+        self.usage = usage_mod.ClusterUsage(clock=clock)
 
     # ------------- HA plumbing -------------
 
@@ -227,6 +241,7 @@ class MasterServer:
                                         name=f"master-reaper-{self.port}")
         self._reaper.start()
         self.ha.start()
+        self.slo.start()
         # The master's own slow/errored roots go straight into the
         # in-process collector — no HTTP round trip to self.
         tracing.configure_push(self.trace_collector.ingest,
@@ -243,6 +258,7 @@ class MasterServer:
     def stop(self) -> None:
         self._stop.set()
         self.ha.stop()
+        self.slo.stop()
         if self._pusher is not None:
             self._pusher.stop()
         if self._grpc_server:
@@ -277,11 +293,14 @@ class MasterServer:
             for url in self.topology.reap_dead_nodes():
                 glog.warning("master: data node %s missed heartbeats, "
                              "removed from topology", url)
+                self.usage.forget(url)
                 # Reaped workers hand their leased tasks back now
                 # rather than sitting out the rest of the lease.
                 self.jobs.forget_worker(url)
                 self.cache_hub.forget(url)
             self.jobs.expire()
+            if self.is_leader:
+                self.policy.maybe_tick()
             if self.is_leader and tick % ttl_every == 0 \
                     and (self._ttl_thread is None or
                          not self._ttl_thread.is_alive()):
@@ -567,50 +586,58 @@ class MasterServer:
                      "publicUrl": n.public_url or n.url,
                      "shards": shards[n.url]}
                     for n in self._rank_replicas(
-                        list(seen.values()), exclude_unhealthy=False)]
+                        list(seen.values()), volume_id,
+                        exclude_unhealthy=False)]
         return [{"url": n.url, "publicUrl": n.public_url or n.url}
-                for n in self._rank_replicas(nodes)]
+                for n in self._rank_replicas(nodes, volume_id)]
 
-    def _rank_replicas(self, nodes: list,
+    def _rank_replicas(self, nodes: list, volume_id: int,
                        exclude_unhealthy: bool = True) -> list:
-        """Read routing by heartbeat age: healthy nodes first, then
-        degraded, unhealthy last; a node's score falls from 100 to 0 as
-        its last heartbeat ages from 2 to 8 pulses (>=80 healthy, >=50
-        degraded). This is the JAX master's ranking with no telemetry
-        ingested; the sort is stable, so fresh nodes keep the
-        topology's order.
+        """Telemetry-ranked read routing: healthy nodes first (then
+        degraded, unhealthy last), and within a tier by health score
+        plus a chunk-cache-warmth bonus for this volume — so clients
+        that try locations in order hit the warm healthy replica and
+        only fall through to a faulted node at the tail. With no
+        telemetry ingested every node scores 100/healthy and the
+        topology's deterministic order is preserved (the sort is
+        stable).
 
-        Unhealthy nodes are *excluded* whenever at least one healthy or
-        degraded replica exists; a volume whose every replica is
-        unhealthy still returns them all, because a slow answer beats
-        none."""
+        Unhealthy-verdict nodes are *excluded* (not just demoted)
+        whenever at least one healthy/degraded replica exists —
+        handing a client a location the telemetry plane already
+        condemned only buys it a timeout before it falls through to
+        the next one anyway. The floor: a fully-degraded volume still
+        returns every location, because a slow answer beats none."""
         if len(nodes) < 2:
             return nodes
-        now = self.clock()
-        pulse = max(self.topology.pulse_seconds, 1e-3)
+        tele = self.topology.telemetry
+        pulse = self.topology.pulse_seconds
+        tiers = {"healthy": 0, "degraded": 1, "unhealthy": 2}
         ranked = []
         for i, n in enumerate(nodes):
-            stale = min(1.0, max(0.0, (now - n.last_seen - 2 * pulse)
-                                 / (6 * pulse)))
-            score = round(100.0 * (1 - stale))
-            tier = 0 if score >= 80 else 1 if score >= 50 else 2
-            ranked.append(((tier, -score, i), n))
+            h = tele.health(n.url, n.last_seen, pulse)
+            warmth = tele.volume_row(n.url, volume_id).get(
+                "cache_hit_ratio", 0.0)
+            key = (tiers.get(h["verdict"], 2),
+                   -(h["score"] + 25.0 * warmth), i)
+            ranked.append((key, n))
         ranked.sort(key=lambda kn: kn[0])
         alive = sum(1 for key, _n in ranked if key[0] < 2)
         if exclude_unhealthy and 0 < alive < len(ranked):
             self.metrics.counter(
                 "lookup_unhealthy_excluded_total").inc(
                     len(ranked) - alive)
-            ranked = ranked[:alive]  # the sort left unhealthy at the tail
+            ranked = ranked[:alive]  # sort left unhealthy at the tail
         return [n for _key, n in ranked]
 
     # ------------- heartbeat ingestion -------------
 
     def ingest_heartbeat(self, hb) -> master_pb2.HeartbeatResponse:
         """One heartbeat through the full ingestion path. Its
-        ``job_progress`` renews the leases of the tasks it names; the
-        ``telemetry`` and ``usage`` fields belong to planes the port
-        does not have yet and are ignored."""
+        ``telemetry`` snapshot feeds the topology's registry, its
+        ``usage`` snapshot replaces this node's row in :attr:`usage`,
+        and its ``job_progress`` renews the leases of the tasks it
+        names."""
         url = f"{hb.ip}:{hb.port}"
         volumes = [VolumeInfo(
             id=v.id, collection=v.collection, size=v.size,
@@ -637,6 +664,11 @@ class MasterServer:
                 glog.v(1, "master: heartbeat from %s changed topology "
                        "(%d volumes, %d ec entries)", url,
                        len(volumes), len(ec))
+        if hb.HasField("telemetry"):
+            self.topology.telemetry.ingest(url, hb.telemetry,
+                                           metrics=self.metrics)
+        if hb.HasField("usage"):
+            self.usage.ingest_proto(url, hb.usage)
         if hb.HasField("job_progress"):
             # The heartbeat IS the lease renewal for every task the
             # worker still reports in flight.
@@ -846,11 +878,39 @@ def _make_http_handler(ms: MasterServer):
                                 "Topology": ms.topology.to_map()})
                 elif u.path == "/metrics":
                     self._send(200, (ms.metrics.render()
+                                     + ms.slo.metrics.render()
+                                     + ms.usage.metrics.render()
                                      + ms.jobs.metrics.render()
                                      + tracing.METRICS.render()
                                      + retry.METRICS.render()
                                      + httpserver.METRICS.render()
                                      ).encode(), EXPOSITION_CONTENT_TYPE)
+                elif u.path == "/cluster/telemetry":
+                    # Volume servers heartbeat only the leader, so a
+                    # follower's registry is cold — answer from the
+                    # leader's.
+                    if self._proxy_to_leader():
+                        return
+                    last_seen = {n.url: n.last_seen
+                                 for n in ms.topology.snapshot_nodes()}
+                    # Default cap keeps the per-volume section top-N by
+                    # read rate; ?limit=0 restores the unbounded body.
+                    self._json(ms.topology.telemetry.to_map(
+                        nodes_last_seen=last_seen,
+                        pulse_seconds=ms.topology.pulse_seconds,
+                        limit=int(q.get("limit", 512)) or None))
+                elif u.path == "/cluster/usage":
+                    # Usage lands on the leader (heartbeats + gateway
+                    # pushes go there), so read from there.
+                    if self._proxy_to_leader():
+                        return
+                    self._json(ms.usage.to_map(
+                        limit=int(q.get("limit", 256)) or None))
+                elif u.path == "/cluster/topk":
+                    if self._proxy_to_leader():
+                        return
+                    self._json(ms.usage.topk_map(
+                        int(q.get("n", 32))))
                 elif u.path == "/cluster/jobs":
                     # Jobs live on the leader (claims/completions and
                     # heartbeat renewals land there), so read there.
@@ -859,7 +919,7 @@ def _make_http_handler(ms: MasterServer):
                     doc = ms.jobs.to_map(
                         with_tasks=q.get("tasks", "1") != "0",
                         limit=int(q.get("limit", 1000)) or None)
-                    doc["policy"] = jobs_mod.policy_payload()
+                    doc["policy"] = ms.policy.payload()
                     self._json(doc)
                 elif u.path == "/cluster/scrub":
                     # Scrub-plane view: the scrub jobs (a filtered
@@ -882,6 +942,13 @@ def _make_http_handler(ms: MasterServer):
                         return
                     self._json(ms.trace_collector.payload(
                         int(q["limit"]) if q.get("limit") else None))
+                elif u.path == "/cluster/slo":
+                    if self._proxy_to_leader():
+                        return
+                    # Evaluate on demand: the tick is idempotent and
+                    # this keeps curl output fresh even with a long
+                    # background interval.
+                    self._json(ms.slo.evaluate())
                 elif u.path == "/cluster/profile":
                     # Master-side proxy to any node's /debug/profile so
                     # operators profile the fleet from one place.
@@ -920,6 +987,8 @@ def _make_http_handler(ms: MasterServer):
                         "master", ms.metrics,
                         extra={"is_leader": ms.is_leader,
                                "nodes": len(ms.topology.nodes),
+                               "slo_state": ms.slo.worst_state(),
+                               "slo_alerts": list(ms.slo.alerts),
                                "jobs": ms.jobs.summary(),
                                "cache_hub": ms.cache_hub.to_map(),
                                "trace_collector":
@@ -982,6 +1051,20 @@ def _make_http_handler(ms: MasterServer):
                     n = int(self.headers.get("Content-Length", 0) or 0)
                     payload = json.loads(self.rfile.read(n) or b"{}")
                     ms.trace_collector.ingest(payload)
+                    self._json({"ok": True})
+                except (ValueError, OSError) as e:
+                    self._json({"error": str(e)}, 400)
+            elif u.path == "/cluster/usage":
+                # Accounting sink for ingresses that do not heartbeat
+                # (S3/filer push their cumulative snapshots here;
+                # usage.UsagePusher).
+                if self._proxy_to_leader():
+                    return
+                try:
+                    payload = self._body()
+                    source = str(payload.get("source", "") or
+                                 self.client_address[0])
+                    ms.usage.ingest(source, payload)
                     self._json({"ok": True})
                 except (ValueError, OSError) as e:
                     self._json({"error": str(e)}, 400)
@@ -1073,46 +1156,45 @@ def _make_http_handler(ms: MasterServer):
 def apply_config(conf: dict) -> str:
     """Apply a loaded ``-config`` TOML's process-wide settings: the JWT
     signing key (returned), ``[grpc.tls]``, ``[tracing]``, ``[retry]``,
-    ``[faults]``, ``[profiler]``, ``[ingress]`` and the ``[jobs]`` kill
-    switch, and starts the always-on profiler when ``[profiler]`` leaves
-    it enabled. A section of a plane
-    the port lacks (:data:`UNPORTED_SECTIONS`), or a ``[jobs]`` key of
-    the policy engine (``jobs.POLICY_KEYS``), raises ``ValueError``
-    before anything is applied. :func:`configure_jobs` applies the rest
-    of ``[jobs]`` to a master."""
+    ``[faults]``, ``[profiler]``, ``[usage]``, ``[ingress]`` and the
+    ``[jobs]`` kill switch, and starts the always-on profiler when
+    ``[profiler]`` leaves it enabled. ``[slo]`` and ``[jobs]``'s policy
+    keys are checked here (a bad value raises ``ValueError`` before
+    anything is applied); :func:`configure_master` applies them, and the
+    rest of ``[jobs]``, to a master."""
     from ..util import config as config_mod
     from ..util import faults
 
-    bad = [s for s in UNPORTED_SECTIONS
-           if config_mod.lookup(conf, s) is not None]
-    if bad:
-        raise ValueError(
-            f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1, "
-            f"telemetry, SLO, usage and the policy engine); remove it "
-            f"from the file")
-    jsec = config_mod.lookup(conf, "jobs")
-    policy = [k for k in jobs_mod.POLICY_KEYS
-              if isinstance(jsec, dict) and k in jsec]
-    if policy:
-        raise ValueError(
-            f"[jobs] {policy[0]} is not ported yet: the policy engine "
-            f"comes with the telemetry plane (ROADMAP Queue 1); "
-            f"remove it from the file")
+    _slo_and_policy(conf, SloEngine(ClusterTelemetry()),
+                    jobs_mod.PolicyEngine())
     secret = config_mod.lookup(conf, "jwt.signing.key", "")
     tls_mod.install_from_config(conf)
     tracing.configure_from(conf)
     retry.configure_from(conf)
     faults.configure_from(conf)
     profiler.configure_from(conf)
+    usage_mod.configure_from(conf)
     httpserver.configure_from(conf)
     jobs_mod.configure_from(conf)
     profiler.ensure_started()
     return secret
 
 
-def configure_jobs(ms: MasterServer, conf: dict) -> None:
-    """Apply ``[jobs] lease_seconds`` and ``max_attempts`` to ``ms``'s
-    JobManager."""
+def _slo_and_policy(conf: dict, slo: SloEngine,
+                    policy: jobs_mod.PolicyEngine) -> None:
+    from ..util import config as config_mod
+
+    if config_mod.lookup(conf, "slo") is not None:
+        slo.configure(conf)
+    jsec = config_mod.lookup(conf, "jobs")
+    if jsec is not None:
+        policy.configure(jsec)
+
+
+def configure_master(ms: MasterServer, conf: dict) -> None:
+    """Apply ``[slo]``, ``[jobs] lease_seconds`` and ``max_attempts``
+    and ``[jobs]``'s policy keys to ``ms``'s SLO engine, JobManager and
+    policy engine (the JAX master's ``main`` does the same)."""
     from ..util import config as config_mod
 
     jsec = config_mod.lookup(conf, "jobs")
@@ -1121,6 +1203,7 @@ def configure_jobs(ms: MasterServer, conf: dict) -> None:
             jsec.get("lease_seconds", ms.jobs.lease_seconds))
         ms.jobs.max_attempts = int(
             jsec.get("max_attempts", ms.jobs.max_attempts))
+    _slo_and_policy(conf, ms.slo, ms.policy)
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -1150,7 +1233,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     p.add_argument("-config", default="",
                    help="TOML: the JWT signing key, [grpc.tls], "
                         "[tracing], [retry], [faults], [profiler], "
-                        "[ingress], [jobs]")
+                        "[usage], [slo], [ingress], [jobs]")
     args = p.parse_args(argv)
     try:
         conf = config_mod.load(args.config) if args.config else {}
@@ -1168,7 +1251,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                       metrics_interval_seconds=args.metricsIntervalSeconds,
                       trace_ring_size=int(config_mod.lookup(
                           conf, "tracing.collector_ring_size", 256)))
-    configure_jobs(ms, conf)
+    configure_master(ms, conf)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())

@@ -1,9 +1,9 @@
 """Master-side in-memory cluster topology.
 
-The port of ``seaweedfs_tpu/cluster/topology.py``, without the
-telemetry registry (``ClusterTelemetry``: ROADMAP Queue 1, "Telemetry,
-SLO, usage and the policy engine") and without the sim harness's
-from-scratch index check (``_rebuild_indexes`` / ``check_indexes``).
+The port of ``seaweedfs_tpu/cluster/topology.py``, with its telemetry
+registry (``ClusterTelemetry``, fed by the heartbeat) and without the
+sim harness's from-scratch index check (``_rebuild_indexes`` /
+``check_indexes``).
 
 Mirrors weed/topology/ (SURVEY.md §2 "Topology"): a DC -> rack ->
 data-node tree rebuilt from heartbeat snapshots, per-(collection, replication, ttl)
@@ -26,6 +26,7 @@ from typing import Iterable, Optional
 
 from ..storage.ec_files import ShardBits
 from ..storage.superblock import ReplicaPlacement, Ttl
+from .telemetry import ClusterTelemetry
 
 
 @dataclass(slots=True)
@@ -133,6 +134,9 @@ class Topology:
         self.pulse_seconds = pulse_seconds
         self.max_volume_id = 0
         self.clock = clock
+        #: Rolling per-node/per-volume hot stats + health, fed by
+        #: telemetry snapshots riding heartbeats (telemetry.py).
+        self.telemetry = ClusterTelemetry(clock=clock)
         #: Ingestion counters for the sim/bench plane: total heartbeats
         #: and how many took the unchanged-topology fast path.
         self.heartbeats_total = 0
@@ -325,6 +329,8 @@ class Topology:
             for u in dead:
                 node = self.nodes.pop(u)
                 self._drop_node_from_indexes(node)
+        for u in dead:
+            self.telemetry.forget(u)
         return dead
 
     # ---------------- index maintenance ----------------

@@ -38,10 +38,12 @@ roots are pushed to the master's trace collector. ``/debug/traces``,
 ``/debug/profile`` and ``/debug/vars`` describe the process, and
 ``-config`` applies ``[tracing]`` and ``[profiler]``.
 
-Not ported yet, named in ROADMAP Queue 1 ("Telemetry, SLO, usage and
-the policy engine"): the telemetry and usage collectors, the rest of
-their heartbeat fields (left unset) and their ``/debug/vars`` sections.
-The S3 tier RPCs move a volume's .dat to an S3
+Every read and write lands in :attr:`VolumeServer.telemetry` (per-volume
+ops, bytes, errors, EC decodes and latency digests) and every read's
+needle in :attr:`VolumeServer.usage` (a hot-key sketch); both ride the
+heartbeat as the JAX package's ``TelemetrySnapshot`` and
+``UsageSnapshot``, show on ``/debug/vars``, and are switched by
+``[telemetry]`` and ``[usage]``. The S3 tier RPCs move a volume's .dat to an S3
 endpoint and back (``Store.tier_move`` / ``tier_restore``), with the
 tier's credentials from the server's environment
 (``SEAWEEDFS_TORCH_TIER_ACCESS_KEY`` / ``_SECRET_KEY``).
@@ -83,13 +85,10 @@ from ..util import durability, faults, glog, httpserver, profiler, retry, \
 from ..util import tls as tls_mod
 from ..util.stats import EXPOSITION_CONTENT_TYPE, Metrics
 from . import jobs as jobs_mod
+from . import telemetry as telemetry_mod
+from . import usage as usage_mod
 
 _COPY_CHUNK = 1024 * 1024
-
-#: ``-config`` sections of planes the port does not have yet (ROADMAP
-#: Queue 1, "Telemetry, SLO, usage and the policy engine"): a file that
-#: sets one is refused rather than half applied.
-UNPORTED_SECTIONS = ("telemetry", "usage")
 
 
 def _grpc_port(http_port: int) -> int:
@@ -187,6 +186,13 @@ class VolumeServer:
         #: so vacuum and ec.rebuild drop the volume's entries.
         self.chunk_cache = ChunkCache(ec_cache_bytes,
                                       metrics=self.metrics)
+        #: Per-volume hot stats (ops, bytes, latency digests); a
+        #: compact snapshot rides every heartbeat to the master.
+        self.telemetry = telemetry_mod.TelemetryCollector()
+        #: Per-needle hot-key accounting (usage plane): read fids feed
+        #: a SpaceSaving sketch that rides the heartbeat too, so the
+        #: master's /cluster/topk can name hot objects per volume.
+        self.usage = usage_mod.UsageCollector("volume")
         self.servicer: Optional["_VolumeServicer"] = None
         self._channels: dict[str, object] = {}
         self._grpc_server = None
@@ -358,24 +364,16 @@ class VolumeServer:
             hb.ec_shards.add(id=s["id"], collection=s["collection"],
                              ec_index_bits=s["ec_index_bits"])
         hb.max_file_key = max_key
-        cache_counts = self.chunk_cache.per_volume_counts()
-        if cache_counts:
-            # The post-decode cache's cumulative per-volume counts ride
-            # the telemetry rows, as in the JAX package; the rows' other
-            # fields and the usage field stay unset: those planes are
-            # not ported yet (ROADMAP Queue 1, "Telemetry, SLO, usage
-            # and the policy engine")
+        if telemetry_mod.enabled():
             collections = {v["id"]: v["collection"]
                            for v in st["volumes"]}
             for s in st["ec_shards"]:
                 collections.setdefault(s["id"], s["collection"])
-            for vid in sorted(cache_counts):
-                cc = cache_counts[vid]
-                hb.telemetry.volumes.add(
-                    volume_id=vid,
-                    collection=str(collections.get(vid, "")),
-                    cache_hits=int(cc.get("hits", 0)),
-                    cache_misses=int(cc.get("misses", 0)))
+            hb.telemetry.CopyFrom(self.telemetry.snapshot(
+                cache_counts=self.chunk_cache.per_volume_counts(),
+                collections=collections))
+        if usage_mod.enabled():
+            hb.usage.CopyFrom(self.usage.snapshot())
         if jobs_mod.enabled() and self.job_worker is not None:
             # Naming an in-flight task here renews its lease.
             hb.job_progress.CopyFrom(self.job_worker.progress_proto())
@@ -541,6 +539,7 @@ class VolumeServer:
             sp.tag(intervals_repaired=reader.intervals_repaired)
         self.metrics.counter("ec_intervals_repaired").inc(
             reader.intervals_repaired)
+        self.telemetry.record_ec_decode(volume_id)
         self.chunk_cache.put(ckey, n.data, volume=volume_id)
         return n.data
 
@@ -1103,19 +1102,24 @@ def _make_http_handler(vs: VolumeServer):
                 ).encode(), "text/plain; charset=utf-8")
                 return
             if u.path == "/debug/vars":
-                # the JAX page's telemetry and usage sections wait for
-                # their planes (ROADMAP Queue 1, "Telemetry, SLO, usage
-                # and the policy engine")
                 self._json(varz.payload(
                     "volume", vs.metrics,
-                    extra={"cache": vs.chunk_cache.stats(),
+                    extra={"telemetry": vs.telemetry.to_map(),
+                           "cache": vs.chunk_cache.stats(),
+                           "usage": vs.usage.to_payload(),
                            "jobs": (vs.job_worker.summary()
                                     if vs.job_worker else None)}))
                 return
             t0 = time.perf_counter()
+            vid = None
+            fid_key = ""
+            n_read = 0
+            err = False
             try:
                 vid, fid, q = self._parse_fid()
+                fid_key = str(fid)
                 data = vs.read_bytes(vid, fid, q.get("collection", ""))
+                n_read = len(data)
                 mime = ""
                 if "width" in q or "height" in q:
                     try:
@@ -1168,17 +1172,22 @@ def _make_http_handler(vs: VolumeServer):
                 # Answering 500 here would leave a healthy-looking
                 # keep-alive stream whose next pipelined request reads
                 # a response that was never meant to exist.
+                err = True
                 vs.metrics.counter("read_requests", code="drop").inc()
                 httpserver.drop_connection(self)
             except (KeyError, StoreError) as e:
                 vs.metrics.counter("read_requests", code="404").inc()
                 self._json({"error": str(e)}, 404)
             except Exception as e:
+                err = True
                 vs.metrics.counter("read_requests", code="500").inc()
                 self._json({"error": str(e)}, 500)
             finally:
-                vs.metrics.histogram("read_seconds").observe(
-                    time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                vs.metrics.histogram("read_seconds").observe(dt)
+                if vid is not None:
+                    vs.telemetry.record_read(vid, n_read, dt, error=err)
+                    vs.usage.record_key(fid_key, volume=vid)
 
         def do_HEAD(self):
             try:
@@ -1205,10 +1214,14 @@ def _make_http_handler(vs: VolumeServer):
                     self._json({"error": str(e)}, 400)
                 return
             t0 = time.perf_counter()
+            vid = None
+            n_written = 0
+            err = False
             try:
                 vid, fid, q = self._parse_fid()
                 length = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(length)
+                n_written = len(body)
                 jwt = (self.headers.get("Authorization", "")
                        .removeprefix("BEARER ").strip()
                        or q.get("jwt", ""))
@@ -1226,17 +1239,22 @@ def _make_http_handler(vs: VolumeServer):
                            201)
                 vs.metrics.counter("write_requests", code="201").inc()
             except faults.FaultDrop:
+                err = True
                 vs.metrics.counter("write_requests", code="drop").inc()
                 httpserver.drop_connection(self)
             except StoreError as e:
                 vs.metrics.counter("write_requests", code="404").inc()
                 self._json({"error": str(e)}, 404)
             except Exception as e:
+                err = True
                 vs.metrics.counter("write_requests", code="500").inc()
                 self._json({"error": str(e)}, 500)
             finally:
-                vs.metrics.histogram("write_seconds").observe(
-                    time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                vs.metrics.histogram("write_seconds").observe(dt)
+                if vid is not None:
+                    vs.telemetry.record_write(vid, n_written, dt,
+                                              error=err)
 
         do_PUT = do_POST
 
@@ -1283,26 +1301,20 @@ def _replicate_http(peer_url: str, fid: str, body: Optional[bytes],
 
 def apply_config(conf: dict) -> dict:
     """Apply a loaded ``-config`` TOML: ``[grpc.tls]``, ``[tracing]``,
-    ``[retry]``, ``[faults]``, ``[storage]`` (the fsync policy),
-    ``[storage.scrub]`` (the scrub pacer's rate), ``[profiler]`` (and
-    start its sampler when enabled), ``[ingress]``, ``[pipeline]``,
-    ``[flight]``, ``[mesh]`` and the ``[jobs]`` kill switch. Returns the
-    :class:`VolumeServer` keywords the file sets: ``secret`` (the JWT
-    signing key) and ``job_poll_seconds`` (``[jobs] poll_seconds``). A
-    section of a plane the port lacks (:data:`UNPORTED_SECTIONS`)
-    raises ``ValueError`` before anything is applied."""
+    ``[telemetry]``, ``[usage]``, ``[retry]``, ``[faults]``,
+    ``[storage]`` (the fsync policy), ``[storage.scrub]`` (the scrub
+    pacer's rate), ``[profiler]`` (and start its sampler when enabled),
+    ``[ingress]``, ``[pipeline]``, ``[flight]``, ``[mesh]`` and the
+    ``[jobs]`` kill switch. Returns the :class:`VolumeServer` keywords
+    the file sets: ``secret`` (the JWT signing key) and
+    ``job_poll_seconds`` (``[jobs] poll_seconds``)."""
     from ..util import config as config_mod
 
-    bad = [s for s in UNPORTED_SECTIONS
-           if config_mod.lookup(conf, s) is not None]
-    if bad:
-        raise ValueError(
-            f"section [{bad[0]}] is not ported yet (ROADMAP Queue 1, "
-            f"telemetry, SLO, usage and the policy engine); remove it "
-            f"from the file")
     secret = config_mod.lookup(conf, "jwt.signing.key", "")
     tls_mod.install_from_config(conf)
     tracing.configure_from(conf)
+    telemetry_mod.configure_from(conf)
+    usage_mod.configure_from(conf)
     retry.configure_from(conf)
     faults.configure_from(conf)
     durability.configure_from(conf)
@@ -1359,6 +1371,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                    help=".dat storage backend")
     p.add_argument("-config", default="",
                    help="TOML: the JWT signing key, [grpc.tls], [tracing], "
+                        "[telemetry], [usage], "
                         "[retry], [faults], [storage], [storage.scrub], "
                         "[profiler], [ingress], [pipeline], [flight], "
                         "[mesh], [jobs]")

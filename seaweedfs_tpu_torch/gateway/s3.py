@@ -19,9 +19,9 @@ client. The gateway runs no kernel: a degraded read is repaired by the
 volume servers under the filer (``ClusterEcReader``), on their devices.
 Every verb runs under an ``s3.<VERB>`` trace root, ``-toml`` applies
 ``[tracing]`` and ``[profiler]``, and ``/debug/vars`` and
-``/debug/profile`` describe the process. Not ported yet: the per-tenant
-usage collector and its push to the master (ROADMAP Queue 1,
-"Telemetry, SLO, usage and the policy engine"). ``-securityConfig``
+``/debug/profile`` describe the process. Every request lands in the
+gateway's per-tenant usage collector (tenant = the SigV4 identity), which
+a pusher ships to the master's ``POST /cluster/usage``. ``-securityConfig``
 comes with the other tools' TLS flags (ROADMAP Queue 1, the remaining
 front ends and tools).
 """
@@ -41,6 +41,7 @@ from typing import Optional
 
 from ..cache import invalidation as invalidation_mod
 from ..cache import readahead as readahead_mod
+from ..cluster import usage as usage_mod
 from ..cluster.filer_client import FilerClient, FilerClientError
 from ..pb import filer_pb2
 from ..util import glog
@@ -104,10 +105,13 @@ class S3Gateway:
         self.port = port
         self.url = f"{ip}:{port}"
         #: The master whose cache-invalidation hub this gateway's chunk
-        #: cache subscribes to. (The JAX package also pushes per-tenant
-        #: usage there: ROADMAP Queue 1, "Telemetry, SLO, usage and the
-        #: policy engine".)
+        #: cache subscribes to, and where its usage is pushed.
         self.master_url = master_url
+        #: Per-tenant traffic accounting (tenant = the SigV4 identity
+        #: name; "anonymous" on an open gateway). Pushed to the master
+        #: when one is configured — the gateway does not heartbeat.
+        self.usage = usage_mod.UsageCollector("s3")
+        self._usage_pusher: Optional[usage_mod.UsagePusher] = None
         #: identities passed explicitly (-config file) are static; with
         #: none, the gateway follows the filer-stored config and
         #: reloads it live (the reference's s3.configure flow)
@@ -224,6 +228,8 @@ class S3Gateway:
             name=f"s3-{self.port}")
         self._thread.start()
         if self.master_url:
+            self._usage_pusher = usage_mod.UsagePusher(
+                self.usage, self.master_url, f"s3@{self.url}").start()
             # Job-commit cache invalidation: register this gateway's
             # chunk cache for the master's fan-out.
             invalidation_mod.start_subscriber(self.master_url,
@@ -235,6 +241,8 @@ class S3Gateway:
 
     def stop(self) -> None:
         self._conf_stop.set()
+        if self._usage_pusher is not None:
+            self._usage_pusher.stop()
         if self._http_server:
             self._http_server.shutdown()
             self._http_server.server_close()
@@ -245,6 +253,16 @@ class S3Gateway:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+    def account(self, ident, bucket: str, key: str, *,
+                n_in: int = 0, n_out: int = 0, seconds: float = 0.0,
+                error: bool = False) -> None:
+        """One usage row per request; object keys feed the hot-key
+        sketch as ``bucket/key`` so /cluster/topk can attribute them."""
+        self.usage.record(
+            ident.name if ident is not None else "anonymous", bucket,
+            n_in=n_in, n_out=n_out, seconds=seconds, error=error,
+            key=f"{bucket}/{key}" if bucket and key else "")
 
     # ---- bucket ops ----
 
@@ -832,9 +850,10 @@ def _make_handler(gw: S3Gateway):
         def do_GET(self):
             u = urllib.parse.urlsplit(self.path)
             if u.path == "/debug/vars":
-                # the JAX page's usage section waits for its plane
                 self._send(200, json.dumps(varz.payload(
-                    "s3", gw.metrics)).encode(), "application/json")
+                    "s3", gw.metrics,
+                    extra={"usage": gw.usage.to_payload()})).encode(),
+                    "application/json")
                 return
             if u.path == "/debug/profile":
                 q = dict(urllib.parse.parse_qsl(u.query))
@@ -845,6 +864,10 @@ def _make_handler(gw: S3Gateway):
                 return
             bucket, key, q, _ = self._split()
             gw.metrics.counter("request_total", method="GET").inc()
+            t0 = time.perf_counter()
+            ident = None
+            n_out = 0
+            err = False
             lease = None
             try:
                 ident = self._auth(b"", "Read" if bucket else "", bucket)
@@ -868,6 +891,7 @@ def _make_handler(gw: S3Gateway):
                             f"bytes {offset}-{offset + length - 1}" \
                             f"/{size}"
                     data = gw.get_object(bucket, key, offset, length)
+                    n_out = len(data)
                     extra["ETag"] = f'"{_etag(entry)}"'
                     extra["Last-Modified"] = time.strftime(
                         "%a, %d %b %Y %H:%M:%S GMT",
@@ -876,13 +900,18 @@ def _make_handler(gw: S3Gateway):
                                entry.attributes.mime
                                or "application/octet-stream", extra)
             except Exception as e:
+                err = True
                 self._fail(e)
             finally:
                 if lease is not None:
                     lease.release()
+                gw.account(ident, bucket, key, n_out=n_out,
+                           seconds=time.perf_counter() - t0, error=err)
 
         def do_HEAD(self):
             bucket, key, q, _ = self._split()
+            ident = None
+            err = False
             lease = None
             try:
                 ident = self._auth(b"", "Read", bucket)
@@ -900,15 +929,20 @@ def _make_handler(gw: S3Gateway):
                             "Accept-Ranges": "bytes",
                             "ETag": f'"{_etag(entry)}"'})
             except Exception as e:
+                err = True
                 self._fail(e)
             finally:
                 if lease is not None:
                     lease.release()
+                gw.account(ident, bucket, "", error=err)
 
         def do_PUT(self):
             bucket, key, q, _ = self._split()
             gw.metrics.counter("request_total", method="PUT").inc()
             body = self._body()
+            t0 = time.perf_counter()
+            ident = None
+            err = False
             lease = None
             try:
                 ident = self._auth(body, "Write" if key else "Admin",
@@ -939,10 +973,13 @@ def _make_handler(gw: S3Gateway):
                         self.headers.get("Content-Type", ""))
                     self._send(200, b"", extra={"ETag": f'"{etag}"'})
             except Exception as e:
+                err = True
                 self._fail(e)
             finally:
                 if lease is not None:
                     lease.release()
+                gw.account(ident, bucket, key, n_in=len(body),
+                           seconds=time.perf_counter() - t0, error=err)
 
         def do_POST(self):
             if urllib.parse.urlsplit(self.path).path == \
@@ -961,6 +998,8 @@ def _make_handler(gw: S3Gateway):
                 return
             bucket, key, q, _ = self._split()
             body = self._body()
+            ident = None
+            err = False
             lease = None
             try:
                 ident = self._auth(body, "Write", bucket)
@@ -974,14 +1013,19 @@ def _make_handler(gw: S3Gateway):
                     raise S3Error("InvalidArgument",
                                   "unsupported POST")
             except Exception as e:
+                err = True
                 self._fail(e)
             finally:
                 if lease is not None:
                     lease.release()
+                gw.account(ident, bucket, "", n_in=len(body),
+                           error=err)
 
         def do_DELETE(self):
             bucket, key, q, _ = self._split()
             gw.metrics.counter("request_total", method="DELETE").inc()
+            ident = None
+            err = False
             lease = None
             try:
                 ident = self._auth(b"", "Write" if key else "Admin",
@@ -997,10 +1041,12 @@ def _make_handler(gw: S3Gateway):
                     gw.delete_object(bucket, key)
                     self._send(204)
             except Exception as e:
+                err = True
                 self._fail(e)
             finally:
                 if lease is not None:
                     lease.release()
+                gw.account(ident, bucket, "", error=err)
 
     return tracing.instrument_http_handler(
         httpserver.admission_gate(Handler), "s3")
@@ -1042,8 +1088,9 @@ def main(argv: list[str]) -> int:
     p.add_argument("-port", type=int, default=8333)
     p.add_argument("-filer", default="127.0.0.1:8888")
     p.add_argument("-master", default="",
-                   help="master url whose cache-invalidation hub the "
-                        "gateway's chunk cache follows")
+                   help="master url to push usage accounting to (its "
+                        "cache-invalidation hub also feeds the "
+                        "gateway's chunk cache)")
     p.add_argument("-config", default="",
                    help="identities JSON (empty = open access)")
     p.add_argument("-toml", default="",

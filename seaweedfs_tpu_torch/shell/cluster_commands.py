@@ -18,14 +18,14 @@ sweep on the master's jobs plane), ``ec.rebuild``, ``ec.decode``,
 ``volume.check.disk``, ``volume.unmount``, ``volume.mount``,
 ``volume.configure.replication``, ``volume.fsck`` (against the filer of
 ``-filer``), ``collection.list``, ``collection.delete``,
-``cluster.status``, ``cluster.check`` (without the telemetry and SLO
+``cluster.status``, ``cluster.check`` (with the telemetry and SLO
 verdicts), ``lock``, ``unlock``, ``job.submit``, ``job.status``,
 ``job.pause``, ``job.resume``, ``job.cancel``, ``scrub.start``,
 ``scrub.status``, ``volume.tier.upload``, ``volume.tier.download``,
-``trace.status``, ``trace.dump``, ``trace.top`` and ``ingress.status``;
-``fs.*`` and the S3 gateway's ``s3.*`` live in ``fs_commands.py``. The
-commands of the telemetry, SLO and usage planes come with a later slice
-(ROADMAP Queue 1, "Telemetry, SLO, usage and the policy engine").
+``trace.status``, ``trace.dump``, ``trace.top``, ``ingress.status``,
+``telemetry.status``, ``volume.heatmap``, ``traffic.top`` and
+``tenant.usage``; ``fs.*`` and the S3 gateway's ``s3.*`` live in
+``fs_commands.py``.
 
 Unlike the JAX cluster shell, every command runs under a
 ``shell.<name>`` trace root, so the servers' gRPC and HTTP legs of one
@@ -2038,12 +2038,206 @@ def _fmt_ms(seconds) -> str:
     return "-" if seconds is None else f"{seconds * 1e3:.1f}"
 
 
+def _fmt_rate(v: float) -> str:
+    return f"{v:.2f}" if v < 10 else f"{v:.0f}"
+
+
+@cluster_command("telemetry.status")
+def cmd_telemetry_status(env: ClusterEnv, argv: list[str]) -> None:
+    """Per-node telemetry rollup from the master's /cluster/telemetry:
+    health verdict + score, decayed op/error rates, merged read p99,
+    and how many heartbeat snapshots the master has folded in."""
+    p = _parser("telemetry.status")
+    p.parse_args(argv)
+    doc = env._master_http("/cluster/telemetry")
+    nodes = doc.get("nodes", {})
+    if not nodes:
+        env.println("telemetry.status: no telemetry ingested yet "
+                    "(volume servers report on each heartbeat)")
+        return
+    for url in sorted(nodes):
+        n = nodes[url]
+        h = n.get("health") or {}
+        verdict = h.get("verdict", "unknown")
+        score = h.get("score")
+        env.println(
+            f"{url}: {verdict}"
+            + (f" (score {score})" if score is not None else "")
+            + f" volumes={n.get('volume_count', 0)}"
+            + f" read={_fmt_rate(n.get('read_ops_per_second', 0.0))}/s"
+            + f" write={_fmt_rate(n.get('write_ops_per_second', 0.0))}/s"
+            + f" err={_fmt_rate(n.get('errors_per_second', 0.0))}/s"
+            + f" read_p99={_fmt_ms(n.get('read_p99_seconds'))}ms"
+            + f" snapshots={n.get('snapshots', 0)}")
+        for reason in h.get("reasons", []):
+            env.println(f"  - {reason}")
+    median = doc.get("cluster_median_read_p99_seconds")
+    if median is not None:
+        env.println(f"cluster median read p99: {_fmt_ms(median)}ms "
+                    f"(decay halflife "
+                    f"{doc.get('decay_halflife_seconds')}s, digest "
+                    f"window {doc.get('digest_window_seconds')}s)")
+
+
+@cluster_command("volume.heatmap")
+def cmd_volume_heatmap(env: ClusterEnv, argv: list[str]) -> None:
+    """Hottest volume replicas cluster-wide: decayed read/write rates,
+    chunk-cache hit ratio and read p99 per (volume, node), with a bar
+    scaled to the hottest row."""
+    p = _parser("volume.heatmap")
+    p.add_argument("-n", type=int, default=20,
+                   help="rows to show (hottest first)")
+    p.add_argument("-sortBy", default="reads",
+                   choices=["reads", "writes", "misses", "p99"])
+    args = p.parse_args(argv)
+    doc = env._master_http("/cluster/telemetry")
+    rows = []
+    for vid, per_node in doc.get("volumes", {}).items():
+        for url, r in per_node.items():
+            rows.append({
+                "vid": vid, "node": url,
+                "collection": r.get("collection", ""),
+                "reads": r.get("read_ops_per_second", 0.0),
+                "writes": r.get("write_ops_per_second", 0.0),
+                "hits": r.get("cache_hits", 0),
+                "misses": r.get("cache_misses", 0),
+                "hit_ratio": r.get("cache_hit_ratio", 0.0),
+                "p99": (r.get("read_latency") or {}).get("p99"),
+            })
+    if not rows:
+        env.println("volume.heatmap: no telemetry ingested yet")
+        return
+    sort_key = {"reads": lambda r: r["reads"],
+                "writes": lambda r: r["writes"],
+                "misses": lambda r: r["misses"],
+                "p99": lambda r: r["p99"] or 0.0}[args.sortBy]
+    rows.sort(key=sort_key, reverse=True)
+    total_rows = len(rows)
+    rows = rows[:max(1, args.n)]
+    top = max(sort_key(r) for r in rows) or 1.0
+    env.println(f"{'volume':>8} {'collection':<12} {'node':<21} "
+                f"{'reads/s':>8} {'writes/s':>8} {'hit%':>6} "
+                f"{'p99ms':>7}  heat")
+    for r in rows:
+        bar = "#" * max(1 if sort_key(r) > 0 else 0,
+                        round(20 * sort_key(r) / top))
+        looked = r["hits"] + r["misses"]
+        hitp = f"{100 * r['hit_ratio']:.0f}" if looked else "-"
+        env.println(
+            f"{r['vid']:>8} {r['collection'] or '-':<12} "
+            f"{r['node']:<21} {_fmt_rate(r['reads']):>8} "
+            f"{_fmt_rate(r['writes']):>8} {hitp:>6} "
+            f"{_fmt_ms(r['p99']):>7}  {bar}")
+    if total_rows > len(rows):
+        env.println(f"… {total_rows - len(rows)} more rows")
+    # What CODE is hot on each node: the continuous profiler's top
+    # stacks ride the heartbeat telemetry (leaf frame shown; the full
+    # collapsed stacks come from /debug/profile on the node). Capped
+    # at -n nodes: a thousand-node fleet renders a head, not a dump.
+    hot = {url: n.get("hot_stacks") or []
+           for url, n in doc.get("nodes", {}).items()}
+    if any(hot.values()):
+        env.println("hot code (continuous profiler, samples):")
+        with_stacks = [u for u in sorted(hot) if hot[u]]
+        for url in with_stacks[:max(1, args.n)]:
+            for s in hot[url][:3]:
+                leaf = s["stack"].rsplit(";", 1)[-1]
+                env.println(f"  {url:<21} {s['samples']:>7}  {leaf}")
+        if len(with_stacks) > args.n:
+            env.println(f"… {len(with_stacks) - args.n} more nodes")
+
+
+def _fmt_bytes(n: int) -> str:
+    v = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if v < 1024 or unit == "TiB":
+            return f"{v:.0f}{unit}" if unit == "B" else f"{v:.1f}{unit}"
+        v /= 1024
+    return f"{n}B"
+
+
+@cluster_command("traffic.top")
+def cmd_traffic_top(env: ClusterEnv, argv: list[str]) -> None:
+    """Hottest object keys cluster-wide from the master's merged
+    SpaceSaving sketches (/cluster/topk): count is an overestimate by
+    at most the shown ±error, attributed to the recording tenant and
+    volume where known."""
+    p = _parser("traffic.top")
+    p.add_argument("-n", type=int, default=20,
+                   help="keys to show (hottest first)")
+    args = p.parse_args(argv)
+    doc = env._master_http(f"/cluster/topk?n={max(1, args.n)}")
+    top = doc.get("top", [])
+    if not top:
+        env.println("traffic.top: no usage ingested yet (gateways "
+                    "push snapshots, volume servers ride heartbeats)")
+        return
+    env.println(f"traffic.top: {doc.get('total', 0)} keyed requests "
+                f"over {doc.get('sources', 0)} sources "
+                f"(sketch capacity {doc.get('capacity')})")
+    env.println(f"{'count':>9} {'±err':>6} {'tenant':<14} "
+                f"{'volume':>6} key")
+    for r in top:
+        env.println(
+            f"{r['count']:>9} {r.get('error', 0):>6} "
+            f"{r.get('tenant') or '-':<14} "
+            f"{r.get('volume') or '-':>6} {r['key']}")
+
+
+@cluster_command("tenant.usage")
+def cmd_tenant_usage(env: ClusterEnv, argv: list[str]) -> None:
+    """Per-tenant traffic accounting from the master's merged usage
+    plane (/cluster/usage): requests, bytes in/out, errors and request
+    latency quantiles, broken down per bucket."""
+    p = _parser("tenant.usage")
+    p.add_argument("-tenant", default="",
+                   help="show only this tenant")
+    args = p.parse_args(argv)
+    doc = env._master_http("/cluster/usage")
+    tenants = doc.get("tenants", {})
+    if args.tenant:
+        tenants = {k: v for k, v in tenants.items()
+                   if k == args.tenant}
+    if not tenants:
+        env.println("tenant.usage: no usage ingested yet"
+                    + (f" for tenant {args.tenant!r}"
+                       if args.tenant else ""))
+        return
+    for tenant in sorted(tenants,
+                         key=lambda t: -tenants[t]["requests"]):
+        t = tenants[tenant]
+        env.println(
+            f"{tenant}: {t['requests']} requests "
+            f"in={_fmt_bytes(t['bytes_in'])} "
+            f"out={_fmt_bytes(t['bytes_out'])} "
+            f"errors={t['errors']}")
+        for bucket in sorted(t.get("buckets", {})):
+            b = t["buckets"][bucket]
+            lat = b.get("latency") or {}
+            env.println(
+                f"  {bucket:<16} {b['requests']:>8} req "
+                f"in={_fmt_bytes(b['bytes_in']):>9} "
+                f"out={_fmt_bytes(b['bytes_out']):>9} "
+                f"err={b['errors']}"
+                + (f" p50={_fmt_ms(lat.get('p50'))}ms"
+                   f" p99={_fmt_ms(lat.get('p99'))}ms"
+                   if lat else ""))
+    totals = doc.get("totals", {})
+    env.println(
+        f"total: {totals.get('requests', 0)} requests "
+        f"in={_fmt_bytes(totals.get('bytes_in', 0))} "
+        f"out={_fmt_bytes(totals.get('bytes_out', 0))} "
+        f"errors={totals.get('errors', 0)} "
+        f"(sources: {', '.join(sorted(doc.get('sources', {})))})")
+
+
 @cluster_command("cluster.check")
 def cmd_cluster_check(env: ClusterEnv, argv: list[str]) -> None:
     """Read-only cluster health sweep (the reference's cluster.check):
     replica deficits, EC volumes with shard-id gaps, and nodes at
-    volume capacity. Exits nonzero (ShellError) when problems exist.
-    Without the JAX command's telemetry and SLO verdicts."""
+    volume capacity, then the telemetry plane's node verdicts and the
+    SLO engine's burn-rate states. Exits nonzero (ShellError) when
+    problems exist."""
     from ..storage.superblock import ReplicaPlacement
 
     p = _parser("cluster.check")
@@ -2120,10 +2314,41 @@ def cmd_cluster_check(env: ClusterEnv, argv: list[str]) -> None:
             out.println(f"ec volume {vid} missing shards {gaps} "
                         f"(run ec.rebuild)")
             problems += 1
-    # The JAX command also reads node health from /cluster/telemetry
-    # and burn rates from /cluster/slo here; those planes are not
-    # ported yet (ROADMAP Queue 1, "Telemetry, SLO, usage and the policy
-    # engine")
+    # Node health verdicts from the telemetry plane, best-effort (an
+    # old master without /cluster/telemetry still gets the topology
+    # checks above). Only "unhealthy" counts as a problem: degraded
+    # nodes are surfaced but a busy-yet-working cluster must not fail
+    # the sweep.
+    try:
+        tele = env._master_http("/cluster/telemetry")
+    except ShellError:
+        tele = {}
+    for url in sorted(tele.get("nodes", {})):
+        h = tele["nodes"][url].get("health")
+        if not h:
+            continue
+        line = f"node {url}: {h['verdict']} (score {h['score']})"
+        if h.get("reasons"):
+            line += " — " + "; ".join(h["reasons"])
+        out.println(line)
+        if h["verdict"] == "unhealthy":
+            problems += 1
+    # SLO burn-rate verdicts, same best-effort stance: a paging
+    # objective is a problem (the budget is burning too fast on both
+    # fast windows); a warning objective is surfaced only.
+    try:
+        slo = env._master_http("/cluster/slo")
+    except ShellError:
+        slo = {}
+    for name in sorted(slo.get("objectives", {})):
+        o = slo["objectives"][name]
+        if o.get("state", "ok") == "ok":
+            continue
+        burns = ", ".join(f"{w}={r}" for w, r in
+                          o.get("burn_rates", {}).items())
+        out.println(f"slo {name}: {o['state']} (burn {burns})")
+        if o["state"] == "page":
+            problems += 1
     out.footer()
     env.println(f"cluster.check: {n_nodes} nodes, {len(vols)} volumes, "
                 f"{len(present)} ec volumes, {problems} problems")

@@ -8,7 +8,8 @@ sections the port reads; hard defaults sit underneath.
 ``[pipeline]`` (pipeline/pipe.py), ``[mesh]`` (parallel/mesh.py),
 ``[flight]`` (pipeline/flight.py), ``[cache]`` (cache/chunk_cache.py),
 ``[qos]`` (util/httpserver.py, the S3 gateway), ``[tracing]``
-(util/tracing.py) and ``[profiler]`` (util/profiler.py) — each text
+(util/tracing.py), ``[telemetry]`` (cluster/telemetry.py), ``[profiler]``
+(util/profiler.py) and ``[slo]`` (the master's SLO engine) — each text
 byte-equal to the JAX package's, so a file written for one package reads
 the same in the other. (The ``[flight]`` text names the JAX package's environment
 variable; the port's is ``SEAWEEDFS_TORCH_FLIGHT``.) The other
@@ -107,6 +108,13 @@ collector_url = ""               # master host:port override (servers
                                  # that know their master set it)
 collector_ring_size = 256        # stitched traces kept on the master
 """,
+    "telemetry": """\
+# telemetry.toml — heartbeat-carried per-volume hot stats
+# (docs/observability.md). Applies to volume servers; the master's
+# registry always accepts whatever snapshots arrive.
+[telemetry]
+enabled = true                   # false makes the collector a no-op
+""",
     "profiler": """\
 # profiler.toml — continuous sampling profiler (docs/observability.md).
 [profiler]
@@ -114,6 +122,25 @@ enabled = true                   # always-on low-rate sampler thread
 hz = 1.0                         # background sampling rate
 top_k = 5                        # hot stacks carried on heartbeats
 max_stacks = 512                 # distinct collapsed stacks retained
+""",
+    "slo": """\
+# slo.toml — master-side SLO burn-rate engine (docs/observability.md).
+# Latency objectives are "no more than 1% of ops slower than the
+# target"; availability is the fraction of ops that must succeed.
+# Burn rate = observed bad-event rate / budgeted bad-event rate,
+# evaluated over fast (5m + 1h) and slow (6h) windows (SRE multiwindow
+# multi-burn-rate alerting): fast windows page, the slow window warns.
+[slo]
+enabled = true
+read_p99_ms = 250.0              # volume read latency target; 0 = off
+write_p99_ms = 500.0             # volume write latency target; 0 = off
+availability = 0.999             # min ok fraction; 0 = off
+evaluation_interval_seconds = 5.0
+fast_burn_threshold = 14.4       # burns 2% of a 30d budget in 1h
+slow_burn_threshold = 6.0        # burns 5% of a 30d budget in 6h
+fast_window_seconds = 300.0      # paired with fast_long_window
+fast_long_window_seconds = 3600.0
+slow_window_seconds = 21600.0
 """,
     "mesh": """\
 # mesh.toml — explicit (dp, sp) device mesh for EC compute (docs/mesh.md).

@@ -23,9 +23,9 @@ Configured by the ``[profiler]`` TOML block (see ``config.SCAFFOLDS``):
 ``enabled``, ``hz``, ``top_k``, ``max_stacks``.
 
 The port's copy of ``seaweedfs_tpu/util/profiler.py`` (pure stdlib).
-The heartbeat telemetry that carries the JAX package's hot stacks to the
-master is not ported yet (ROADMAP Queue 1, "Telemetry, SLO, usage and
-the policy engine").
+The top-k hot stacks ride the volume server's heartbeat telemetry
+(``TelemetrySnapshot.hot_stacks``), so ``volume.heatmap`` on the master
+names what code is hot on each node.
 """
 
 from __future__ import annotations

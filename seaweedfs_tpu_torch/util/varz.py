@@ -4,15 +4,14 @@ Every HTTP server (master, volume, filer, S3, WebDAV) serves one JSON
 document with process vitals (pid, uptime, RSS, CPU, threads, fds, GC)
 plus the tracing slow-request ring, so "what is this process doing" is
 one curl away without a metrics stack. Callers pass ``extra`` for
-role-specific sections (the master attaches its trace collector, the
-volume server its chunk cache).
+role-specific sections (the volume server attaches its telemetry
+collector, chunk cache and usage collector, the master its trace
+collector and SLO state).
 
 The port's copy of ``seaweedfs_tpu/util/varz.py``. Its lazy section
 lookups name the port's modules (``seaweedfs_tpu_torch.*``): in a
 process that holds both packages, the port's page never reports the JAX
-package's pipeline. The telemetry and usage sections the JAX servers add
-wait for their port (ROADMAP Queue 1, "Telemetry, SLO, usage and the
-policy engine").
+package's pipeline.
 """
 
 from __future__ import annotations

@@ -291,7 +291,8 @@ def test_shells_print_the_same_lines(tmp_path):
                 helps[shell] = set(o.getvalue().splitlines())
                 e.close()
             assert same["port"] == same["jax"]
-            assert helps["port"] < helps["jax"]
+            # every cluster command of the JAX shell is ported now
+            assert helps["port"] == helps["jax"]
         finally:
             env.close()
             mc.close()

@@ -11,7 +11,7 @@ from seaweedfs_tpu_torch.util import config
 from torch_teardown import collect_jax_garbage  # noqa: F401
 
 SECTIONS = ("pipeline", "mesh", "flight", "cache", "qos", "tracing",
-            "profiler")
+            "profiler", "telemetry", "slo")
 
 #: every scalar type the subset parser reads, nested tables, comments
 SCALARS = """\

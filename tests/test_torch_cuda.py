@@ -810,6 +810,89 @@ def test_job_worker_ec_encode_launches_the_transpose_kernel(tmp_path):
 
 
 @pytest.mark.cuda
+def test_policy_seals_a_full_volume_on_the_card_with_no_command(tmp_path):
+    """A port master with the policy armed (1 MB size limit) and one
+    port server on ``cuda:0`` holding an unread 4 MiB volume, past 90% of
+    the limit:
+    the master submits ``ec_encode`` on its own, the seal launches the
+    transpose kernel once per batch, its parity equals ``rs_ref``'s, and
+    a degraded read after the source and shards 0, 5, 11 and 13 are
+    dropped is counted once as an EC decode at the master."""
+    _need_card()
+    import time
+
+    from seaweedfs_tpu_torch.cluster import operation
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import (VolumeServer,
+                                                           free_port_pair)
+    from seaweedfs_tpu_torch.cluster.wdclient import MasterClient
+    from seaweedfs_tpu_torch.ops import rs_ref
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.types import FileId
+
+    d = tmp_path / "a"
+    d.mkdir()
+    # 1 MiB needles: needle 1 starts the volume, so its first interval
+    # (over DEVICE_MIN_S) lies in lost shard 0 and repairs on the card
+    volume.write_synthetic_volume(d / "4", 4 << 20, avg_size=1 << 20,
+                                  seed=4)
+    v = volume.Volume(d / "4", 4).load()
+    n = v.read_needle(1)
+    fid, want = str(FileId(4, n.id, n.cookie)), n.data
+    v.close()
+    ms = MasterServer(port=free_port_pair(), pulse_seconds=0.5,
+                      volume_size_limit_mb=1)
+    ms.policy.configure({"policy": True, "policy_interval_seconds": 0.5,
+                         "cooldown_seconds": 600.0})
+    ms.start()
+    st = Store([d])
+    st.load_existing()
+    base = st.get_volume(4, "").base
+    dat_size = volume.dat_path(base).stat().st_size
+    batches = len(list(encode.plan_batches(
+        dat_size, DEFAULT_SCHEME, pipe.current().batch_bytes)))
+    n0 = rs_cuda.apply_gf_matrix_transpose.launches
+    vs = VolumeServer(st, port=free_port_pair(), master_url=ms.url,
+                      pulse_seconds=0.5, job_poll_seconds=0.1).start()
+    mc = None
+    try:
+        vs.heartbeat_now()
+        deadline = time.time() + 60
+        while time.time() < deadline and not vs.job_worker.finished:
+            time.sleep(0.05)
+        [task] = vs.job_worker.finished
+        [job] = ms.jobs.to_map()["jobs"]
+        assert job["submittedBy"] == "policy" and job["kind"] == "ec_encode"
+        assert task["ok"] and task["launches"] == {"transpose": batches}
+        assert rs_cuda.apply_gf_matrix_transpose.launches - n0 == batches
+        k = DEFAULT_SCHEME.data_shards
+        shards = [np.fromfile(ec_files.shard_path(base, i), dtype=np.uint8)
+                  for i in range(DEFAULT_SCHEME.total_shards)]
+        ref = rs_ref.ReferenceEncoder(k, DEFAULT_SCHEME.parity_shards)
+        assert np.array_equal(ref.encode_parity(np.stack(shards[:k])),
+                              np.stack(shards[k:]))
+        vs.servicer.VolumeDelete(vpb.VolumeDeleteRequest(
+            volume_id=4, collection=""), None)
+        vs.servicer.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+            volume_id=4, collection="", shard_ids=[0, 5, 11, 13]), None)
+        vs.heartbeat_now()
+        mc = MasterClient(ms.url)
+        n1 = rs_cuda.apply_gf_matrix_transpose.launches
+        assert operation.download(mc, fid) == want
+        assert rs_cuda.apply_gf_matrix_transpose.launches > n1
+        vs.heartbeat_now()
+        row = ms.topology.telemetry.node_volumes(vs.url)[4]
+        assert row["ec_decodes"] == 1 and row["read_ops"] == 1
+    finally:
+        if mc is not None:
+            mc.close()
+        vs.stop()
+        ms.stop()
+
+
+@pytest.mark.cuda
 def test_checkpoint_of_cuda_tensors_round_trips_bit_equal(tmp_path):
     """A tree of float16 and bfloat16 tensors on the card, sharded over
     a 2 x 2 grid of four ``cuda:0`` cells and replicated, saved through

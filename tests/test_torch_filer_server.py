@@ -360,8 +360,9 @@ def test_debug_pages_and_metrics(stacks):
     vz = json.loads(_get(filer, "/debug/vars"))
     jvz = json.loads(_get(stacks["jax"], "/debug/vars"))
     assert vz["component"] == jvz["component"] == "filer"
-    # the JAX page's keys, less the usage plane's (not ported yet)
-    assert set(jvz) - set(vz) == {"usage"}
+    # the JAX page's keys, the usage plane's among them
+    assert set(jvz) - set(vz) == set()
+    assert vz["usage"]["component"] == jvz["usage"]["component"] == "filer"
     tr = json.loads(_get(filer, "/debug/traces?limit=1"))
     assert tr["enabled"] is True and "traces" in tr
     assert set(tr) == set(json.loads(_get(stacks["jax"],
@@ -376,16 +377,22 @@ def test_debug_pages_and_metrics(stacks):
 
 
 def test_filer_subprocess_round_trips(stacks, tmp_path):
-    """``python -m seaweedfs_tpu_torch filer`` against a master: one PUT
-    and one GET through it, then SIGTERM stops it with exit 0; a
-    ``-config`` with an unported section exits 2 with one line."""
+    """``python -m seaweedfs_tpu_torch filer`` against a master, with a
+    ``-config`` holding ``[tracing]`` and ``[usage]``: one PUT and one
+    GET through it, which its usage pusher reports to the master's
+    ``/cluster/usage``, then SIGTERM stops it with exit 0; a ``-config``
+    with a bad ``[usage]`` value exits 2 with one line."""
     ms_url = stacks["port"].master_url
     env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
     port = _free_port_pair()
     db = tmp_path / "meta.db"
+    conf = tmp_path / "f.toml"
+    conf.write_text("[tracing]\nenabled = true\n\n[usage]\nenabled = true\n"
+                    "push_interval_seconds = 0.2\n")
     proc = subprocess.Popen(
         [sys.executable, "-m", "seaweedfs_tpu_torch", "filer", "-port",
-         str(port), "-master", ms_url, "-db", str(db)],
+         str(port), "-master", ms_url, "-db", str(db), "-config",
+         str(conf)],
         cwd=REPO, env=env, stdout=subprocess.DEVNULL,
         stderr=subprocess.PIPE)
     try:
@@ -404,6 +411,16 @@ def test_filer_subprocess_round_trips(stacks, tmp_path):
         fc.put_data("/sub/p.bin", b"subprocess" * 1000)
         assert fc.get_data("/sub/p.bin") == b"subprocess" * 1000
         fc.close()
+
+        def pushed():
+            with urllib.request.urlopen(
+                    f"http://{ms_url}/cluster/usage", timeout=10) as r:
+                doc = json.loads(r.read())
+            src = doc["sources"].get(url)
+            anon = doc["tenants"].get("anonymous", {})
+            return src if src and src["component"] == "filer" and \
+                anon.get("bytes_in", 0) >= 10_000 else None
+        _wait_for(pushed, timeout=30, what="the filer's usage push")
     finally:
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=30)
@@ -413,14 +430,12 @@ def test_filer_subprocess_round_trips(stacks, tmp_path):
     st = JaxSqliteStore(str(db))
     assert st.find_entry("/sub/p.bin").size() == 10_000
     st.close()
-    conf = tmp_path / "f.toml"
-    # [tracing] is ported now: the refusal names the unported [usage]
-    conf.write_text("[tracing]\nenabled = true\n\n[usage]\nenabled = true\n")
+    conf.write_text("[tracing]\nenabled = true\n\n[usage]\n"
+                    "push_interval_seconds = \"soon\"\n")
     out = subprocess.run(
         [sys.executable, "-m", "seaweedfs_tpu_torch", "filer", "-port",
          "1", "-master", ms_url, "-config", str(conf)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
     err = out.stderr.strip().splitlines()
     assert out.returncode == 2 and len(err) == 1
-    assert "[usage]" in err[0] and "not ported" in err[0]
-    assert "[tracing]" not in err[0]
+    assert err[0].startswith("error: -config")

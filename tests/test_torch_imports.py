@@ -86,7 +86,9 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.storage.tier",
        "seaweedfs_tpu_torch.util.tracing",
        "seaweedfs_tpu_torch.util.profiler",
-       "seaweedfs_tpu_torch.util.varz"}
+       "seaweedfs_tpu_torch.util.varz",
+       "seaweedfs_tpu_torch.cluster.telemetry",
+       "seaweedfs_tpu_torch.cluster.usage"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -104,8 +106,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # harness, the pb copies, the volume server and its wire utilities,
     # the master, its clients, the cluster shell, the jobs plane, the
     # filer stack, the S3 gateway, the checkpoint plane, the S3 tier and
-    # the tracing plane (tracing, profiler, varz) among them
-    assert int(out.stdout.split()[0]) >= 83
+    # the tracing plane (tracing, profiler, varz) and the telemetry and
+    # usage planes among them
+    assert int(out.stdout.split()[0]) >= 85
     assert "missing: []" in out.stdout
 
 
@@ -172,34 +175,70 @@ def test_entry_points_refuse_the_cpu_without_cuda(tmp_path):
                                      "jobs"])
 def test_master_refuses_unported_config_sections(tmp_path, capsys,
                                                  section):
-    """``master -config`` with a section of a plane the port lacks exits
-    2 with one ``error:`` line, before anything binds. ``[jobs]`` itself
-    is ported; its policy-engine keys are what the port lacks there.
-    ``[tracing]`` and ``[profiler]`` are ported: beside an unported
-    ``[usage]`` the refusal names ``[usage]``, never them."""
-    from seaweedfs_tpu_torch.cluster import jobs, master
-    refused = section
-    extra = ""
-    if section == "jobs":
-        assert "policy" in jobs.POLICY_KEYS
-        key = "policy"
-    elif section in ("tracing", "profiler"):
-        assert section not in master.UNPORTED_SECTIONS
-        key = "enabled"
-        refused = "usage"
-        extra = "\n[usage]\nenabled = true\n"
-    else:
-        assert section in master.UNPORTED_SECTIONS
-        key = "enabled"
-    conf = tmp_path / "m.toml"
-    conf.write_text(f"[retry]\nmax_attempts = 2\n\n[{section}]\n"
-                    f"{key} = true\n{extra}")
-    assert master.main(["-port", "1", "-config", str(conf)]) == 2
+    """``master -config`` applies each section of the JAX master's
+    planes as the JAX master does, ``[usage]``, ``[slo]`` and
+    ``[jobs]``'s policy keys among them: the SLO and policy engines'
+    payloads equal JAX's engines configured from the same file. A bad
+    value in the section still exits 2 with one ``error:`` line, before
+    anything binds."""
+    from seaweedfs_tpu.cluster import jobs as jax_jobs
+    from seaweedfs_tpu.cluster import telemetry as jax_telemetry
+    from seaweedfs_tpu.cluster import usage as jax_usage
+    from seaweedfs_tpu.util import config as jax_config
+    from seaweedfs_tpu_torch.cluster import master, usage
+    from seaweedfs_tpu_torch.util import config as config_mod
+    from seaweedfs_tpu_torch.util import profiler, tracing
+
+    body, bad = {
+        "tracing": ("slow_threshold_seconds = 2.5\n",
+                    "slow_threshold_seconds = \"slow\"\n"),
+        "profiler": ("enabled = false\nhz = 3.0\n", "hz = \"fast\"\n"),
+        "usage": ("enabled = false\npush_interval_seconds = 0.5\n",
+                  "push_interval_seconds = \"soon\"\n"),
+        "slo": ("enabled = true\nread_p99_ms = 80.0\n"
+                "availability = 0.99\n", "availability = 1.5\n"),
+        "jobs": ("policy = true\ncooldown_seconds = 30.0\n",
+                 "hot_read_ops_per_second = 1.0\n"
+                 "cool_read_ops_per_second = 5.0\n"),
+    }[section]
+    conf_path = tmp_path / "m.toml"
+    conf_path.write_text(f"[retry]\nmax_attempts = 2\n\n[{section}]\n{body}")
+    conf = config_mod.load(conf_path)
+    ms = master.MasterServer(port=1)
+    try:
+        master.apply_config(conf)
+        master.configure_master(ms, conf)
+        if section == "tracing":
+            assert tracing.slow_threshold() == 2.5
+        elif section == "profiler":
+            assert profiler.debug_payload()["hz"] == 3.0
+            assert not profiler.enabled()
+        elif section == "usage":
+            jax_usage.configure_from(jax_config.load(conf_path))
+            assert usage.enabled() is jax_usage.enabled() is False
+            assert usage.push_interval() == jax_usage.push_interval() \
+                == 0.5
+        elif section == "slo":
+            want = jax_telemetry.SloEngine(
+                jax_telemetry.ClusterTelemetry(), clock=lambda: 0.0
+            ).configure(jax_config.load(conf_path)).payload_locked(0.0)
+            assert ms.slo.payload_locked(0.0) == want
+            assert sorted(want["objectives"]) == ["availability",
+                                                  "read_p99_ms"]
+        else:
+            want = jax_jobs.PolicyEngine().configure(
+                jax_config.load(conf_path)["jobs"]).payload()
+            assert ms.policy.payload() == want and want["enabled"]
+    finally:
+        tracing.configure(slow_threshold_seconds=1.0)
+        profiler.configure(enabled=False, hz=1.0)
+        for mod in (usage, jax_usage):
+            mod.configure(enabled=True,
+                          push_interval_seconds=mod.PUSH_INTERVAL)
+    conf_path.write_text(f"[{section}]\n{bad}")
+    assert master.main(["-port", "1", "-config", str(conf_path)]) == 2
     err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and err[0].startswith("error:")
-    assert f"[{refused}]" in err[0] and "not ported" in err[0]
-    if refused != section:
-        assert f"[{section}]" not in err[0]
+    assert len(err) == 1 and err[0].startswith("error: -config")
 
 
 def test_shell_master_runs_cluster_commands(capsys):
@@ -224,4 +263,6 @@ def test_shell_master_runs_cluster_commands(capsys):
             "s3.bucket.create", "s3.bucket.delete", "s3.clean.uploads",
             "s3.configure", "volume.tier.upload",
             "volume.tier.download", "trace.status", "trace.dump",
-            "trace.top", "ingress.status"} == set(listed)
+            "trace.top", "ingress.status", "telemetry.status",
+            "volume.heatmap", "traffic.top",
+            "tenant.usage"} == set(listed)

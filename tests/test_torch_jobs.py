@@ -401,30 +401,172 @@ def test_master_config_applies_lease_and_attempts(tmp_path):
     conf = config_mod.load(conf_path)
     ms = master.MasterServer(port=1)
     master.apply_config(conf)
-    master.configure_jobs(ms, conf)
+    master.configure_master(ms, conf)
     assert (ms.jobs.lease_seconds, ms.jobs.max_attempts) == (2.5, 5)
 
 
-@pytest.mark.parametrize("key", jobs.POLICY_KEYS)
-def test_master_refuses_policy_keys(tmp_path, capsys, key):
-    """Each policy-engine key of ``[jobs]`` (JAX ``jobs.py:645-676``)
-    exits ``master -config`` 2 with one ``error:`` line."""
-    conf = tmp_path / "m.toml"
-    conf.write_text(f"[jobs]\nlease_seconds = 3\n{key} = 1\n")
-    assert master.main(["-port", "1", "-config", str(conf)]) == 2
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and err[0].startswith("error:")
-    assert f"[jobs] {key} is not ported" in err[0]
+#: The ``[jobs]`` keys the policy engine reads (JAX ``jobs.py:645-676``).
+POLICY_KEYS = ("policy", "policy_interval_seconds",
+               "cold_read_ops_per_second", "full_fraction",
+               "hot_read_ops_per_second", "cool_read_ops_per_second",
+               "warm_cache_hit_ratio", "max_replicas", "cooldown_seconds",
+               "max_actions_per_tick")
+
+
+@pytest.mark.parametrize("key", POLICY_KEYS)
+def test_master_refuses_policy_keys(tmp_path, key):
+    """Each policy-engine key of ``[jobs]`` in a master ``-config`` is
+    no longer refused: it reaches the master's engine, whose payload
+    equals the JAX engine's configured from the same file."""
+    from seaweedfs_tpu.util import config as jax_config
+    from seaweedfs_tpu_torch.util import config as config_mod
+
+    value = {"cool_read_ops_per_second": 1,
+             "hot_read_ops_per_second": 70}.get(key, 7)
+    conf_path = tmp_path / "m.toml"
+    conf_path.write_text(f"[jobs]\nlease_seconds = 3\n{key} = {value}\n")
+    conf = config_mod.load(conf_path)
+    ms = master.MasterServer(port=1)
+    master.apply_config(conf)
+    master.configure_master(ms, conf)
+    want = jax_jobs.PolicyEngine().configure(
+        jax_config.load(conf_path)["jobs"]).payload()
+    assert ms.policy.payload() == want
+    assert ms.policy.payload() != jobs.PolicyEngine().payload()
+    assert ms.jobs.lease_seconds == 3.0
 
 
 def test_policy_payload_is_a_disarmed_jax_engine():
-    assert jobs.policy_payload() == jax_jobs.PolicyEngine().payload()
-    # every key the port refuses is one the JAX engine reads
-    for key in jobs.POLICY_KEYS:
-        engine = jax_jobs.PolicyEngine()
-        before = engine.payload()
-        engine.configure({key: {"cool_read_ops_per_second": 1,
-                                "hot_read_ops_per_second": 70}.get(key, 7)})
-        assert engine.payload() != before, key
+    """An unconfigured engine's payload is a disarmed JAX engine's (its
+    defaults, no tick, no action), and the same section moves both
+    payloads alike; an inverted hysteresis band
+    is refused by both, and by the master's ``-config`` with exit 2."""
+    assert jobs.PolicyEngine().payload() == \
+        jax_jobs.PolicyEngine().payload()
+    for key in POLICY_KEYS:
+        sec = {key: {"cool_read_ops_per_second": 1,
+                     "hot_read_ops_per_second": 70}.get(key, 7)}
+        got = jobs.PolicyEngine().configure(sec).payload()
+        assert got == jax_jobs.PolicyEngine().configure(sec).payload()
+        assert got != jobs.PolicyEngine().payload(), key
+    bad = {"hot_read_ops_per_second": 1.0, "cool_read_ops_per_second": 5.0}
+    for mod in JOBS.values():
+        with pytest.raises(ValueError, match="hysteresis band"):
+            mod.PolicyEngine().configure(bad)
+    with pytest.raises(ValueError, match="hysteresis band"):
+        master.apply_config({"jobs": bad})
     assert jobs.KINDS == jax_jobs.KINDS
     assert jobs.MUTATING_KINDS == jax_jobs.MUTATING_KINDS
+
+
+# -- JAX tests/test_jobs.py:200-315: PolicyEngine, held to the JAX engine --
+
+
+def _policy(pkg, clock, jm=None):
+    pe = JOBS[pkg].PolicyEngine(jobs=jm, clock=clock)
+    pe.configure({"policy": True, "hot_read_ops_per_second": 10.0,
+                  "cool_read_ops_per_second": 1.0,
+                  "cooldown_seconds": 60.0, "max_replicas": 3})
+    return pe
+
+
+def _row(rate, replicas=1, **kw):
+    row = {"volume_id": 5, "collection": "c", "size": 100,
+           "read_only": False, "replicas": replicas, "placement": "000",
+           "read_rate": rate, "is_ec": False, "limit": 10_000}
+    row.update(kw)
+    return row
+
+
+def _decide(script, conf=None, active=()):
+    """Run ``script`` — a list of (seconds to advance, rows) — through
+    both packages' engines on equal fake clocks; returns the port's
+    decisions after asserting they equal JAX's, step by step (times,
+    actions, rates, the actions ring and the per-action counters)."""
+    out = {}
+    for pkg in JOBS:
+        clock = FakeClock()
+        jm = None
+        if active:
+            jm = JOBS[pkg].JobManager(clock=clock)
+            jm.submit("replicate", list(active))
+        pe = _policy(pkg, clock, jm)
+        if conf:
+            pe.configure(conf)
+        steps = []
+        for advance, rows in script:
+            clock.t += advance
+            steps.append(pe.evaluate(rows))
+        out[pkg] = (steps, list(pe.actions), pe.payload())
+    assert out["port"] == out["jax"]
+    return [[a["action"] for a in acts] for acts in out["port"][0]], \
+        out["port"][0]
+
+
+def test_policy_no_flapping_inside_hysteresis_band():
+    names, _ = _decide([(120.0, [_row(9.5 if i % 2 else 1.5,
+                                      replicas=1 + i % 2)])
+                        for i in range(20)])
+    assert names == [[]] * 20
+
+
+def test_policy_grow_then_shrink_with_cooldown():
+    names, _ = _decide([
+        (0.0, [_row(50.0, replicas=1)]),     # hot -> grow
+        (0.0, [_row(50.0, replicas=1)]),     # cooldown
+        (61.0, [_row(50.0, replicas=3)]),    # at max_replicas
+        (61.0, [_row(5.0, replicas=2)]),     # mid-band: no shrink
+        (0.0, [_row(0.2, replicas=2)]),      # cold: shrink
+        (61.0, [_row(0.2, replicas=1)])])    # never below placement
+    assert names == [["replicate"], [], [], [], ["replica_drop"], []]
+
+
+def test_policy_cold_full_volume_goes_to_ec():
+    names, _ = _decide([
+        (0.0, [_row(0.0, read_only=True)]),
+        (61.0, [_row(0.0, read_only=True, is_ec=True)]),
+        (61.0, [_row(50.0, read_only=True, replicas=3)]),
+        # size past full_fraction of the limit counts as full too
+        (61.0, [_row(0.0, size=9_500)])])
+    assert names == [["ec_encode"], [], [], ["ec_encode"]]
+
+
+def test_policy_skips_volumes_with_active_jobs():
+    names, _ = _decide([(0.0, [_row(50.0, replicas=1)])], active=[5])
+    assert names == [[]]
+
+
+def test_policy_cache_warmth_blocks_seal_and_shrink():
+    names, acts = _decide([
+        (0.0, [_row(0.0, read_only=True, cache_warmth=0.9)]),
+        (61.0, [_row(0.2, replicas=2, cache_warmth=0.9)]),
+        (61.0, [_row(0.2, replicas=2, cache_warmth=0.3)])],
+        conf={"warm_cache_hit_ratio": 0.5})
+    assert names == [[], [], ["replica_drop"]]
+    assert acts[2][0]["cacheWarmth"] == 0.3
+
+
+def test_policy_cache_warmth_lowers_replicate_threshold():
+    names, _ = _decide([
+        (0.0, [_row(5.0, replicas=1, cache_warmth=0.0)]),
+        (0.0, [_row(5.0, replicas=1, cache_warmth=0.9)]),
+        (61.0, [_row(5.0, replicas=3, cache_warmth=0.9)])],
+        conf={"warm_cache_hit_ratio": 0.5})
+    assert names == [[], ["replicate"], []]
+
+
+def test_policy_payload_reports_warmth_threshold():
+    got = {}
+    for pkg in JOBS:
+        pe = _policy(pkg, FakeClock())
+        pe.configure({"warm_cache_hit_ratio": 0.42})
+        got[pkg] = pe.payload()
+    assert got["port"] == got["jax"]
+    assert got["port"]["thresholds"]["warm_cache_hit_ratio"] == 0.42
+
+
+def test_policy_rejects_inverted_hysteresis_band():
+    for mod in JOBS.values():
+        with pytest.raises(ValueError):
+            mod.PolicyEngine().configure({"hot_read_ops_per_second": 1.0,
+                                          "cool_read_ops_per_second": 5.0})

@@ -189,8 +189,9 @@ def test_assign_without_a_writable_volume_fails_alike():
 
 def test_heartbeat_fields_of_unported_planes_are_ignored():
     """A heartbeat carrying ``telemetry``, ``usage`` and ``job_progress``
-    (planes the port master does not have yet) is ingested like one
-    without them: the same response and the same topology."""
+    gives the same response and the same topology as one without them:
+    those fields touch no topology state. The telemetry and usage
+    registries, ported since, take in the node."""
     seen = []
     for with_fields in (False, True):
         ms = _master_of("port", 2, lambda: 1000.0)
@@ -204,6 +205,10 @@ def test_heartbeat_fields_of_unported_planes_are_ignored():
                 assert all(hb.HasField(f) for f in
                            ("telemetry", "usage", "job_progress"))
             resp = ms.ingest_heartbeat(hb)
+        url = f"{hb.ip}:{hb.port}"
+        assert (url in ms.usage.to_map()["sources"]) is with_fields
+        assert (url in ms.topology.telemetry.to_map()["nodes"]) \
+            is with_fields
         seen.append((resp.SerializeToString(), ms.topology.to_map(),
                      master._MasterServicer(ms).VolumeList(
                          master_pb2.VolumeListRequest(), None)

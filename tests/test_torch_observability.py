@@ -3,8 +3,9 @@ the profiler (``util/profiler.py``), ``/debug/vars`` (``util/varz.py``),
 the master's trace collector and the stitched traces of live clusters.
 
 Mirrors the tracing and profiler cases of
-``tests/test_observability_cluster.py`` (the SLO part waits for the next
-slice), the two varz cases of ``tests/test_telemetry.py`` and the trace
+``tests/test_observability_cluster.py`` (its SLO and ``Digest.cdf``
+cases are in ``tests/test_torch_telemetry.py``; the SLO half of its
+end-to-end case is here), the two varz cases of ``tests/test_telemetry.py`` and the trace
 checks of ``tests/test_cluster_integration.py``. Beyond them:
 
 * one ``TraceCollector`` per package fed the same pushed bundles gives
@@ -16,7 +17,8 @@ checks of ``tests/test_cluster_integration.py``. Beyond them:
 * the cluster ``trace.*`` / ``ingress.status`` and offline ``trace.*``
   commands print the same masked lines through both shells;
 * the pipeline's stage series, the module-name guard of ``varz`` and
-  ``glog``, and the ``[tracing]`` / ``[profiler]`` sections.
+  ``glog``, and the ``[tracing]``, ``[profiler]``, ``[telemetry]``,
+  ``[usage]`` and ``[slo]`` sections.
 """
 
 import io
@@ -499,34 +501,52 @@ _ACCEPTED = ("[tracing]\nslow_threshold_seconds = 2.5\n"
 
 def test_servers_accept_tracing_and_profiler_and_refuse_the_rest():
     """``[tracing]`` and ``[profiler]`` apply on the master, the volume
-    server and the filer; ``[telemetry]``, ``[usage]`` and ``[slo]``
-    are refused where the JAX server reads them, with the port's
-    message."""
+    server and the filer; so do ``[telemetry]``, ``[usage]`` and
+    ``[slo]`` where the JAX server reads them, each module's flags
+    ending equal to the JAX module's for the same sections; what is
+    refused now is a bad value, such as an out-of-range ``[slo]``
+    availability on the master."""
+    from seaweedfs_tpu.cluster import telemetry as jax_telemetry
+    from seaweedfs_tpu.cluster import usage as jax_usage
+    from seaweedfs_tpu_torch.cluster import telemetry, usage
     from seaweedfs_tpu_torch.util import config as config_mod
-    conf = config_mod._parse_toml_subset(_ACCEPTED)
-    for apply in (master.apply_config, volume_server.apply_config,
-                  filer_server.apply_config):
-        tracing.configure(slow_threshold_seconds=1.0)
-        tracing._PUSH_THRESHOLD = None
-        profiler.configure(hz=1.0)
-        apply(conf)
-        assert tracing.slow_threshold() == 2.5
-        assert tracing.push_threshold() == 0.5
-        assert profiler.debug_payload()["hz"] == 3.0
-        assert not profiler.enabled()
-    refused = {master: ("usage", "slo"),
-               volume_server: ("telemetry", "usage"),
-               filer_server: ("usage",)}
-    for mod, sections in refused.items():
-        assert mod.UNPORTED_SECTIONS == sections
-        assert "tracing" not in mod.UNPORTED_SECTIONS
-        assert "profiler" not in mod.UNPORTED_SECTIONS
-        for sec in sections:
-            with pytest.raises(ValueError, match=rf"\[{sec}\] is not "
-                               r"ported yet \(ROADMAP Queue 1, "
-                               r"telemetry, SLO"):
-                mod.apply_config({sec: {"enabled": True},
-                                  "tracing": {"enabled": True}})
+    conf = config_mod._parse_toml_subset(
+        _ACCEPTED + "\n[telemetry]\nenabled = false\n\n[usage]\n"
+        "enabled = false\npush_interval_seconds = 0.25\n\n[slo]\n"
+        "enabled = true\nwrite_p99_ms = 40.0\n")
+    readers = {master.apply_config: (usage,),
+               volume_server.apply_config: (telemetry, usage),
+               filer_server.apply_config: (usage,)}
+    try:
+        for apply, mods in readers.items():
+            tracing.configure(slow_threshold_seconds=1.0)
+            tracing._PUSH_THRESHOLD = None
+            profiler.configure(hz=1.0)
+            for mod in (telemetry, usage):
+                mod.configure(enabled=True)
+            apply(conf)
+            assert tracing.slow_threshold() == 2.5
+            assert tracing.push_threshold() == 0.5
+            assert profiler.debug_payload()["hz"] == 3.0
+            assert not profiler.enabled()
+            for mod in mods:
+                assert not mod.enabled()
+            if usage in mods:
+                assert usage.push_interval() == 0.25
+        volume_server.apply_config(conf)
+        jax_telemetry.configure_from(conf)
+        jax_usage.configure_from(conf)
+        assert (telemetry.enabled(), usage.enabled(),
+                usage.push_interval()) == (jax_telemetry.enabled(),
+                                           jax_usage.enabled(),
+                                           jax_usage.push_interval())
+        with pytest.raises(ValueError, match="availability must be in"):
+            master.apply_config({"slo": {"availability": 1.5}})
+    finally:
+        for mod in (telemetry, usage, jax_telemetry, jax_usage):
+            mod.configure(enabled=True)
+        for mod in (usage, jax_usage):
+            mod.configure(push_interval_seconds=mod.PUSH_INTERVAL)
 
 
 def test_gateway_toml_applies_tracing_and_profiler(tmp_path):
@@ -561,6 +581,10 @@ def test_gateway_toml_applies_tracing_and_profiler(tmp_path):
         assert vz["profiler"]["enabled"] and vz["profiler"]["running"]
         with pytest.raises(urllib.error.HTTPError):
             _get(url + "/bkt")
+        # the root closes after its response is written (and after the
+        # request's usage row), so the ring may take it a moment later
+        _wait_for(lambda: _get_json(url + "/debug/vars")["slow_requests"],
+                  timeout=10, what="the s3.GET root in the slow ring")
         slow = _get_json(url + "/debug/vars")["slow_requests"]
         assert [r["name"] for r in slow] == ["s3.GET"]
     finally:
@@ -672,13 +696,20 @@ def test_trace_propagation_filer_volume_read(tmp_path):
 def test_cluster_observability_end_to_end(tmp_path):
     """A latency fault on the volume read path, observed from the port
     master only: the slow trace stitched with the filer and volume legs,
-    and a burst profile of the faulted server through
-    ``/cluster/profile`` while reads are in flight."""
+    the read-latency SLO paging with its burn-rate gauge on ``/metrics``
+    and ``cluster.check`` failing on it, and a burst profile of the
+    faulted server through ``/cluster/profile`` while reads are in
+    flight."""
     ms, servers, filer = _stack(tmp_path, "port", "port", n_servers=1)
     vol = servers[0]
+    env = None
     try:
         tracing.configure_push(ms.url, node=vol.url, component="volume",
                                threshold_seconds=0.2)
+        ms.slo.configure({"slo": {
+            "enabled": True, "read_p99_ms": 100.0,
+            "availability": 0.999,
+            "evaluation_interval_seconds": 0.1}})
         base = f"http://{ms.url}"
         _put(f"http://{filer.url}/obs/blob.bin", b"x" * 4096)
         faults.inject("volume.read", "delay:0.35")
@@ -699,6 +730,24 @@ def test_cluster_observability_end_to_end(tmp_path):
         assert t["duration_seconds"] >= 0.3
         assert t["has_root"] and t["name"] == "filer.GET"
         assert "slow" in t["reasons"]
+
+        # 2. the read-latency SLO pages and the burn-rate gauge rises on
+        #    the master's /metrics; cluster.check counts it a problem
+        def paging():
+            slo = _get_json(f"{base}/cluster/slo")
+            return slo if slo["objectives"]["read_p99_ms"]["state"] \
+                == "page" else None
+        slo = _wait_for(paging, what="the read SLO to page")
+        assert slo["objectives"]["read_p99_ms"]["burn_rates"]["5m"] > 14.4
+        fams = parse_exposition(_get(f"{base}/metrics").decode())
+        vals = [v for labels, v in fams["seaweed_slo_burn_rate"]
+                if labels == {"slo": "read_p99_ms", "window": "5m"}]
+        assert vals and vals[0] > 14.4
+        out = io.StringIO()
+        env = cluster_commands.ClusterEnv(master_url=ms.url, out=out)
+        with pytest.raises(commands.ShellError, match="problems found"):
+            cluster_commands.run_cluster_command(env, "cluster.check")
+        assert "slo read_p99_ms: page" in out.getvalue()
 
         # 3. profiling the faulted server from the master returns stacks
         #    while reads are in flight
@@ -729,9 +778,12 @@ def test_cluster_observability_end_to_end(tmp_path):
 
         vz = _get_json(f"{base}/debug/vars")
         assert vz["trace_collector"]["count"] >= 1
-        assert "slo_state" not in vz      # the SLO plane is next slice
+        assert vz["slo_state"] == "page"
+        assert [a for a in vz["slo_alerts"] if a["to"] == "page"]
     finally:
         faults.clear()
+        if env is not None:
+            env.close()
         _stop(ms, servers, filer)
 
 

@@ -569,29 +569,72 @@ def test_volume_subcommand_joins_the_jax_master(tmp_path):
 @pytest.mark.parametrize("section", ("tracing", "telemetry", "usage",
                                      "profiler"))
 def test_unported_config_section_exits_2(tmp_path, capsys, section):
-    """A section of a plane the port lacks exits 2 with one line naming
-    it. ``[tracing]`` and ``[profiler]`` are ported: beside an unported
-    ``[telemetry]`` the refusal names ``[telemetry]``, never them."""
-    refused = section
-    extra = ""
-    if section in ("tracing", "profiler"):
-        assert section not in volume_server.UNPORTED_SECTIONS
-        refused = "telemetry"
-        extra = "\n[telemetry]\nenabled = true\n"
-    else:
-        assert section in volume_server.UNPORTED_SECTIONS
-    conf = tmp_path / "v.toml"
-    conf.write_text(f"[storage]\nfsync = \"commit\"\n\n[{section}]\n"
-                    f"enabled = true\n{extra}")
-    rc = volume_server.main(["-dir", str(tmp_path), "-config", str(conf),
-                             "-device", "cpu", "-mserver", ""])
+    """Each section of the JAX volume server's planes applies through
+    ``-config``: the module reads what the JAX module reads from the
+    same file, and a server's heartbeat carries the telemetry and usage
+    snapshots exactly while their planes are on. A bad value in the
+    section still exits 2 with one line, before anything is touched."""
+    from seaweedfs_tpu.cluster import telemetry as jax_telemetry
+    from seaweedfs_tpu.cluster import usage as jax_usage
+    from seaweedfs_tpu.util import config as jax_config
+    from seaweedfs_tpu.util import profiler as jax_profiler
+    from seaweedfs_tpu.util import tracing as jax_tracing
+    from seaweedfs_tpu_torch.cluster import telemetry, usage
+    from seaweedfs_tpu_torch.util import config as config_mod
+    from seaweedfs_tpu_torch.util import profiler, tracing
+
+    body, bad = {
+        "tracing": ("slow_threshold_seconds = 2.5\n",
+                    "slow_threshold_seconds = \"slow\"\n"),
+        "telemetry": ("enabled = false\n", None),
+        "usage": ("enabled = false\npush_interval_seconds = 0.5\n",
+                  "push_interval_seconds = \"soon\"\n"),
+        "profiler": ("enabled = false\nhz = 3.0\n", "hz = \"fast\"\n"),
+    }[section]
+    conf_path = tmp_path / "v.toml"
+    conf_path.write_text(f"[storage]\nfsync = \"commit\"\n\n"
+                         f"[{section}]\n{body}")
+    read = {"tracing": lambda m: m.slow_threshold(),
+            "telemetry": lambda m: m.enabled(),
+            "usage": lambda m: (m.enabled(), m.push_interval()),
+            "profiler": lambda m: (m.enabled(), m.debug_payload()["hz"])}
+    ports = {"tracing": (tracing, jax_tracing),
+             "telemetry": (telemetry, jax_telemetry),
+             "usage": (usage, jax_usage),
+             "profiler": (profiler, jax_profiler)}[section]
+    (tmp_path / "d").mkdir()
+    st = Store([tmp_path / "d"], max_volumes=2)
+    vs = VolumeServer(st, device="cpu")
+    try:
+        volume_server.apply_config(config_mod.load(conf_path))
+        ports[1].configure_from(jax_config.load(conf_path))
+        assert read[section](ports[0]) == read[section](ports[1])
+        hb = vs._heartbeat_snapshot()
+        assert hb.HasField("telemetry") is telemetry.enabled() \
+            is (section != "telemetry")
+        assert hb.HasField("usage") is usage.enabled() \
+            is (section != "usage")
+    finally:
+        st.close()
+        for mod in (tracing, jax_tracing):
+            mod.configure(slow_threshold_seconds=1.0)
+        for mod in (profiler, jax_profiler):
+            mod.configure(enabled=False, hz=1.0)
+        for mod in (telemetry, jax_telemetry):
+            mod.configure(enabled=True)
+        for mod in (usage, jax_usage):
+            mod.configure(enabled=True,
+                          push_interval_seconds=mod.PUSH_INTERVAL)
+    if bad is None:
+        bad = "enabled = true\n\n[usage]\npush_interval_seconds = \"x\"\n"
+    conf_path.write_text(f"[{section}]\n{bad}")
+    rc = volume_server.main(["-dir", str(tmp_path), "-config",
+                             str(conf_path), "-device", "cpu",
+                             "-mserver", ""])
     err = capsys.readouterr().err.strip().splitlines()
     assert rc == 2
-    assert len(err) == 1 and err[0].startswith("error:")
-    assert f"[{refused}]" in err[0] and "not ported" in err[0]
-    if refused != section:
-        assert f"[{section}]" not in err[0]
-    assert list(tmp_path.iterdir()) == [conf]   # nothing else touched
+    assert len(err) == 1 and err[0].startswith("error: -config")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["d", "v.toml"]
 
 
 def test_server_without_a_card_raises_before_binding(tmp_path, capsys):
