@@ -62,9 +62,9 @@ of which fails the run on any mismatch:
    (200 nodes, 20,000 volumes, seed 7): heartbeats/s, one policy tick's
    seconds, lookup p50/p99 (host numbers, printed beside the card's
    label);
-7. shell (config 1 through the admin shell): the path phase's first 513
+7. shell (config 1 through the admin shell): the path phase's first 769
    needle records copied into a store of two disk locations and the
-   other 513 written through ``Store.write_needle`` (.dat and .idx
+   other 257 written through ``Store.write_needle`` (.dat and .idx
    sha256-equal to the path phase's; the ingest rate of the write_needle
    calls alone printed, with
    ``Needle.to_bytes`` timed apart on every 4th of the same needles), then ``shell.cli.main`` in this process with
@@ -78,24 +78,24 @@ of which fails the run on any mismatch:
    GiB/s beside the direct call's;
 8. cluster (config 1 through a port master and two port volume servers,
    A and B on one rack, in this process, over localhost gRPC and HTTP):
-   by RPC, the path phase's last 513 needles POSTed to A after its first
-   513 records were copied there (.dat and .idx sha256-equal to the
+   by RPC, the path phase's last 257 needles POSTed to A after its first
+   769 records were copied there (.dat and .idx sha256-equal to the
    path phase's; MiB/s), ``VolumeEcShardsGenerate``
    (shards, .ecx and .vif sha256-equal to the sealed ones, one launch
-   per batch; GiB/s beside the direct encode), every 4th needle read by
+   per batch; GiB/s beside the direct encode), every 16th needle read by
    HTTP GET from A's shards (no launch), ``VolumeEcShardsCopy`` of every
    shard to B (sha256-equal, GiB/s) and one ``VolumeEcShardRead`` range,
-   every 4th needle read from B with shards 0, 5, 11 and 13 deleted on
+   every 16th needle read from B with shards 0, 5, 11 and 13 deleted on
    both servers (reconstruct-on-read: needles/s, p50, p99, launches,
    host-codec calls), ``VolumeEcShardsRebuild`` (sha256-equal),
    ``VolumeEcShardsToVolume`` after losing data shards 0 and 5 (.dat and
-   .idx sha256-equal, every 4th needle read back); then through the master:
+   .idx sha256-equal, every 16th needle read back); then through the master:
    64 needles of about 1 MiB by ``operation.submit`` with replication
    001, each read back sha256-equal from A and from B (MiB/s, ms per
    needle); the cluster shell in this process running ``lock; ec.encode;
    ec.balance; volume.list; unlock`` on the restored volume (one launch
    per batch, shards spread even/odd over A/B and sha256-equal to the
-   sealed ones; GiB/s beside the RPC-driven Generate); every 4th needle
+   sealed ones; GiB/s beside the RPC-driven Generate); every 16th needle
    read by ``operation.download`` with shards 0, 5, 11 and 13 gone, each
    server fetching what it lacks through ``ec_shard_peers`` (needles/s,
    p50, p99, launches); the shell's ``ec.rebuild`` and ``ec.decode``
@@ -277,7 +277,22 @@ of which fails the run on any mismatch:
    SWAR kernel, and 200 under ``SEAWEEDFS_TORCH_HOST_DISPATCH=auto``
    (the probe's two rates, its verdict and the route taken); then 32
    volumes of real needles sealed by ``batch.encode_volumes``, each
-   sha256-equal to a single-volume ``write_ec_files``.
+   sha256-equal to a single-volume ``write_ec_files``;
+20. lint (the port's static analysis, ``seaweedfs_tpu_torch.analysis``):
+   ``python -m seaweedfs_tpu_torch.analysis --gate warning --fail-stale
+   --families --stats --no-cache --budget-seconds 30`` over the port's
+   tree as a subprocess (exit 0: no new finding, no stale baseline
+   entry; its families table and seconds printed); then the two torch
+   rules that have a runtime twin, each planted in a snippet that
+   ``analyze_sources`` must flag (and its fixed form must not), and the
+   same pattern run on the card: SW503, a 64 MiB pinned buffer of one
+   byte copied to the card with ``non_blocking=True`` behind a
+   ``torch.cuda._sleep`` and overwritten on the host before the copy's
+   event is synchronized (the bytes of the copy that hold the new value,
+   printed), and the same with ``ev.synchronize()`` before the overwrite
+   (0 such bytes, asserted); SW702, a loop of ``.item()`` per iteration
+   against the same loop synced once (both times printed, the sums
+   equal). It launches no GF(2^8) kernel.
 
 Every phase but that auto pass runs with
 ``SEAWEEDFS_TORCH_HOST_DISPATCH=device``, so that large host slabs
@@ -304,7 +319,13 @@ for the frontends phase, whose checks take their place, the cluster
 phase's ``master`` and ``volume`` subprocesses (with the in-process
 server and the ``volume.list`` that named them), the filer phase's
 ``filer`` subprocess and the s3 phase's ``s3`` subprocess. The mount
-phase came with no cut. Each phase's seconds are printed at the end
+phase came with no cut. For the lint phase, the cluster phase's GETs
+from A's shards and from B's decoded volume, its degraded GETs from B
+and its degraded ``operation.download`` from every 4th needle to every
+16th (the filer and mount phases read every byte of theirs degraded),
+and the shell phase's ``write_needle`` calls and the cluster phase's
+HTTP POSTs from the last 513 needles to the last 257 (the first 769
+are copied in). Each phase's seconds are printed at the end
 beside the run before the mount phase came (``PHASE_SECONDS_BEFORE``).
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -361,8 +382,9 @@ TO_BYTES_EVERY = 4
 #: The shell phase's ``write_needle`` calls and the cluster phase's HTTP
 #: POSTs write the needles after the first INGEST_FROM of config 1's
 #: volume; those come in as a copy of the path phase's records (all
-#: 1026 needles were written both ways before the telemetry phase came).
-INGEST_FROM = 513
+#: 1026 needles were written both ways before the telemetry phase came,
+#: the last 513 before the lint phase).
+INGEST_FROM = 769
 LOST_REBUILD = (2, 7, 11, 13)
 LOST_DECODE = (0, 5)
 #: The read phase's and config 5's lost shards: two data, two parity.
@@ -1176,14 +1198,14 @@ def _http(conn, method: str, path: str, body=None) -> tuple:
 
 #: The cluster phase's heartbeat pulse (master and servers), seconds.
 CLUSTER_PULSE = 1.0
-#: The cluster phase GETs every 4th needle from A's local shards and
+#: The cluster phase GETs every 16th needle from A's local shards and
 #: from B's decoded volume (no launch either; it read all of them
-#: before the filer phase came).
-LOCAL_GET_EVERY = 4
-#: ... and every 4th needle with shards lost, from B and through
+#: before the filer phase came, every 4th before the lint phase).
+LOCAL_GET_EVERY = 16
+#: ... and every 16th needle with shards lost, from B and through
 #: ``operation.download`` (all of them before the filer phase, every
-#: 2nd before the s3 phase).
-DEGRADED_GET_EVERY = 4
+#: 2nd before the s3 phase, every 4th before the lint phase).
+DEGRADED_GET_EVERY = 16
 #: The replicated uploads of the cluster phase: 64 needles of about 1 MiB
 #: with replication 001 (A and B share a rack).
 REPLICATED_NEEDLES = 64
@@ -5114,6 +5136,155 @@ def frontends_phase(dev, workdir: str, label: str, launches: dict) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# lint phase: the port's static analysis, and two of its torch rules shown
+# on the card
+# ---------------------------------------------------------------------------
+
+#: The torch SW503 pattern: a host buffer overwritten while its
+#: asynchronous copy to the card may still be in flight.
+SW503_SNIPPET = """
+import torch
+
+
+def overwrite(buf, dst, stream, cycles, value):
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(cycles)
+        dst.copy_(buf, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    buf.fill_(value)
+    ev.synchronize()
+"""
+#: The fix: the copy's event synchronized before the overwrite.
+SW503_FIXED = SW503_SNIPPET.replace(
+    "    buf.fill_(value)\n    ev.synchronize()\n",
+    "    ev.synchronize()\n    buf.fill_(value)\n")
+#: The torch SW702 pattern: a host sync per iteration.
+SW702_SNIPPET = """
+import torch
+
+
+def per_iteration(xs):
+    total = 0
+    for x in xs:
+        total += x.sum().item()
+    return total
+"""
+#: The fix: accumulate on the card, sync once after the loop.
+SW702_FIXED = """
+import torch
+
+
+def synced_once(xs):
+    acc = torch.zeros((), dtype=torch.int64, device=xs[0].device)
+    for x in xs:
+        acc += x.sum()
+    return acc.item()
+"""
+LINT_PINNED_BYTES = 64 * MIB
+#: ``torch.cuda._sleep`` cycles queued ahead of the SW503 copy: tens of
+#: ms at the card's clock, far longer than the host's 64 MiB fill.
+LINT_SLEEP_CYCLES = 200_000_000
+LINT_ITEMS = 2000
+
+
+def _overwrite(buf, dst, stream, value: int, sync_first: bool) -> int:
+    """The SW503 snippet's pattern (``sync_first``: its fix) on the card;
+    returns how many bytes of ``dst`` hold the host's new value."""
+    buf.fill_(1)
+    dst.zero_()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(LINT_SLEEP_CYCLES)
+        dst.copy_(buf, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    if sync_first:
+        ev.synchronize()
+    buf.fill_(value)
+    ev.synchronize()
+    return int((dst == value).sum().item())
+
+
+def lint_phase(dev, label: str) -> dict:
+    """The port's linter over its own tree as a subprocess, then the
+    torch SW503 and SW702 rules on planted snippets and their patterns
+    on the card. No GF(2^8) kernel is launched here."""
+    from seaweedfs_tpu_torch.analysis import analyze_sources
+    t_phase = time.perf_counter()
+    result = {}
+    cmd = [sys.executable, "-m", "seaweedfs_tpu_torch.analysis",
+           "--gate", "warning", "--fail-stale", "--families", "--stats",
+           "--no-cache", "--budget-seconds", "30"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    result["lint_seconds"] = time.perf_counter() - t0
+    for line in out.stdout.splitlines():
+        say(f"  {line}")
+    check(out.returncode == 0,
+          f"the port's linter exits 0 over its tree (exit "
+          f"{out.returncode}; {out.stderr.strip()[-2000:]})")
+    say(f"  the linter's subprocess: {result['lint_seconds']:.2f} s wall "
+        f"on the card's host ({label})")
+
+    def flagged(src: str, rule: str) -> list:
+        return [f.line for f in analyze_sources({"snippet.py": src})
+                if f.rule == rule]
+
+    check(flagged(SW503_SNIPPET, "SW503") == [11],
+          "SW503 flags the overwrite under the in-flight copy")
+    check(flagged(SW503_FIXED, "SW503") == [],
+          "SW503 passes the overwrite after ev.synchronize()")
+    check(flagged(SW702_SNIPPET, "SW702") == [8],
+          "SW702 flags the .item() per iteration")
+    check(flagged(SW702_FIXED, "SW702") == [],
+          "SW702 passes the loop synced once")
+
+    buf = torch.empty(LINT_PINNED_BYTES, dtype=torch.uint8,
+                      pin_memory=True)
+    check(buf.is_pinned(), "the SW503 buffer is pinned")
+    dst = torch.empty(LINT_PINNED_BYTES, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.device(dev):
+        raced = _overwrite(buf, dst, stream, 7, sync_first=False)
+        fixed = _overwrite(buf, dst, stream, 7, sync_first=True)
+    say(f"  SW503 on {label}: {LINT_PINNED_BYTES} pinned bytes copied "
+        f"non_blocking behind a {LINT_SLEEP_CYCLES}-cycle sleep; "
+        f"overwritten before ev.synchronize(): {raced} bytes of the copy "
+        f"hold the new value; after it: {fixed}")
+    check(fixed == 0, "the overwrite after ev.synchronize() reaches no "
+                      "byte of the copy")
+    result.update(sw503_raced_bytes=raced, sw503_fixed_bytes=fixed)
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xs = [torch.randint(0, 256, (1024,), generator=g, device=dev,
+                        dtype=torch.int64) for _ in range(LINT_ITEMS)]
+    ns = {}
+    for name, src in (("per_iteration", SW702_SNIPPET),
+                      ("synced_once", SW702_FIXED)):
+        scope = {}
+        exec(compile(src, f"<{name}>", "exec"), scope)
+        fn = scope[name]
+        fn(xs[:16])                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = fn(xs)
+        ns[name] = (time.perf_counter() - t0, total)
+    check(ns["per_iteration"][1] == ns["synced_once"][1],
+          "the SW702 loops sum alike")
+    say(f"  SW702 on {label}: {LINT_ITEMS} sums with .item() per "
+        f"iteration {ns['per_iteration'][0] * 1e3:.2f} ms, synced once "
+        f"{ns['synced_once'][0] * 1e3:.2f} ms "
+        f"({ns['per_iteration'][0] / ns['synced_once'][0]:.2f}x)")
+    result.update(sw702_per_iteration_s=ns["per_iteration"][0],
+                  sw702_synced_once_s=ns["synced_once"][0])
+    result["seconds"] = time.perf_counter() - t_phase
+    say(f"  lint phase: {result['seconds']:.1f} s")
+    return result
+
+
 def _launcher_port_block() -> int:
     """A base port whose launcher ports (master, two volumes, filer, s3,
     webdav) and their gRPC twins are free."""
@@ -5239,6 +5410,10 @@ def main() -> int:
               config3_phase, dev, label, launches)
         phase("config3_files", "config 3, file level", config3_files_phase,
               dev, os.path.join(workdir, "config3"), label, launches)
+        before = dict(launches)
+        phase("lint", "lint (the port's static analysis; SW503 and SW702 "
+              "on the card)", lint_phase, dev, label)
+        check(launches == before, "the lint phase launches no kernel")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say("  phase seconds (this run | the run before the mount phase): "

@@ -306,6 +306,7 @@ class MasterServer:
                          not self._ttl_thread.is_alive()):
                 # Off the reap thread: a hung VolumeDelete must not
                 # stall dead-node detection (same for the vacuum scan).
+                # seaweedlint: disable=SW802 — single reap-loop caller
                 self._ttl_thread = threading.Thread(
                     target=self._reap_ttl_safe, daemon=True,
                     name="master-ttl-reap")
@@ -315,6 +316,7 @@ class MasterServer:
                     and tick % vacuum_every == 0 \
                     and (self._vacuum_thread is None
                          or not self._vacuum_thread.is_alive()):
+                # seaweedlint: disable=SW802 — single reap-loop caller
                 self._vacuum_thread = threading.Thread(
                     target=self._scan_and_vacuum_safe, daemon=True,
                     name="master-vacuum-scan")
@@ -523,6 +525,7 @@ class MasterServer:
         # replication and the AllocateVolume rpcs must complete before
         # a second grow may observe topology, or two volumes could land
         # on one id.
+        # seaweedlint: disable=SW103 — intentional rpc under grow lock
         with self._grow_lock:
             targets = self.topology.pick_grow_targets(replication)
             vid = self.topology.next_volume_id()

@@ -57,6 +57,7 @@ import time
 from concurrent import futures
 from http.server import BaseHTTPRequestHandler
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
@@ -109,7 +110,7 @@ def free_port_pair() -> int:
             with socket.socket() as s2:
                 s2.bind(("127.0.0.1", _grpc_port(p)))
             return p
-        except OSError:
+        except OSError:  # seaweedlint: disable=SW301 — port pair taken: try the next one
             continue
     raise VolumeServerError("no free port pair")
 
@@ -201,6 +202,13 @@ class VolumeServer:
         self._ec_loc_cache: dict[int, tuple[float, dict[int, list[str]]]] = {}
         self._metrics_pusher = None
         self._lock = threading.RLock()
+        #: One heartbeat snapshot in flight at a time, across the pulse
+        #: stream and ``heartbeat_now``: the next is taken only once the
+        #: master has answered (so ingested) the previous one. Without
+        #: it a pulse snapshot taken before ``delete_volume`` could land
+        #: after a newer ``heartbeat_now`` one and list the volume again.
+        self._hb_turn = threading.Condition(threading.Lock())
+        self._hb_owner: Optional[SimpleNamespace] = None
         #: Maintenance-plane worker: started with the server when it
         #: has a master; claims leased tasks from it and executes them
         #: through the same servicer the shell drives, on ``device``.
@@ -298,6 +306,7 @@ class VolumeServer:
             # failover re-point: a str rebind is atomic; a racing
             # reader uses either the dying master (and fails over
             # itself) or the new one
+            # seaweedlint: disable=SW801 — atomic failover re-point
             self.master_url = self.master_urls[
                 (i + 1) % len(self.master_urls)]
 
@@ -379,6 +388,34 @@ class VolumeServer:
             hb.job_progress.CopyFrom(self.job_worker.progress_proto())
         return hb
 
+    def _take_turn(self, owner: SimpleNamespace) -> bool:
+        """Wait until no other heartbeat snapshot is in flight, then
+        hold the turn for ``owner``; False once ``owner`` is closed (its
+        stream ended). The wait is bounded: a master that never answers
+        must not wedge ``heartbeat_now`` for good."""
+        deadline = time.monotonic() + max(30.0, 4 * self.pulse_seconds)
+        with self._hb_turn:
+            while self._hb_owner is not None \
+                    and not self._stop.is_set() and not owner.closed:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    glog.warning("heartbeat: %s still unanswered; "
+                                 "sending out of turn", self.master_url)
+                    break
+                self._hb_turn.wait(min(left, 0.5))
+            if owner.closed:
+                return False
+            self._hb_owner = owner
+            return True
+
+    def _end_turn(self, owner: SimpleNamespace,
+                  close: bool = False) -> None:
+        with self._hb_turn:
+            owner.closed = owner.closed or close
+            if self._hb_owner is owner:
+                self._hb_owner = None
+                self._hb_turn.notify_all()
+
     def _heartbeat_loop(self) -> None:
         while not self._stop.is_set():
             try:
@@ -394,13 +431,21 @@ class VolumeServer:
 
     def _run_heartbeat_stream(self) -> None:
         stub = self.master_stub()
+        owner = SimpleNamespace(closed=False)
 
         def gen():
-            while not self._stop.is_set():
+            while not self._stop.is_set() and self._take_turn(owner):
                 yield self._heartbeat_snapshot()
                 self._stop.wait(self.pulse_seconds)
 
-        for resp in stub.SendHeartbeat(gen()):
+        try:
+            self._pulse(stub.SendHeartbeat(gen()), owner)
+        finally:
+            self._end_turn(owner, close=True)
+
+    def _pulse(self, responses, owner: SimpleNamespace) -> None:
+        for resp in responses:
+            self._end_turn(owner)
             self._set_metrics_pusher(resp.metrics_address)
             if resp.leader and resp.leader != self.master_url:
                 # Follow the leader (the reference volume server redials
@@ -412,6 +457,7 @@ class VolumeServer:
                 if resp.leader not in self.master_urls:
                     # worst case under a race is a duplicate rotation
                     # entry, which only repeats a failover hop
+                    # seaweedlint: disable=SW803 — benign duplicate
                     self.master_urls.append(resp.leader)
                 self.master_url = resp.leader
                 return
@@ -466,8 +512,13 @@ class VolumeServer:
         if not self.master_url:
             return
         stub = self.master_stub()
-        for _ in stub.SendHeartbeat(iter([self._heartbeat_snapshot()])):
-            break
+        owner = SimpleNamespace(closed=False)
+        self._take_turn(owner)
+        try:
+            for _ in stub.SendHeartbeat(iter([self._heartbeat_snapshot()])):
+                break
+        finally:
+            self._end_turn(owner, close=True)
 
     # ------------- EC shard location helpers -------------
 
@@ -609,6 +660,7 @@ class _VolumeServicer:
         # under vol._lock inside compact) already excludes concurrent
         # compacts of the SAME volume; distinct-key dict ops are
         # GIL-atomic
+        # seaweedlint: disable=SW803 — per-volume claim excludes races
         self._compact_states[(request.collection, request.volume_id)] = \
             vacuum_mod.compact(vol)
         return volume_server_pb2.VacuumVolumeCompactResponse()

@@ -151,6 +151,7 @@ class S3Gateway:
                 # gateway runs open (reference default without config)
                 self.auth.set_identities(None)
                 # one-way bool latch; both writers only ever set True
+                # seaweedlint: disable=SW801 — idempotent latch
                 self._conf_loaded = True
             elif self._conf_loaded:
                 # transient (filer restart, network): auth must NOT

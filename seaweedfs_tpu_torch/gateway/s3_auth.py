@@ -112,9 +112,11 @@ class SigV4Verifier:
         filer-stored config; a dict rebind is atomic under the GIL so
         in-flight verifies see either the old or the new set)."""
         # whole-dict rebind per the docstring; never mutated in place
+        # seaweedlint: disable=SW801 — atomic reference swap
         self.by_access_key = {i.access_key: i
                               for i in (identities or [])}
         # bool rebind paired with the swap above
+        # seaweedlint: disable=SW801 — atomic reference swap
         self.deny_all = False
 
     def set_unavailable(self) -> None:

@@ -98,6 +98,7 @@ class FileHandle:
         # The handle lock serializes all ops on ONE open file (the
         # reference weed/mount design); the spill-flush upload below
         # blocks only this file's own ops, never another handle's.
+        # seaweedlint: disable=SW103 — per-file upload serialization
         with self._lock:
             self.pages.write(offset, data)
             self.read_pages.invalidate(offset, len(data))
@@ -107,6 +108,7 @@ class FileHandle:
             return len(data)
 
     def truncate(self, size: int) -> None:
+        # seaweedlint: disable=SW103 — per-file metadata rpc; see write
         with self._lock:
             self.pages.truncate(size)
             self.read_pages.invalidate()
@@ -128,6 +130,7 @@ class FileHandle:
 
     def flush(self) -> None:
         # Only this handle's own ops wait on the upload; see write().
+        # seaweedlint: disable=SW103 — per-file upload serialization
         with self._lock:
             intervals = self.pages.pop_all()
             if not intervals and \

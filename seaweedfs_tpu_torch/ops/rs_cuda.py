@@ -53,6 +53,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..util import durability
 from . import bitslice, gf256
 
 #: Outputs per kernel launch at most (the kernels' MAXO): wider
@@ -137,15 +138,25 @@ def _build() -> Path:
                           text=True)
     if link.returncode:
         raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, lib)
+    durability.durable_replace(tmp, lib)
     BUILDS += 1
     BUILD_LOG = "\n".join(logs)
     return lib
 
 
+def build() -> Path:
+    """Build (or find) the library's file without loading it, under the
+    same lock as :func:`library`, so ``BUILDS`` and ``BUILD_LOG`` have
+    one writer at a time."""
+    # seaweedlint: disable=SW103 — intentional build-once lock (nvcc runs once per process); the sleep edge _build -> VolumeServer.read_bytes -> check is a false name-based resolution of Path.read_bytes
+    with _lib_lock:
+        return _build()
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
+    # seaweedlint: disable=SW103 — intentional build-once lock (nvcc runs once per process); the sleep edge _build -> VolumeServer.read_bytes -> check is a false name-based resolution of Path.read_bytes
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(_build()))

@@ -89,7 +89,7 @@ def report(sass: str) -> str:
 
 
 def main() -> int:
-    lib = rs_cuda._build()
+    lib = rs_cuda.build()
     out = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
                          check=True, capture_output=True, text=True).stdout
     print(report(out))

@@ -306,7 +306,7 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
         for out in fds.values():
             try:
                 os.close(out)
-            except OSError:  # best-effort close-all on the cleanup path
+            except OSError:  # seaweedlint: disable=SW301 — best-effort close-all on the cleanup path
                 pass
         os.close(fd)
     return int(dat_size)

@@ -124,11 +124,13 @@ class IntervalRepairAggregator:
                 return
             batch = self._drain(item)
             # the counters change only on this one worker thread
+            # seaweedlint: disable=SW802 — single agg thread
             self.requests += len(batch)
             groups: dict[tuple, list[_Request]] = {}
             for r in batch:
                 groups.setdefault((r.present, r.wanted), []).append(r)
             for (present, wanted), reqs in groups.items():
+                # seaweedlint: disable=SW802 — single agg thread
                 self.batches += 1
                 try:
                     smax = max(r.size for r in reqs)

@@ -154,6 +154,7 @@ class WriterPool:
             preallocate(fd, size)
         # open_file is a setup call: the fd is registered before any
         # write for it is submitted, so workers only READ the entry
+        # seaweedlint: disable=SW803 — registered before use
         self._fds[path] = fd
 
     # -- job submission --------------------------------------------------
@@ -194,7 +195,7 @@ class WriterPool:
         for fd in self._fds.values():
             try:
                 os.close(fd)
-            except OSError:  # best-effort close-all; first error re-raised below
+            except OSError:  # seaweedlint: disable=SW301 — best-effort close-all; first error re-raised below
                 pass
         self._fds.clear()
         if self._errors:
@@ -204,7 +205,7 @@ class WriterPool:
         """close() for failure paths: never raises."""
         try:
             self.close()
-        except WriterError:  # failure path; the caller is already raising the original error
+        except WriterError:  # seaweedlint: disable=SW301 — failure path; caller is already raising the original error
             pass
 
     def _raise(self) -> None:
@@ -242,6 +243,7 @@ class WriterPool:
                 except BaseException as e:  # noqa: BLE001 — re-raised at submit/close
                     # list.append is GIL-atomic and the list is only
                     # drained after the workers join
+                    # seaweedlint: disable=SW803 — drained after join
                     self._errors.append(e)
                 finally:
                     if token is not None:

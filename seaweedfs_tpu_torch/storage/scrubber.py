@@ -166,7 +166,7 @@ def _quarantine_file(base: str | Path, path: Path) -> Path:
     dest = qdir / path.name
     # plain rename, deliberately NOT durable_replace: quarantine is
     # forensic best-effort, and the source file is corrupt anyway
-    os.replace(path, dest)
+    os.replace(path, dest)  # seaweedlint: disable=SW901 — forensic move of corrupt bytes, not a commit point
     METRICS.counter("scrub_quarantined_total").inc()
     return dest
 
@@ -196,7 +196,7 @@ def scrub_volume(vol, pacer: Optional[RatePacer] = None,
             pacer.take(rec_len)
         try:
             rec, _off = vol.read_record(e.key)
-        except KeyError:
+        except KeyError:  # seaweedlint: disable=SW301 — needle deleted between snapshot and read
             continue      # deleted between snapshot and read
         res["checked"] += 1
         res["bytes"] += len(rec)
@@ -335,7 +335,7 @@ class _open_shards:
         for fd in self.fds:
             try:
                 os.close(fd)
-            except OSError:  # best-effort close-all
+            except OSError:  # seaweedlint: disable=SW301 — best-effort close-all
                 pass
 
 

@@ -90,6 +90,7 @@ def compact(vol: Volume) -> CompactState:
         # the claim is taken under vol._lock; every later clear runs
         # on the thread that holds the claim, so there is never a
         # concurrent writer
+        # seaweedlint: disable=SW801 — claim taken under vol._lock
         vol.vacuum_in_progress = True
     try:
         return _compact_locked(vol)
@@ -169,6 +170,7 @@ def commit_compact(vol: Volume, state: CompactState) -> int:
         # on this volume for the length of a compile.
         from . import needle_map_native
         needle_map_native.available()
+    # seaweedlint: disable=SW103 — lib compile pre-warmed above
     with vol._lock:
         # Drain in-flight readers FIRST: Condition.wait releases the
         # volume lock, so waiting any later (after the diff replay)
@@ -256,8 +258,10 @@ def _commit_swap_drained(vol: Volume, state: CompactState) -> int:
         # commit runs holding the vacuum_in_progress claim with
         # readers drained (swap-drain protocol above): exactly one
         # thread touches the handles
+        # seaweedlint: disable=SW801 — swap-drain protocol
         vol._dat = backend_mod.open_backend(vol.backend_kind,
                                             dat_path(vol.base))
+        # seaweedlint: disable=SW801 — same swap-drain protocol
         vol._idx = open(idx_path(vol.base), "a+b")
         raise
     faults.check("crash.vacuum.midcommit")
@@ -276,6 +280,7 @@ def _commit_swap_drained(vol: Volume, state: CompactState) -> int:
     vol.super_block = state.new_super
     if hasattr(vol.nm, "close"):
         vol.nm.close()
+    # seaweedlint: disable=SW801 — same swap-drain protocol
     vol.nm = vol._load_needle_map()
     vol.vacuum_in_progress = False
     return vol._dat.size()

@@ -340,14 +340,14 @@ class Volume:
                 self._dat.write_at(b"\x00" * pad, offset)
                 offset += pad
             self._dat.write_at(rec, offset)
-            faults.check("crash.append.dat")
+            faults.check("crash.append.dat")  # seaweedlint: disable=SW103 — faults.check sleeps only under an armed test-harness delay spec, never in production
             # The barrier flushes (concurrent reads see the record the
             # moment the index entry is visible) and fsyncs: the offset
             # this returns means the needle survives power loss.
             durability.barrier(self._dat, len(rec))
             units = to_offset_units(offset)
             self._idx.write(IndexEntry(key, units, body_size).to_bytes())
-            faults.check("crash.append.idx")
+            faults.check("crash.append.idx")  # seaweedlint: disable=SW103 — faults.check sleeps only under an armed test-harness delay spec, never in production
             durability.barrier(self._idx, NEEDLE_MAP_ENTRY_SIZE)
             self.nm.set(key, units, body_size)
         return offset

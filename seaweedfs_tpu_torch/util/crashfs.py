@@ -363,13 +363,11 @@ class CrashRecorder:
                 elif op.kind == "rename":
                     src = target(op.path)
                     if os.path.exists(src):
-                        # replaying a recorded crash state: durability
-                        # is what is under test, not a property of the
-                        # replay
+                        # seaweedlint: disable=SW901 — replaying a recorded crash state; durability is the point under test, not a property of the replay
                         os.replace(src, target(op.a))
                 elif op.kind == "unlink":
                     Path(target(op.path)).unlink(missing_ok=True)
-            except FileNotFoundError:
+            except FileNotFoundError:  # seaweedlint: disable=SW301 — the op's file never materialized in this crash state (see below)
                 # The op's file never materialized in this crash state
                 # (its create/rename was itself dropped) — exactly the
                 # cross-file reordering a real crash can expose.

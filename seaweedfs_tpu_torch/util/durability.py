@@ -118,7 +118,7 @@ def fsync_dir(path: str | Path) -> None:
     try:
         try:
             os.fsync(fd)
-        except OSError:  # some network filesystems refuse it
+        except OSError:  # seaweedlint: disable=SW301 — documented degrade: some network filesystems refuse directory fsync; the rename itself still happened
             pass
     finally:
         os.close(fd)

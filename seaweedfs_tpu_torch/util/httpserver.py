@@ -254,6 +254,7 @@ class _Parker(threading.Thread):
         # OR one worker), handed off through the parked queue; no two
         # threads hold it at once
         # single-owner handoff
+        # seaweedlint: disable=SW801 — single-owner handoff
         conn.parked_at = time.monotonic()
         with self._lock:
             if self._stopped:
@@ -279,7 +280,7 @@ class _Parker(threading.Thread):
     def _wake(self) -> None:
         try:
             self._wsock.send(b"x")
-        except OSError:  # wake pipe already closed; parker is exiting anyway
+        except OSError:  # seaweedlint: disable=SW301 — wake pipe already closed; parker is exiting anyway
             pass
 
     def run(self) -> None:
@@ -306,12 +307,12 @@ class _Parker(threading.Thread):
                     try:
                         while self._rsock.recv(4096):
                             pass
-                    except (BlockingIOError, OSError):  # wake-pipe drain; empty is the normal exit
+                    except (BlockingIOError, OSError):  # seaweedlint: disable=SW301 — wake-pipe drain; empty is the normal exit
                         pass
                     continue
                 try:
                     self._sel.unregister(key.fileobj)
-                except (KeyError, ValueError):  # socket raced to close; dispatch still owns the conn
+                except (KeyError, ValueError):  # seaweedlint: disable=SW301 — socket raced to close; dispatch still owns the conn
                     pass
                 srv._dispatch.put(key.data)
             now = time.monotonic()
@@ -322,7 +323,7 @@ class _Parker(threading.Thread):
                     continue
                 try:
                     self._sel.unregister(key.fileobj)
-                except (KeyError, ValueError):  # socket raced to close; reap proceeds
+                except (KeyError, ValueError):  # seaweedlint: disable=SW301 — socket raced to close; reap proceeds
                     pass
                 METRICS.counter("ingress_idle_reaped_total",
                                 component=srv.component).inc()
@@ -336,7 +337,7 @@ class _Parker(threading.Thread):
             self.server._close(conn)
         try:
             self._sel.close()
-        except OSError:  # final teardown; nothing left to leak
+        except OSError:  # seaweedlint: disable=SW301 — final teardown; nothing left to leak
             pass
         self._rsock.close()
         self._wsock.close()
@@ -399,13 +400,13 @@ class IngressHTTPServer(HTTPServer):
                     b"Retry-After: %d\r\nContent-Length: 0\r\n"
                     b"Connection: close\r\n\r\n"
                     % max(1, int(cfg.retry_after_seconds)))
-            except OSError:  # best-effort courtesy 429; peer may already be gone
+            except OSError:  # seaweedlint: disable=SW301 — best-effort courtesy 429; peer may already be gone
                 pass
             self.shutdown_request(request)
             return
         try:
             request.settimeout(cfg.request_read_timeout)
-        except OSError:  # socket died at accept; worker read will surface it
+        except OSError:  # seaweedlint: disable=SW301 — socket died at accept; worker read will surface it
             pass
         METRICS.counter("ingress_connections_total",
                         component=self.component).inc()
@@ -435,6 +436,7 @@ class IngressHTTPServer(HTTPServer):
         if conn.handler is None:
             try:
                 # single-owner handoff
+                # seaweedlint: disable=SW801 — single-owner handoff
                 conn.handler = self._handler_cls(
                     conn.sock, conn.addr, self)
             except Exception:  # noqa: BLE001 — setup failed, drop it
@@ -456,6 +458,7 @@ class IngressHTTPServer(HTTPServer):
                 self._close(conn)
                 return
             # single-owner handoff
+            # seaweedlint: disable=SW801 — single-owner handoff
             conn.requests += 1
             if conn.requests >= cfg.keepalive_max_requests:
                 self._close(conn)
@@ -497,7 +500,7 @@ class IngressHTTPServer(HTTPServer):
         finally:
             try:
                 sock.settimeout(self.config.request_read_timeout)
-            except OSError:  # peer closed mid-probe; next read reports eof
+            except OSError:  # seaweedlint: disable=SW301 — peer closed mid-probe; next read reports eof
                 pass
 
     def _close(self, conn: _Conn) -> None:
@@ -506,12 +509,12 @@ class IngressHTTPServer(HTTPServer):
         if conn.handler is not None:
             try:
                 socketserver.StreamRequestHandler.finish(conn.handler)
-            except Exception:  # noqa: BLE001 — flush on an already-dead socket
+            except Exception:  # noqa: BLE001  # seaweedlint: disable=SW301 — flush on an already-dead socket
                 pass
             conn.handler = None
         try:
             self.shutdown_request(conn.sock)
-        except Exception:  # noqa: BLE001 — close on an already-dead socket
+        except Exception:  # noqa: BLE001  # seaweedlint: disable=SW301 — close on an already-dead socket
             pass
 
     # -- pressure + introspection ----------------------------------------
@@ -550,7 +553,7 @@ class IngressHTTPServer(HTTPServer):
         for c in conns:  # unblocks workers stuck mid-read
             try:
                 c.sock.close()
-            except OSError:  # shutdown path; double-close is fine
+            except OSError:  # seaweedlint: disable=SW301 — shutdown path; double-close is fine
                 pass
         for t in self._workers:
             t.join(timeout=2.0)

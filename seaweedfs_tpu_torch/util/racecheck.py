@@ -358,7 +358,7 @@ def register(obj, name: str | None = None) -> bool:
     # by the handful of registered singletons, so acceptable)
     try:
         weakref.finalize(obj, TRACKER.on_dead, id(obj))
-    except TypeError:  # tracking stays correct, only cleanup is lost
+    except TypeError:  # seaweedlint: disable=SW301 — tracking stays correct, only cleanup is lost
         pass
     return True
 

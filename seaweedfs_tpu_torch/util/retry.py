@@ -431,7 +431,7 @@ class ConnectionPool:
     def discard(self, conn) -> None:
         try:
             conn.close()
-        except Exception:  # noqa: BLE001 — discarding a dead connection
+        except Exception:  # noqa: BLE001  # seaweedlint: disable=SW301 — discarding a dead connection
             pass
 
     def clear(self) -> None:

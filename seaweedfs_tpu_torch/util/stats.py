@@ -448,6 +448,7 @@ class MetricsPusher:
             # best-effort fire-and-forget push to an out-of-cluster
             # gateway: a breaker/retry would add queueing where dropping
             # a sample is the right behaviour; bounded by the 5 s timeout
+            # seaweedlint: disable=SW601 — best-effort fire-and-forget push to an out-of-cluster pushgateway: a breaker/retry would add queueing where dropping a sample is the correct behavior; bounded by the 5s timeout
             with urllib.request.urlopen(req, timeout=5):
                 with self._count_lock:
                     self.pushed += 1

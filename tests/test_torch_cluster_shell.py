@@ -541,6 +541,60 @@ def test_volume_balance_and_fix_replication(tmp_path):
     assert "all volumes fully replicated" in outs[2]
 
 
+def test_stale_pulse_snapshot_does_not_bring_a_deleted_volume_back(
+        tmp_path):
+    """A pulse snapshot taken before ``delete_volume`` is held at the
+    master while ``heartbeat_now`` pushes a newer one: once the master
+    has ingested a snapshot without the volume, no later ingestion may
+    list it again (the stale pulse used to re-add it, so
+    ``volume.fix.replication`` saw two replicas where one was left)."""
+    ms, (vs,) = _start(tmp_path, "port", n=1)
+    real = ms.ingest_heartbeat
+    mu = threading.Lock()
+    armed, held, release = [False], threading.Event(), threading.Event()
+    stale_in = threading.Event()
+    order: list[bool] = []
+    try:
+        vid = ms.grow_volume()
+        _settle([vs])
+        key = ("", vid)
+
+        def gated(hb):
+            with mu:
+                hold, armed[0] = armed[0], False
+            if hold:
+                held.set()
+                release.wait(15)
+            with mu:
+                resp = real(hb)
+                order.append(key in ms.topology.nodes[vs.url].volumes)
+            if hold:
+                stale_in.set()
+            return resp
+
+        ms.ingest_heartbeat = gated
+        with mu:
+            armed[0] = True
+        assert held.wait(10), "no pulse reached the master"
+        vs.store.delete_volume(vid)
+        pushed = threading.Thread(target=vs.heartbeat_now, daemon=True)
+        pushed.start()
+        pushed.join(1.0)
+        release.set()
+        pushed.join(15)
+        assert not pushed.is_alive()
+        assert stale_in.wait(15), "the held pulse was never ingested"
+        _wait_for(lambda: key not in ms.topology.nodes[vs.url].volumes,
+                  what="the master to drop the deleted volume")
+        with mu:
+            seen = list(order)
+        gone = seen.index(False)
+        assert True not in seen[gone:], seen
+    finally:
+        release.set()
+        _stop(ms, [vs])
+
+
 def test_volume_move_and_collections(tmp_path):
     def scenario(ms, servers, mc, run):
         a = operation.assign(mc, collection="photos")

@@ -108,7 +108,23 @@ new = {"seaweedfs_tpu_torch.pipeline.batch", "seaweedfs_tpu_torch.pipeline.pipe"
        "seaweedfs_tpu_torch.sim", "seaweedfs_tpu_torch.sim.__main__",
        "seaweedfs_tpu_torch.sim.clock", "seaweedfs_tpu_torch.sim.nodes",
        "seaweedfs_tpu_torch.sim.scenario",
-       "seaweedfs_tpu_torch.sim.traffic"}
+       "seaweedfs_tpu_torch.sim.traffic",
+       "seaweedfs_tpu_torch.analysis",
+       "seaweedfs_tpu_torch.analysis.__main__",
+       "seaweedfs_tpu_torch.analysis.baseline",
+       "seaweedfs_tpu_torch.analysis.buffer_rules",
+       "seaweedfs_tpu_torch.analysis.cache",
+       "seaweedfs_tpu_torch.analysis.dataflow",
+       "seaweedfs_tpu_torch.analysis.durability_rules",
+       "seaweedfs_tpu_torch.analysis.engine",
+       "seaweedfs_tpu_torch.analysis.findings",
+       "seaweedfs_tpu_torch.analysis.local_rules",
+       "seaweedfs_tpu_torch.analysis.lockgraph",
+       "seaweedfs_tpu_torch.analysis.model",
+       "seaweedfs_tpu_torch.analysis.net_rules",
+       "seaweedfs_tpu_torch.analysis.race_rules",
+       "seaweedfs_tpu_torch.analysis.threads",
+       "seaweedfs_tpu_torch.analysis.torch_rules"}
 print("missing:", sorted(new - set(names)))
 sys.exit(1 if bad else 0)
 """
@@ -128,8 +144,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     # filer stack, the S3 gateway, the checkpoint plane, the S3 tier and
     # the tracing plane (tracing, profiler, varz), the telemetry and
     # usage planes, the process front ends and tools, replication and
-    # WebDAV, the mount layer, the runtime checkers and the sim among them
-    assert int(out.stdout.split()[0]) >= 109
+    # WebDAV, the mount layer, the runtime checkers, the sim and the
+    # lint (its 16 modules) among them
+    assert int(out.stdout.split()[0]) >= 125
     assert "missing: []" in out.stdout
 
 

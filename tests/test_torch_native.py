@@ -6,6 +6,7 @@ tolerance 0. Tests that build the library skip where ``g++`` is missing."""
 import shutil
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -204,3 +205,41 @@ def test_native_call_counts_survive_threads(gxx, monkeypatch):
     monkeypatch.setattr(rs_native, "apply_gf_matrix", counted)
     n = _hammer(lambda: real(coefs, x))
     assert counted.calls == n
+
+
+@pytest.mark.parametrize("builder", ["ops.rs_native",
+                                     "storage.needle_map_native"])
+def test_a_built_library_is_published_durably(gxx, monkeypatch, tmp_path,
+                                              builder):
+    """The g++ builders rename their output into place with
+    ``durable_replace`` (source and directory fsynced): a bare rename
+    could leave a torn library under its final name after power loss,
+    and a library that exists is never rebuilt."""
+    import importlib
+    from seaweedfs_tpu_torch.util import durability
+    mod = importlib.import_module(f"seaweedfs_tpu_torch.{builder}")
+    monkeypatch.setattr(mod, "BUILD_DIR", tmp_path / "build")
+    published = []
+    real = durability.durable_replace
+
+    def record(src, dst, *a, **kw):
+        published.append((Path(src), Path(dst)))
+        return real(src, dst, *a, **kw)
+
+    monkeypatch.setattr(durability, "durable_replace", record)
+    lib = mod._build()
+    assert lib.exists() and lib.parent == tmp_path / "build"
+    assert [dst for _src, dst in published] == [lib]
+    assert not published[0][0].exists()
+
+
+def test_kernel_build_holds_the_library_lock(monkeypatch, tmp_path):
+    """``rs_cuda.build()`` (the SASS report's entry) builds under
+    ``_lib_lock`` as ``library()`` does, so the build counters have one
+    writer at a time."""
+    held = []
+    monkeypatch.setattr(rs_cuda, "_build", lambda: held.append(
+        rs_cuda._lib_lock.locked()) or tmp_path / "lib.so")
+    assert rs_cuda.build() == tmp_path / "lib.so"
+    assert held == [True]
+    assert not rs_cuda._lib_lock.locked()
