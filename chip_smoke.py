@@ -20,14 +20,21 @@ of which fails the run on any mismatch:
    ``(1, 10, 4 MiB)``; then a sweep that launches every
    instance the dispatch has (1-8 outputs of 10 inputs; 4, 6, 12 and 70
    inputs; 12 outputs; a ragged S), also against the numpy oracle; then
-   each kernel's time at the slab, the rebuild chunk and the scrub chunk
+   grouped dispatch: one run of 16 pinned slabs of a ragged S through
+   ``rs_torch.apply_matrix_host_multi`` is ONE launch, byte-equal to the
+   plain version and to 16 single-slab launches, for both kernels, and
+   one launch over a full group of the encode's batches (16 x 6, 10,
+   1 MiB) timed against 16 launches over the same bytes; then each
+   kernel's time at the slab, the rebuild chunk and the scrub chunk
    beside its plain version's and its memory bound, and its blocks per
    SM;
 4. native: the host codec (``rs_native``, built with ``g++``) against
    ``rs_ref`` at 4 sizes, with its SIMD level;
 5. path: a seeded 1 GiB volume of real needles sealed with
-   ``encode_volume`` overlapped and sync (identical bytes, parity checked
-   against the numpy oracle ``rs_ref``), shards 2, 7, 11, 13 rebuilt with
+   ``encode_volume`` overlapped, which groups its 18 batches of 60 MiB
+   into fewer launches (max group above 1), and sync, which never groups
+   (sha256-equal bytes, parity checked against the numpy oracle
+   ``rs_ref``), shards 2, 7, 11, 13 rebuilt with
    ``rebuild_ec_files``; then the read phase: shards 0, 5, 11, 13
    removed, every 2nd needle read through
    ``EcVolumeReader`` (once directly, once from 8 threads through one
@@ -51,8 +58,9 @@ of which fails the run on any mismatch:
    readdir, rename, unlink, rmdir; ``__main__.main(["mount", ...])``
    exits 2 with its one line (no libfuse); (b) the port's lockcheck,
    racecheck and bufcheck armed in raise mode: ``encode_volume`` of the
-   path phase's volume overlapped on the pinned pool (shards, .ecx and
-   .vif sha256-equal to the path phase's seal, one launch per batch;
+   path phase's volume overlapped and grouped on the pinned pool
+   (shards, .ecx and .vif sha256-equal to the path phase's seal, one
+   launch per run;
    GiB/s beside the same encode unarmed just before it) and ``rebuild_ec_files`` of 4 lost
    shards (sha256-equal), with no report; a pinned buffer released while
    a queued positioned write views it raises ``DanglingViewError``;
@@ -70,7 +78,7 @@ of which fails the run on any mismatch:
    ``Needle.to_bytes`` timed apart on every 4th of the same needles), then ``shell.cli.main`` in this process with
    ``ec.encode; ec.balance; volume.list`` (shards, .ecx and .vif held
    against the path phase's, spread over both locations, one launch per
-   batch), ``ec.rebuild`` after losing 2 shards in each location, and
+   run), ``ec.rebuild`` after losing 2 shards in each location, and
    ``ec.decode`` after losing data shards 0 and 5 (.dat, .idx and every
    needle read back through ``Store.read_needle``); then ``python -m
    seaweedfs_tpu_torch shell`` in its own process on a 16 MiB volume,
@@ -82,7 +90,7 @@ of which fails the run on any mismatch:
    769 records were copied there (.dat and .idx sha256-equal to the
    path phase's; MiB/s), ``VolumeEcShardsGenerate``
    (shards, .ecx and .vif sha256-equal to the sealed ones, one launch
-   per batch; GiB/s beside the direct encode), every 16th needle read by
+   per run; GiB/s beside the direct encode), every 16th needle read by
    HTTP GET from A's shards (no launch), ``VolumeEcShardsCopy`` of every
    shard to B (sha256-equal, GiB/s) and one ``VolumeEcShardRead`` range,
    every 16th needle read from B with shards 0, 5, 11 and 13 deleted on
@@ -94,7 +102,7 @@ of which fails the run on any mismatch:
    001, each read back sha256-equal from A and from B (MiB/s, ms per
    needle); the cluster shell in this process running ``lock; ec.encode;
    ec.balance; volume.list; unlock`` on the restored volume (one launch
-   per batch, shards spread even/odd over A/B and sha256-equal to the
+   per run, shards spread even/odd over A/B and sha256-equal to the
    sealed ones; GiB/s beside the RPC-driven Generate); every 16th needle
    read by ``operation.download`` with shards 0, 5, 11 and 13 gone, each
    server fetching what it lacks through ``ec_shard_peers`` (needles/s,
@@ -108,7 +116,7 @@ of which fails the run on any mismatch:
    the cluster shell's ``ec.encode -distributed -collection sweep
    -parallel 2`` over 4 of them (both workers on the card at once: the
    job done with a task on each, every volume's shards and .ecx
-   sha256-equal to the path phase's seal, one launch per batch counted
+   sha256-equal to the path phase's seal, one launch per run counted
    per worker, the master's topology and ``/metrics``; GiB/s beside
    each task's seconds), ``-volumeId 15 -mesh 1,1`` (done, sha256-equal,
    one launch per batch), ``-mesh 2,2`` on a small volume (the job
@@ -126,7 +134,7 @@ of which fails the run on any mismatch:
    ``[usage]``), pulse 0.5 s, on the card, with a copy of the path
    phase's volume unread in A's store (full at 0.9 of the limit): with
    no command, the master's policy submits ``ec_encode`` and A's worker
-   seals it (one launch per batch, shards and .ecx sha256-equal to the
+   seals it (one launch per run, shards and .ecx sha256-equal to the
    path phase's; the seconds from the submitting tick to done, the
    policy's actions ring); the source and shards 0, 5, 11 and 13
    dropped, every 8th needle read through the master's lookup by
@@ -222,8 +230,8 @@ of which fails the run on any mismatch:
    1's first needles in an offline store moved to the tier with
    ``volume.tier.upload`` (signed, multipart), every 4th needle read
    through the tier, ``ec.encode`` refused, ``volume.tier.download``
-   (.dat sha256-equal) and ``ec.encode`` (one launch, shards and .ecx
-   sha256-equal to sealing the local copy);
+   (.dat sha256-equal) and ``ec.encode`` (one launch per run, shards and
+   .ecx sha256-equal to sealing the local copy);
 14. repair under load (BASELINE config 5): ``repair_bench.run`` for 5 s,
    a bulk decode of 4 lost shards through the kernels while 8 reader
    threads send 64 QPS of 4 KiB interval repairs, all checked;
@@ -233,8 +241,9 @@ of which fails the run on any mismatch:
 16. mesh (the multi-device split, ``parallel/mesh.py``): (a) through the
    normal routing, the shell's ``ec.encode -mesh 1,1`` in turns with the
    unsplit ``ec.encode`` (a warm-up, then A, B) on config 1's
-   volume, shards and .ecx sha256-equal and launches equal (one per
-   batch), then ``ec.rebuild -mesh 1,1`` after losing 4 shards (one
+   volume, shards and .ecx sha256-equal (the split one launch per batch
+   of 256 MiB, the unsplit command one per run of its grouped batches),
+   then ``ec.rebuild -mesh 1,1`` after losing 4 shards (one
    launch per chunk); (b) the dry-run twin (``parallel/dryrun.run``)
    over four ``cuda:0`` entries as a 2 x 2 grid, and
    ``encode_parity_host_sharded`` on a (25, 10, 1 MiB) slab over that
@@ -251,9 +260,13 @@ of which fails the run on any mismatch:
    off against on over the 1 x 1 split (off copies on the side stream
    ahead of each kernel, on copies on a copy stream one batch ahead),
    (c) the flight recorder disarmed against armed (the armed runs print
-   ``pipeline.analyze``), each a warm-up of each side then A, B
-   with both medians and their ratio, launches checked on every encode
-   and the files sha256-checked on one of each side;
+   ``pipeline.analyze``), (d) grouped dispatch off (``[pipeline]
+   group_cap = 1``: one launch per 256 MiB batch) against the default
+   (one launch per run of 60 MiB batches; GiB/s, dispatch seconds,
+   groups, max group and launches of each side's timed run), each a
+   warm-up of each side then A, B with both medians and their ratio,
+   launches checked on every encode and the files sha256-checked on one
+   of each side;
 18. storage (the engine at rest, on config 1's volume): (a) a seeded
    .idx of 500,000 needles with 10% deleted loaded by the memory,
    native and sqlite needle maps (equal live entries and counters, the
@@ -273,11 +286,14 @@ of which fails the run on any mismatch:
 19. config 3 (the many-volume batcher): ``batch.encode_many`` over 1000
    volumes of 30 MiB (GiB/s of volume bytes, stage times, launches), then
    ``batch.encode_packed`` over 100 of them with every parity span checked
-   whole against ``rs_ref`` and the batch census printed, 100 volumes on the
-   SWAR kernel, and 200 under ``SEAWEEDFS_TORCH_HOST_DISPATCH=auto``
-   (the probe's two rates, its verdict and the route taken); then 32
-   volumes of real needles sealed by ``batch.encode_volumes``, each
-   sha256-equal to a single-volume ``write_ec_files``;
+   whole against ``rs_ref`` and the batch census printed, grouped
+   dispatch off (``group_cap = 1``) against on over 100 volumes in turns
+   (A, B, B, A: GiB/s, dispatch seconds, groups, max group, launches),
+   100 volumes on the SWAR kernel, and 100 under
+   ``SEAWEEDFS_TORCH_HOST_DISPATCH=auto`` (the probe's two rates, its
+   verdict and the route taken); then 16 volumes of real needles sealed
+   by ``batch.encode_volumes``, each sha256-equal to a single-volume
+   ``write_ec_files``;
 20. lint (the port's static analysis, ``seaweedfs_tpu_torch.analysis``):
    ``python -m seaweedfs_tpu_torch.analysis --gate warning --fail-stale
    --families --stats --no-cache --budget-seconds 30`` over the port's
@@ -325,8 +341,19 @@ and its degraded ``operation.download`` from every 4th needle to every
 16th (the filer and mount phases read every byte of theirs degraded),
 and the shell phase's ``write_needle`` calls and the cluster phase's
 HTTP POSTs from the last 513 needles to the last 257 (the first 769
-are copied in). Each phase's seconds are printed at the end
-beside the run before the mount phase came (``PHASE_SECONDS_BEFORE``).
+are copied in). For grouped dispatch's kernel case and its two A/Bs,
+config 3's file level from 32 volumes to 16 (its set-up of spawned
+workers writing needles halved). Each phase's seconds are printed at
+the end beside the run before the mount phase came
+(``PHASE_SECONDS_BEFORE``). Launch counts are exact, and worked out
+apart from the port's own counts: ``drive`` records the run's dispatch
+steps (``pipe.recording_steps``, each the shapes of the batches
+dispatched together), and on the card each step makes one kernel call
+per stretch of adjacent batches of one shape (``expected_runs``, as
+tests/torch_runs.py works it out for the ``cuda`` tests), one launch for
+the matrices here (at most 8 rows). The batches a step
+record holds are the seal's plans where the plans are known, and each
+step is one batch where nothing groups.
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -407,7 +434,7 @@ C3_VOLUMES = 1000
 C3_VOLUME_BYTES = 30 * MIB
 C3_POOL = 8
 C3_SHORT = 100
-C3_FILES = 32
+C3_FILES = 16
 C3_NEEDLE = 64 * 1024
 #: BASELINE config 4: (k, m, shards lost before the rebuild) on the 1 GiB
 #: volume; the decode loses data shards 0 and 3.
@@ -458,6 +485,75 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+
+
+def grouped_bound(dev) -> int:
+    """The batch bound of the overlapped host-slab pipelines on ``dev``
+    as they pick it: ``[pipeline] batch_bytes``, or
+    ``grouped_batch_bytes`` while grouped dispatch is on (one card, no
+    mesh)."""
+    return pipe.pick_grouped_dispatch(None, pipe.current().batch_bytes,
+                                      device=dev)[2]
+
+
+def seal_plans(dat_size: int, scheme=DEFAULT_SCHEME, dev=None,
+               bound: int | None = None) -> list:
+    """The batch shapes of a seal of ``dat_size`` bytes, in order, as
+    ``write_ec_files`` plans them at ``bound`` (default: the overlapped
+    path's bound on ``dev``)."""
+    if bound is None:
+        bound = grouped_bound(dev)
+    return [tuple(p.shape)
+            for p in encode.plan_batches(dat_size, scheme, bound)]
+
+
+#: The dispatch steps of the last ``drive`` call (``pipe.recording_steps``).
+STEPS: list = []
+
+
+def expected_runs(steps, cap: int = 16) -> int:
+    """Kernel calls that ``steps`` make on the host-slab path: one per
+    maximal stretch of adjacent batches of one shape inside a step, at
+    most ``cap`` long (``SEAWEEDFS_TORCH_DISPATCH_GROUP``, 16). The
+    script keeps its own copy of tests/torch_runs.py's: a ``tests``
+    package installed elsewhere can shadow the repo's directory."""
+    n = 0
+    for shapes in steps:
+        prev, length = None, 0
+        for shape in shapes:
+            if shape != prev or length == cap:
+                n += 1
+                prev, length = shape, 0
+            length += 1
+    return n
+
+
+def dispatched(steps) -> list:
+    """The shapes of every batch ``steps`` dispatched, in order."""
+    return [tuple(s) for shapes in steps for s in shapes]
+
+
+def check_runs(what: str, launched: int, steps, plans, st=None,
+               grouped: bool = True) -> None:
+    """The host path's exact launch count: ``launched`` must be
+    :func:`expected_runs` of the recorded ``steps`` (every matrix here
+    has at most 8 output rows, so a kernel call is one launch). The
+    steps hold the batches of ``plans`` (their shapes in order, or their
+    number where no plan gives the shapes) and, with ``st``, as many
+    steps as the run counted dispatch steps; ungrouped, every step is
+    one batch."""
+    shapes = dispatched(steps)
+    want = expected_runs(steps)
+    ok = launched == want and (shapes == plans if isinstance(plans, list)
+                               else len(shapes) == plans)
+    if st is not None:
+        ok = ok and st.groups == len(steps) and st.batches == len(shapes)
+    if not grouped:
+        ok = ok and len(steps) == len(shapes)
+    n = len(plans) if isinstance(plans, list) else plans
+    check(ok, f"{what}: {launched} launches, {want} worked out from "
+          f"{len(steps)} dispatch steps over {len(shapes)} batches "
+          f"({n} planned" + (f", max group {st.max_group})" if st else ")"))
 
 
 # --------------------------------------------------------------------------
@@ -529,6 +625,7 @@ def kernel_phase(dev: torch.device) -> dict:
                   f"{name} kernel == numpy oracle on a slice, {label}")
         del x
     torch.cuda.empty_cache()
+    grouped_case(dev, rand, parity, max_err)
 
     # time both kernels and their plain versions at the encode slab and
     # at the rebuild chunk; occupancy of the instances those shapes use
@@ -557,6 +654,63 @@ def kernel_phase(dev: torch.device) -> dict:
     # encode and the config-3 batcher
     return {"max_err": max_err, "timings": timings,
             "slab": main_shapes[0][2]}
+
+
+def grouped_case(dev, rand, parity, max_err: dict) -> None:
+    """Grouped dispatch at the kernel level, for both kernels: one run of
+    the host path over ``SEAWEEDFS_TORCH_DISPATCH_GROUP`` (16) pinned
+    slabs of a ragged S is ONE launch, held against the plain version on
+    the same bytes and against one launch per slab; then one launch over
+    a full group of the encode's batches, (16 x 6, 10, 1 MiB), timed
+    against 16 launches of (6, 10, 1 MiB) over the same bytes."""
+    group = rs_torch._dispatch_group()
+    s_rag = MIB + 1000 + 3
+    slabs = [rand((2, 10, s_rag)) for _ in range(group)]
+    host = [t.cpu().pin_memory().numpy() for t in slabs]
+    for name, k in KERNELS.items():
+        os.environ["SEAWEEDFS_TORCH_KERNEL"] = name
+        try:
+            n0 = k["wrapper"].launches
+            outs = [np.asarray(r) for r in
+                    rs_torch.apply_matrix_host_multi(parity, host, dev)]
+            n1 = k["wrapper"].launches
+            singles = torch.cat([k["wrapper"](parity, t) for t in slabs])
+            n2 = k["wrapper"].launches
+            plain = k["plain"](parity, torch.cat(slabs))
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
+        got = torch.from_numpy(np.concatenate(outs)).to(dev)
+        err = int((got.to(torch.int16) - plain.to(torch.int16))
+                  .abs().max().item())
+        max_err[name] = max(max_err[name], err)
+        check(n1 - n0 == 1 and n2 - n1 == group,
+              f"{name}: one launch for a run of {group} slabs of "
+              f"{(2, 10, s_rag)} ({n1 - n0} launches), "
+              f"{n2 - n1} for the same slabs one by one")
+        check(err == 0 and torch.equal(got, singles)
+              and tuple(got.shape) == (2 * group, 4, s_rag),
+              f"{name}: the grouped launch == plain version == "
+              f"{group} single-slab launches, byte for byte")
+        del got, singles, plain
+    del slabs, host
+    torch.cuda.empty_cache()
+    rows = 6 * group
+    big = rand((rows, 10, MIB))
+    bound_ms = 14 * rows * MIB / HBM_BYTES_PER_S * 1e3
+    for name, k in KERNELS.items():
+        w = k["wrapper"]
+        one = time_ms(lambda x, w=w: w(parity, x), [big], 10)
+        many = time_ms(lambda x, w=w: [w(parity, x[j * 6:(j + 1) * 6])
+                                       for j in range(group)][-1],
+                       [big], 10)
+        say(f"  {name}: one launch over {(rows, 10, MIB)} (a full group "
+            f"of the encode's batches) {one:.4f} ms ({bound_ms / one:.1%} "
+            f"of the bound {bound_ms:.4f} ms); {group} launches of "
+            f"{(6, 10, MIB)} over the same bytes {many:.4f} ms "
+            f"({many / one:.2f}x)")
+    del big
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -644,11 +798,14 @@ def check_parity_sampled(base, dat_size: int, rng,
 
 def drive(what: str, fn, expect: dict, launches: dict):
     """Run one main-path call with every launch count set to 0 just
-    before it, and check which kernels it launched."""
+    before it, record its dispatch steps in ``STEPS``, and check which
+    kernels it launched."""
     reset_counts()
     t0 = time.perf_counter()
-    out = fn()
+    with pipe.recording_steps() as steps:
+        out = fn()
     wall = time.perf_counter() - t0
+    STEPS[:] = steps
     got = counts()
     for name, want in expect.items():
         check(got[name] > 0 if want else got[name] == 0,
@@ -788,6 +945,11 @@ def path_phase(dev, workdir: str, label: str) -> dict:
     os.environ.pop("SEAWEEDFS_TORCH_KERNEL", None)
     result = {}
 
+    # grouped dispatch: the overlapped encode groups runs of its batches
+    # into one launch each; the sync encode is the ungrouped seal, at
+    # [pipeline] batch_bytes
+    plans = {True: seal_plans(dat_size, dev=dev),
+             False: seal_plans(dat_size, bound=pipe.current().batch_bytes)}
     for overlapped in (True, False):
         mode = "overlapped" if overlapped else "sync"
         say(f"  page cache before the {mode} encode: {_dirty_mib()}")
@@ -798,17 +960,28 @@ def path_phase(dev, workdir: str, label: str) -> dict:
                                          overlapped=overlapped),
             {"transpose": True, "swar": False}, launches)
         say(f"  encode ({mode}): {gib / wall:.3f} GiB/s of .dat in "
-            f"{wall:.3f} s on {label}; stages {json.dumps(st.to_dict())}")
+            f"{wall:.3f} s on {label}; stages {json.dumps(st.to_dict())}; "
+            f"{counts()['transpose']} launches")
+        check_runs(f"encode_volume ({mode})", counts()["transpose"], STEPS,
+                   plans[overlapped], st, grouped=overlapped)
         result[f"encode_{mode}_gibps"] = gib / wall
         digests = sealed_digests(base)
         if overlapped:
+            batches = len(plans[True])
+            check(st.max_group > 1 and counts()["transpose"] < batches,
+                  f"grouped dispatch engaged on the 1 GiB volume: max "
+                  f"group {st.max_group}, {counts()['transpose']} launches "
+                  f"for {batches} batches")
             sealed = digests
         else:
-            check(digests == sealed, "overlapped and sync encode give "
-                  "identical shards, .ecx and .vif")
+            check(digests == sealed, "grouped (overlapped) and ungrouped "
+                  "(sync) encode give sha256-equal shards, .ecx and .vif")
     check_parity_sampled(base, dat_size, rng)
 
     shard_size = DEFAULT_SCHEME.shard_file_size(dat_size)
+    chunks = -(-shard_size // rebuild.chunk_length(
+        shard_size, DEFAULT_SCHEME.data_shards,
+        grouped_bound(dev) // DEFAULT_SCHEME.data_shards))
 
     def lose_and_rebuild(kernel: str) -> float:
         for i in LOST_REBUILD:
@@ -820,6 +993,8 @@ def path_phase(dev, workdir: str, label: str) -> dict:
             {"transpose": kernel == "transpose",
              "swar": kernel == "swar"}, launches)
         check(got == list(LOST_REBUILD), f"rebuilt shards {got}")
+        check_runs(f"rebuild_ec_files ({kernel})", counts()[kernel], STEPS,
+                   chunks, st)
         rate = len(LOST_REBUILD) * shard_size / (1 << 30) / wall
         say(f"  rebuild ({kernel}): {rate:.3f} GiB/s of rebuilt shards "
             f"({DEFAULT_SCHEME.data_shards * shard_size / (1 << 30) / wall:.3f}"
@@ -857,6 +1032,8 @@ def path_phase(dev, workdir: str, label: str) -> dict:
             {"transpose": False, "swar": True}, launches)
         say(f"  encode (swar): {gib / wall:.3f} GiB/s of .dat in "
             f"{wall:.3f} s on {label}; stages {json.dumps(st.to_dict())}")
+        check_runs("encode_volume (swar)", counts()["swar"], STEPS,
+                   plans[True], st)
         result["encode_swar_gibps"] = gib / wall
         check(sealed_digests(base) == sealed,
               "swar encode sha256-equal to the transpose encode")
@@ -882,8 +1059,8 @@ SHELL_PIPELINE = ((encode, "encode_volume"), (rebuild, "rebuild_ec_files"),
 @contextlib.contextmanager
 def _timed_commands(log: list):
     """Wrap every registered shell command so that each run appends
-    (name, wall seconds, launches during it, seconds inside its pipeline
-    calls) to ``log``."""
+    (name, wall seconds, launches and dispatch steps (``"steps"``)
+    during it, seconds inside its pipeline calls) to ``log``."""
     saved = dict(shell_commands.COMMANDS)
     saved_calls = [getattr(mod, fn) for mod, fn in SHELL_PIPELINE]
     inner = [0.0]
@@ -906,11 +1083,12 @@ def _timed_commands(log: list):
             before = counts()
             inner[0] = 0.0
             t0 = time.perf_counter()
-            fn(env, argv)
+            with pipe.recording_steps() as steps:
+                fn(env, argv)
             wall = time.perf_counter() - t0
-            log.append((name, wall, {k: v - before[k]
-                                     for k, v in counts().items()},
-                        inner[0]))
+            log.append((name, wall, dict(
+                {k: v - before[k] for k, v in counts().items()},
+                steps=steps), inner[0]))
         return run
 
     shell_commands.COMMANDS.update(
@@ -1060,12 +1238,10 @@ def shell_phase(dev, workdir: str, pres: dict, label: str,
     check(any(line.startswith(f"ec volume {vid} ") and
               f"shards={list(range(scheme.total_shards))}" in line
               for line in lines), "volume.list lists all 14 shards")
-    batches = len(list(encode.plan_batches(dat_size, scheme,
-                                           pipe.current().batch_bytes)))
     enc_log = [e for e in log if e[0] == "ec.encode"][0]
-    check(enc_log[2]["transpose"] == batches and enc_log[2]["swar"] == 0,
-          f"shell ec.encode: transpose kernel launched "
-          f"{enc_log[2]['transpose']} times, one per batch ({batches})")
+    check(enc_log[2]["swar"] == 0, "shell ec.encode: no swar launch")
+    check_runs("shell ec.encode", enc_log[2]["transpose"],
+               enc_log[2]["steps"], seal_plans(dat_size, scheme, dev))
     result["encode"] = enc_log
 
     # 6: lose 2 shards in each location, rebuild
@@ -1219,7 +1395,7 @@ def cluster_shell(master_url: str, script: str, what: str, expect: dict,
     driven with every launch count set to 0 just before it. ``expect``
     maps a command to the kernels it must launch; every other command
     must launch none. Returns the printed lines and each command's
-    (name, seconds, launches)."""
+    (name, seconds, launches, dispatch steps)."""
     from seaweedfs_tpu_torch.shell.cluster_commands import (
         ClusterEnv, run_cluster_command)
 
@@ -1233,7 +1409,7 @@ def cluster_shell(master_url: str, script: str, what: str, expect: dict,
                             lambda: run_cluster_command(env, line),
                             expect.get(name, dict.fromkeys(launches, False)),
                             got)
-            log.append((name, wall, got))
+            log.append((name, wall, got, list(STEPS)))
             for k, v in got.items():
                 launches[k] += v
     finally:
@@ -1390,13 +1566,12 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
                   f"ones written")
             return times
 
-        # 3: seal on A, one launch per batch. Its baseline is a direct
+        # 3: seal on A, one launch per run. Its baseline is a direct
         # encode_volume of A's own .dat just before, in the same cache
         # state (its files removed again); comparison launches, not
         # counted in the main-path totals
         a.VolumeMarkReadonly(vpb.VolumeMarkReadonlyRequest(volume_id=vid))
-        batches = len(list(encode.plan_batches(dat_size, scheme,
-                                               pipe.current().batch_bytes)))
+        plans = seal_plans(dat_size, scheme, dev)
         say(f"  page cache before the direct encode of A's .dat: "
             f"{_dirty_mib()}")
         st = pipe.PipeStats()
@@ -1418,9 +1593,8 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
                         lambda: a.VolumeEcShardsGenerate(
                             vpb.VolumeEcShardsGenerateRequest(volume_id=vid)),
                         {"transpose": True, "swar": False}, rpc)
-        got = counts()["transpose"]
-        check(got == batches, f"VolumeEcShardsGenerate: transpose kernel "
-              f"launched {got} times, one per batch ({batches})")
+        check_runs("VolumeEcShardsGenerate", counts()["transpose"], STEPS,
+                   plans)
         check(sealed_digests(abase) == sealed,
               "VolumeEcShardsGenerate: 14 shards, .ecx and .vif "
               "sha256-equal to the path phase's sealed files")
@@ -1588,9 +1762,8 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
             f"volume.list; unlock", "shell",
             {"ec.encode": {"transpose": True, "swar": False}}, shell)
         enc = next(e for e in log if e[0] == "ec.encode")
-        check(enc[2]["transpose"] == batches,
-              f"shell ec.encode: transpose kernel launched "
-              f"{enc[2]['transpose']} times, one per batch ({batches})")
+        check_runs("cluster shell ec.encode", enc[2]["transpose"], enc[3],
+                   plans)
         settle()
         held = {name: sorted(vs.store.ec_mounts[("", vid)].shard_ids)
                 for name, vs in servers.items()
@@ -1622,7 +1795,7 @@ def cluster_phase(dev, workdir: str, pres: dict, label: str,
             f"{enc[1]:.3f} s (Generate, then 7 shards copied to A) vs "
             f"VolumeEcShardsGenerate {result['generate_gibps']:.3f} GiB/s "
             f"on {label}; commands "
-            f"{json.dumps([(n, round(s, 3), c) for n, s, c in log])}")
+            f"{json.dumps([(n, round(s, 3), c) for n, s, c, _ in log])}")
 
         # 11: shards 0, 5, 11 and 13 gone; degraded reads through the
         # master: each server has the shards it lacks from the other
@@ -1795,8 +1968,11 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
     gib = dat_size / GIB
     want = {n: pres["sealed"][n] for n in
             [ec_files.shard_ext(i) for i in range(total)] + [".ecx"]}
+    # the sweep's tasks group their batches on the card; the -mesh 1,1
+    # task splits every batch, ungrouped, at [pipeline] batch_bytes
     batches = len(list(encode.plan_batches(dat_size, scheme,
                                            pipe.current().batch_bytes)))
+    gplans = seal_plans(dat_size, scheme, dev)
     result = {}
     os.makedirs(workdir)
     need = len(JOBS_VOLUMES) * (dat_size + total * shard_len) + (4 << 30)
@@ -1878,12 +2054,13 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
             _, log = cluster_shell(
                 master.url, script, what,
                 {kernel_cmd: {"transpose": True, "swar": False}}, launches)
-            return next((w, g) for name, w, g in log if name == kernel_cmd)
+            return next((w, g, r) for name, w, g, r in log
+                        if name == kernel_cmd)
 
         # 1. the sweep: 4 volumes, two workers sharing the card
         sweep = [vid for _n, col, vid in JOBS_VOLUMES if col == "sweep"]
         say(f"  page cache before the sweep: {_dirty_mib()}")
-        wall, got = shell_step(
+        wall, got, steps = shell_step(
             "lock; ec.encode -distributed -collection sweep -parallel 2; "
             "unlock", "jobs sweep", "ec.encode")
         j1 = job("j1")
@@ -1894,15 +2071,19 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
               f"{workers}")
         per = finished("ec_encode", sweep)
         for name, fs in per.items():
-            check(len(fs) == 2 and all(
-                f["ok"] and f["launches"] == {"transpose": batches}
-                for f in fs),
-                f"worker {name}: volumes {[f['volumeId'] for f in fs]}, "
-                f"launches {[f['launches'] for f in fs]} ({batches} "
-                f"batches each)")
-        check(got["transpose"] == 4 * batches,
-              f"sweep: {got['transpose']} transpose launches = 4 x "
-              f"{batches}")
+            check(len(fs) == 2 and all(f["ok"] for f in fs),
+                  f"worker {name}: volumes {[f['volumeId'] for f in fs]}")
+            for f in fs:
+                check_runs(f"worker {name}, volume {f['volumeId']}",
+                           f["launches"].get("transpose", 0), f["steps"],
+                           gplans)
+                check(set(f["launches"]) == {"transpose"},
+                      f"worker {name}: only the transpose kernel")
+        check_runs("sweep", got["transpose"], steps, 4 * len(gplans))
+        own = sorted(step for fs in per.values() for f in fs
+                     for step in f["steps"])
+        check(sorted(steps) == own,
+              f"sweep: the {len(steps)} dispatch steps are the workers' own")
         for name, col, vid in JOBS_VOLUMES:
             if col == "sweep":
                 check(sealed_equal(name, col, vid),
@@ -1928,7 +2109,7 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
             f"single encode {pres['encode_overlapped_gibps']:.3f} GiB/s")
 
         # 2. the mesh: -mesh 1,1 on B's volume 15
-        wall, got = shell_step(
+        wall, got, _steps = shell_step(
             "lock; ec.encode -distributed -collection mesh -volumeId 15 "
             "-mesh 1,1; unlock", "jobs mesh", "ec.encode")
         check(job("j2")["state"] == "done" and got["transpose"] == batches
@@ -1982,7 +2163,7 @@ def jobs_phase(dev, workdir: str, pres: dict, label: str,
             if step == "repair":
                 _flip_byte(str(ec_files.shard_path(b11, 3)),
                            shard_len // 2)
-            wall, got = shell_step(
+            wall, got, _steps = shell_step(
                 "scrub.start -collection sweep -volumeId 11 -wait; "
                 "scrub.status -collection sweep", f"jobs scrub ({step})",
                 "scrub.start")
@@ -2101,8 +2282,7 @@ def telemetry_phase(dev, workdir: str, pres: dict, label: str,
     vid = TELEMETRY_VID
     src = pres["base"]
     dat_size = os.path.getsize(src + ".dat")
-    batches = len(list(encode.plan_batches(dat_size, scheme,
-                                           pipe.current().batch_bytes)))
+    plans = seal_plans(dat_size, scheme, dev)
     want = {n: pres["sealed"][n] for n in
             [ec_files.shard_ext(i) for i in range(total)] + [".ecx"]}
     result = {}
@@ -2191,10 +2371,12 @@ def telemetry_phase(dev, workdir: str, pres: dict, label: str,
               f"job {jobs[0]['jobId']}: {jobs[0]['kind']} submitted by "
               f"{jobs[0]['submittedBy']!r}, {jobs[0]['state']} on A")
         fin = [f for f in a.job_worker.finished if f["volumeId"] == vid]
-        check(got["transpose"] == batches and fin and fin[0]["ok"]
-              and fin[0]["launches"] == {"transpose": batches},
-              f"the seal: {got['transpose']} transpose launches = "
-              f"{batches} batches, all on A's worker thread")
+        check(fin and fin[0]["ok"]
+              and fin[0]["launches"] == {"transpose": got["transpose"]}
+              and fin[0]["steps"] == STEPS,
+              f"the seal: {got['transpose']} transpose launches and "
+              f"{len(STEPS)} dispatch steps, all on A's worker thread")
+        check_runs("the policy's seal", got["transpose"], STEPS, plans)
         for k, v in got.items():
             launches[k] += v
         digests = _digests([base + n for n in want])
@@ -2294,7 +2476,7 @@ def telemetry_phase(dev, workdir: str, pres: dict, label: str,
             "volume.heatmap; traffic.top; tenant.usage; cluster.check",
             "telemetry shell", {"ec.rebuild": {"transpose": True,
                                                "swar": False}}, launches)
-        rebuilt = next(g for name, _w, g in log if name == "ec.rebuild")
+        rebuilt = next(g for name, _w, g, _r in log if name == "ec.rebuild")
         digests = _digests([base + n for n in want])
         check(dict(zip(want, digests)) == want,
               f"the shell's ec.rebuild ({rebuilt} launches): shards "
@@ -2549,7 +2731,7 @@ def trace_step(master, servers: dict, filer, conn, files: dict,
     check(hist.n - n0 == rebuild_batches > 0,
           f"trace step: the pipe.compute series counted "
           f"{hist.n - n0} batches, the ec.rebuild runs {rebuild_batches}")
-    for name, _w, g in log:
+    for name, _w, g, _r in log:
         for k, v in g.items():
             got[k] += v
 
@@ -2832,7 +3014,7 @@ def filer_phase(dev, workdir: str, label: str, launches: dict) -> dict:
             vs.store.has_volume(v, FILER_COLLECTION)
             for vs in servers.values() for v in vids),
             f"ec.encode: volumes {vids} sealed, shards on A and B "
-            f"({sum(w for n, w, _ in seal_log if n == 'ec.encode'):.3f} s)")
+            f"({sum(w for n, w, *_ in seal_log if n == 'ec.encode'):.3f} s)")
 
         # 4. lose shards 0, 5, 11, 13 everywhere; read every file
         env = ClusterEnv(master_url=master.url, out=io.StringIO())
@@ -2926,8 +3108,8 @@ def filer_phase(dev, workdir: str, label: str, launches: dict) -> dict:
                       {"ec.rebuild": {"transpose": True, "swar": False}},
                       launches)
         settle()
-        result["rebuild_s"] = sum(w for n, w, _ in log if n == "ec.rebuild")
-        result["seal_s"] = sum(w for n, w, _ in seal_log
+        result["rebuild_s"] = sum(w for n, w, *_ in log if n == "ec.rebuild")
+        result["seal_s"] = sum(w for n, w, *_ in seal_log
                                if n == "ec.encode")
         say(f"  ec.encode of volumes {vids}: {result['seal_s']:.3f} s, "
             f"ec.rebuild: {result['rebuild_s']:.3f} s on {label}")
@@ -3211,7 +3393,7 @@ def s3_phase(dev, workdir: str, label: str, launches: dict) -> dict:
         result["degraded"]["launches"] = counts()
         result["degraded"]["host_codec_calls"] = \
             rs_native.apply_gf_matrix.calls
-        result["seal_s"] = sum(w for n, w, _ in seal_log
+        result["seal_s"] = sum(w for n, w, *_ in seal_log
                                if n == "ec.encode")
         check(same, f"degraded restore: all "
               f"{result['degraded']['blocks']} blocks torch.equal")
@@ -3380,18 +3562,19 @@ def s3_phase(dev, workdir: str, label: str, launches: dict) -> dict:
                   f"volume.tier.download: .dat sha256-equal, writable "
                   f"({down_s:.3f} s)")
             got = dict.fromkeys(KERNELS, 0)
+            plans = seal_plans(os.path.getsize(tbase + ".dat"), dev=dev)
             _, enc_s = drive("ec.encode after the download",
                              lambda: shell_commands.run_command(
                                  tenv, "ec.encode -volumeId 7"),
                              {"transpose": True, "swar": False}, got)
+            steps = list(STEPS)
             launches["transpose"] += got["transpose"]
             encode.encode_volume(os.path.join(tdir, "orig", "7"),
                                  device=dev)
             local = os.path.join(tdir, "orig", "7")
             shards = range(DEFAULT_SCHEME.total_shards)
-            check(got["transpose"] == 1,
-                  f"ec.encode after the download: {got['transpose']} "
-                  f"launch")
+            check_runs("ec.encode after the download", got["transpose"],
+                       steps, plans)
             check(sealed_digests(tbase, shards=shards)
                   == sealed_digests(local, shards=shards)
                   and sha256_file(tbase + ".ecx")
@@ -3447,6 +3630,8 @@ def config4_phase(dev, pres: dict, label: str, launches: dict) -> dict:
             f"encode_volume RS({k},{m})",
             lambda: encode.encode_volume(b, scheme, device=dev, stats=st),
             {"transpose": True, "swar": False}, launches)
+        check_runs(f"encode_volume RS({k},{m})", counts()["transpose"],
+                   STEPS, seal_plans(dat_size, scheme, dev), st)
         sealed = sealed_digests(b, scheme)
         check_parity_sampled(b, dat_size, rng, scheme)
         for i in lost:
@@ -3499,8 +3684,11 @@ def mesh_phase(dev, workdir: str, pres: dict, label: str,
     vid = 1
     dat_size = os.path.getsize(pres["base"] + ".dat")
     shard_size = scheme.shard_file_size(dat_size)
+    # the split is ungrouped: one launch per batch of [pipeline]
+    # batch_bytes; the unsplit command groups batches of the grouped bound
     batches = len(list(encode.plan_batches(dat_size, scheme,
                                            pipe.current().batch_bytes)))
+    gplans = seal_plans(dat_size, scheme, dev)
     chunks = -(-shard_size // rebuild.chunk_length(shard_size,
                                                    scheme.data_shards))
     dirs = {"unsplit": os.path.join(workdir, "unsplit"),
@@ -3527,9 +3715,16 @@ def mesh_phase(dev, workdir: str, pres: dict, label: str,
                     f"ec.encode -volumeId {vid} -keepSource{flag}"],
                    log, launches, f"shell ec.encode ({name})")
         _, wall, got, _inner = log[0]
-        check(got == {"transpose": batches, "swar": 0},
-              f"shell ec.encode ({name}): {got['transpose']} launches, one "
-              f"per batch ({batches})")
+        if name == "unsplit":
+            check(got["swar"] == 0, f"shell ec.encode ({name}): no swar")
+            check_runs(f"shell ec.encode ({name})", got["transpose"],
+                       got["steps"], gplans)
+        else:
+            check(got["transpose"] == len(got["steps"]) == batches
+                  and got["swar"] == 0
+                  and all(len(step) == 1 for step in got["steps"]),
+                  f"shell ec.encode ({name}): {got['transpose']} launches, "
+                  f"one per batch ({batches}), one batch per dispatch step")
         result["encode_s"][name].append(wall)
         check(not mesh.current().enabled, "the -mesh scope closed")
     result["warmup_s"] = result["encode_s"]["unsplit"].pop(0)
@@ -3562,7 +3757,9 @@ def mesh_phase(dev, workdir: str, pres: dict, label: str,
     _, wall, got, _inner = log[0]
     check(lines == [f"ec.rebuild volume {vid}: rebuilt "
                     f"{list(LOST_REBUILD)}"]
-          and got == {"transpose": chunks, "swar": 0},
+          and got["transpose"] == len(got["steps"]) == chunks
+          and got["swar"] == 0
+          and all(len(step) == 1 for step in got["steps"]),
           f"shell ec.rebuild -mesh 1,1: {got['transpose']} launches, one "
           f"per chunk ({chunks})")
     check(sealed_digests(mbase, shards=LOST_REBUILD)
@@ -3671,6 +3868,8 @@ CONFIGS = {
                     "enabled = true\ndp = 1\nsp = 1\n",
     "disarmed": "[flight]\nenabled = false\n",
     "armed": "[flight]\nenabled = true\n",
+    "ungrouped": "[pipeline]\ngroup_cap = 1\n",
+    "grouped": "[pipeline]\ngroup_cap = 0\n",
 }
 
 
@@ -3681,17 +3880,22 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
     for an encode with ``pipeline.status``, ``pipeline.analyze`` and
     ``pipeline.dump -trace``, then a rebuild of 4 lost shards; (b) the
     A/B of ``double_buffer`` off and on, in turns; (c) the recorder
-    armed against disarmed, in turns. Every encode's launches are
-    counted against its plans; (a) and the first timed run of each side
-    of (b) and (c) are sha256-checked (hashing 1.5 GB takes about a
-    second, so not every run)."""
+    armed against disarmed, in turns; (d) ``[pipeline] group_cap = 1``
+    (ungrouped: one launch per batch of ``batch_bytes``) against the
+    default (grouped: batches of ``grouped_batch_bytes``, one launch per
+    run), in turns. Every encode's launches are counted against its
+    plans (the split runs) or the kernel calls its dispatch steps make
+    (the grouped and ungrouped ones, ``check_runs``);
+    (a) and the first timed run of each side of (b), (c) and (d) are
+    sha256-checked (hashing 1.5 GB takes about a second, so not every
+    run)."""
     t_phase = time.perf_counter()
     scheme = DEFAULT_SCHEME
     vid = 1
     dat_size = os.path.getsize(pres["base"] + ".dat")
     shard_size = scheme.shard_file_size(dat_size)
     batch_bytes = pipe.current().batch_bytes
-    batches = len(list(encode.plan_batches(dat_size, scheme, batch_bytes)))
+    plans = seal_plans(dat_size, scheme, bound=batch_bytes)
     chunks = -(-shard_size // rebuild.chunk_length(shard_size,
                                                    scheme.data_shards))
     d = os.path.join(workdir, "vol")
@@ -3717,12 +3921,23 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
             if not f.endswith((".dat", ".idx")):
                 os.remove(os.path.join(d, f))
 
-    def run(what, config, want, commands="", verify=True):
+    #: how each config's encode dispatches: over the 1 x 1 split (one
+    #: launch per batch), grouped, or ungrouped (one kernel call, one
+    #: launch, per batch)
+    route = {"all": "split", "lookahead off": "split",
+             "lookahead on": "split", "disarmed": "grouped",
+             "armed": "grouped", "grouped": "grouped",
+             "ungrouped": "ungrouped"}
+    planned = {"split": plans, "grouped": seal_plans(dat_size, scheme, dev),
+               "ungrouped": plans}
+    runs_of = {}
+
+    def run(what, config, commands="", verify=True):
         """One ``ec.encode -keepSource`` (plus ``commands``) through the
-        shell into a directory with no shards: launches equal to
-        ``want``, and with ``verify`` every file sha256-equal to the
-        sealed one; returns (command wall seconds, seconds inside its
-        pipeline call, lines)."""
+        shell into a directory with no shards: launches as its route
+        says, and with ``verify`` every file sha256-equal to the sealed
+        one; returns (command wall seconds, seconds inside its pipeline
+        call, lines)."""
         clean()
         log: list = []
         args = ["-dir", d] + (["-config", conf[config]] if config else [])
@@ -3730,8 +3945,17 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
                                          f"-keepSource{commands}"],
                            log, launches, what)
         _, wall, got, inner = log[0]
-        check(got == {"transpose": want, "swar": 0},
-              f"{what}: {got['transpose']} launches ({want} planned)")
+        want = planned[route[config]]
+        if route[config] == "split":
+            check(got["transpose"] == len(want) and got["swar"] == 0,
+                  f"{what}: {got['transpose']} launches ({len(want)} "
+                  f"planned)")
+        else:
+            check(got["swar"] == 0, f"{what}: no swar launch")
+            check_runs(what, got["transpose"], got["steps"], want,
+                       grouped=route[config] == "grouped")
+        runs_of.setdefault(config, []).append(
+            dict(pipe.last_run(), launches=got["transpose"]))
         if verify:
             check(sealed_digests(base) == sealed,
                   f"{what}: shards, .ecx and .vif sha256-equal to the "
@@ -3741,8 +3965,9 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
     # (a) all three sections: the encode, its status, verdict and trace
     trace = os.path.join(workdir, "trace.json")
     wall, _inner, lines = run("shell -config (all three sections) ec.encode",
-                      "all", batches, f"; pipeline.status; "
-                      f"pipeline.analyze; pipeline.dump -trace {trace}")
+                              "all", f"; pipeline.status; "
+                              f"pipeline.analyze; pipeline.dump -trace "
+                              f"{trace}")
     result = {"encode_s": wall}
     check(lines[1].endswith("double_buffer=True")
           and lines[2].startswith("  mesh: axes=dp1xsp1 ")
@@ -3755,6 +3980,7 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
     per_batch = {name: sorted(e["args"]["batch"] for e in spans
                               if e["name"] == name)
                  for name in ("read", "dispatch", "d2h_sync", "write")}
+    batches = len(plans)
     check(all(ids == list(range(batches)) for ids in per_batch.values())
           and sum(e["name"] == "h2d" for e in spans) == batches,
           f"the trace holds one read, h2d, dispatch, d2h_sync and write "
@@ -3770,13 +3996,13 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
     _, wall, got, _inner = log[0]
     check(lines[0] == f"ec.rebuild volume {vid}: rebuilt "
                       f"{list(LOST_REBUILD)}"
-          and got == {"transpose": chunks, "swar": 0}
-          and sealed_digests(base) == sealed,
+          and got["transpose"] == len(got["steps"]) == chunks
+          and got["swar"] == 0 and sealed_digests(base) == sealed,
           f"shell -config ec.rebuild: {got['transpose']} launches, one per "
           f"chunk ({chunks}); shards sha256-equal to the sealed ones")
     result["rebuild_s"] = wall
 
-    def turns(what, a, b, want, commands=""):
+    def turns(what, a, b, commands=""):
         """A warm-up of each side (the first run of a pool size pins its
         buffers, which the host allocator then caches), then A, B (one
         turn each since the s3 phase came), timed inside the encode's pipeline call (the layer the knob acts
@@ -3785,7 +4011,7 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
         times = {a: [], b: []}
         walls = {a: [], b: []}
         for i, name in enumerate((a, b, a, b)):
-            wall, inner, _ = run(f"{what}: {name}", name, want[name],
+            wall, inner, _ = run(f"{what}: {name}", name,
                                  commands if name == b else "",
                                  verify=i in (2, 3))
             if i >= 2:
@@ -3804,13 +4030,25 @@ def config_phase(dev, workdir: str, pres: dict, label: str,
     # one-batch lookahead
     result["double_buffer"] = turns(
         "ec.encode A/B of [pipeline] double_buffer", "lookahead off",
-        "lookahead on", {"lookahead off": batches, "lookahead on": batches})
+        "lookahead on")
     # (c) the recorder's own cost on the unsplit path, whose verdict
     # pipeline.analyze prints after each armed run
     result["flight"] = turns(
         "ec.encode with the flight recorder disarmed / armed", "disarmed",
-        "armed", {"disarmed": batches, "armed": batches},
-        commands="; pipeline.analyze")
+        "armed", commands="; pipeline.analyze")
+    # (d) grouped dispatch: group_cap = 1 against the default
+    result["grouping"] = turns(
+        "ec.encode A/B of grouped dispatch ([pipeline] group_cap)",
+        "ungrouped", "grouped")
+    gib = dat_size / GIB
+    for name in ("ungrouped", "grouped"):
+        r = runs_of[name][-1]
+        result["grouping"][name] = {
+            "gibps": gib / r["wall"], "dispatch_s": r["dispatch_seconds"],
+            "batches": r["batches"], "groups": r["groups"],
+            "max_group": r["max_group"], "launches": r["launches"]}
+        say(f"  {name}, the timed run (GiB/s of .dat over the pipeline "
+            f"run) on {label}: {json.dumps(result['grouping'][name])}")
     clean()
     shutil.rmtree(d)
     say(f"  config phase: {time.perf_counter() - t_phase:.1f} s")
@@ -4187,7 +4425,7 @@ def config3_phase(dev, label: str, launches: dict) -> dict:
     def sources(n):
         return ((i, pool[i % C3_POOL]) for i in range(n))
 
-    def run(what, n, expect, checked_run):
+    def run(what, n, expect, checked_run, grouped=True):
         st = pipe.PipeStats()
         checked.clear()
         if checked_run:
@@ -4202,13 +4440,16 @@ def config3_phase(dev, label: str, launches: dict) -> dict:
         gibps = total / GIB / wall
         check(total == n * C3_VOLUME_BYTES,
               f"{what}: {total} bytes of {n} volumes")
+        if any(expect.values()):
+            check_runs(what, sum(got.values()), STEPS, st.batches, st,
+                       grouped=grouped)
         if checked_run:
             check(checked["bytes"] == n * m * scheme.shard_file_size(
                 C3_VOLUME_BYTES),
                   f"{what}: every parity span of {n} volumes "
                   f"({checked['bytes']} bytes) equals its reference")
         res = {"volumes": n, "gibps": gibps, "wall_s": wall,
-               "launches": got,
+               "launches": got, "dispatch_steps": len(STEPS),
                "native_calls": rs_native.apply_gf_matrix.calls,
                "stages": st.to_dict()}
         say(f"  {what}: {gibps:.3f} GiB/s of volume bytes on {label}; "
@@ -4223,30 +4464,62 @@ def config3_phase(dev, label: str, launches: dict) -> dict:
     result["timed"] = res
 
     # the census: every batch shape the checked pass hands the codec
+    # (grouped: through encode_parity_host_multi, a run at a time)
     census: collections.Counter = collections.Counter()
-    single = enc.encode_parity_host
+    single, multi = enc.encode_parity_host, enc.encode_parity_host_multi
 
     def census_single(b):
         census[tuple(b.shape)] += 1
         return single(b)
 
+    def census_multi(bs):
+        census.update(tuple(b.shape) for b in bs)
+        return multi(bs)
+
     enc.encode_parity_host = census_single
+    enc.encode_parity_host_multi = census_multi
     try:
         res, st = run(f"encode_packed ({C3_SHORT} x {vol}, checked)",
                       C3_SHORT, {"transpose": True, "swar": False}, True)
     finally:
-        del enc.encode_parity_host
+        del enc.encode_parity_host, enc.encode_parity_host_multi
     res["census"] = {str(k_): v for k_, v in census.items()}
-    rows_cap = batch.max_rows_per_batch(k, MIB,
-                                        pipe.current().batch_bytes)
+    rows_cap = batch.max_rows_per_batch(k, MIB, grouped_bound(dev))
     rows = C3_SHORT * scheme.shard_file_size(C3_VOLUME_BYTES) // MIB
     want = {(rows_cap, k, MIB): rows // rows_cap}
     if rows % rows_cap:
         want[(rows % rows_cap, k, MIB)] = 1
     check(sum(census.values()) == st.batches and census == want,
           f"config 3 census: {dict(census)} "
-          f"(batch bound {pipe.current().batch_bytes} bytes)")
+          f"(batch bound {grouped_bound(dev)} bytes)")
     result["checked"] = res
+
+    # grouped dispatch A/B on the cut volume count: [pipeline] group_cap
+    # = 1 (batches of batch_bytes, one launch each) against the default,
+    # A, B, B, A. The batcher packs into unpinned memory, so each side's
+    # copies to the card are synchronous.
+    ab = {"ungrouped": [], "grouped": []}
+    saved_cap = pipe.current().group_cap
+    try:
+        for name in ("ungrouped", "grouped", "grouped", "ungrouped"):
+            pipe.configure(group_cap=1 if name == "ungrouped" else 0)
+            res, st = run(f"encode_many ({C3_SHORT} x {vol}, {name})",
+                          C3_SHORT, {"transpose": True, "swar": False},
+                          False, grouped=name == "grouped")
+            ab[name].append({"gibps": res["gibps"],
+                             "dispatch_s": st.dispatch_seconds,
+                             "batches": st.batches, "groups": st.groups,
+                             "max_group": st.max_group,
+                             "launches": res["launches"]["transpose"]})
+    finally:
+        pipe.configure(group_cap=saved_cap)
+    med = {n: float(np.median([r["gibps"] for r in v]))
+           for n, v in ab.items()}
+    say(f"  encode_many A/B of grouped dispatch on {label}: "
+        f"{json.dumps(ab)}; median GiB/s ungrouped {med['ungrouped']:.3f}, "
+        f"grouped {med['grouped']:.3f} (grouped / ungrouped "
+        f"{med['grouped'] / med['ungrouped']:.3f})")
+    result["grouping"] = ab
 
     os.environ["SEAWEEDFS_TORCH_KERNEL"] = "swar"
     try:
@@ -4282,8 +4555,9 @@ def config3_phase(dev, label: str, launches: dict) -> dict:
 
 def config3_files_phase(dev, workdir: str, label: str,
                         launches: dict) -> dict:
-    """32 seeded volumes of real needles sealed by ``encode_volumes``;
-    each one's shard files sha256-equal to a single-volume encode."""
+    """16 seeded volumes of real needles (cut from 32, see the module
+    docstring) sealed by ``encode_volumes``; each one's shard files
+    sha256-equal to a single-volume encode."""
     os.makedirs(workdir)
     bases = [os.path.join(workdir, f"c3v{i}") for i in range(C3_FILES)]
     t0 = time.perf_counter()
@@ -4306,9 +4580,12 @@ def config3_files_phase(dev, workdir: str, label: str,
     check(total == sum(DEFAULT_SCHEME.shard_file_size(n) for n in sizes)
           * DEFAULT_SCHEME.data_shards,
           f"encode_volumes: {total} bytes packed in {st.batches} batches")
+    check_runs("encode_volumes", counts()["transpose"], STEPS, st.batches,
+               st)
     res = {"volumes": C3_FILES, "dat_bytes": sum(sizes),
            "gibps": sum(sizes) / GIB / wall, "wall_s": wall,
-           "launches": counts(), "stages": st.to_dict()}
+           "launches": counts(), "dispatch_steps": len(STEPS),
+           "stages": st.to_dict()}
     say(f"  encode_volumes: {res['gibps']:.3f} GiB/s of .dat on {label}; "
         f"{json.dumps(res)}")
     same = 0
@@ -4428,7 +4705,7 @@ def mount_step(dev, workdir: str, label: str, launches: dict) -> dict:
                 for v in vids) + "; unlock", "mount seal",
             {"ec.encode": {"transpose": True, "swar": False}}, launches)
         settle()
-        result["seal_s"] = sum(s for n, s, _ in seal_log
+        result["seal_s"] = sum(s for n, s, *_ in seal_log
                                if n == "ec.encode")
         check(all(sorted(v for (_c, v) in vs.store.ec_mounts) == vids
                   for vs in servers.values()),
@@ -4562,9 +4839,9 @@ def mount_step(dev, workdir: str, label: str, launches: dict) -> dict:
 def checkers_step(dev, pres: dict, label: str, launches: dict) -> dict:
     """(b) The port's three runtime checkers armed in raise mode over the
     path phase's volume on the card (after one unarmed encode of it, for
-    the pair's rate): ``encode_volume`` overlapped on the
+    the pair's rate): ``encode_volume`` overlapped and grouped on the
     pinned pool (shards, .ecx and .vif sha256-equal to the path phase's
-    seal, one launch per batch) and ``rebuild_ec_files`` of four lost
+    seal, one launch per run) and ``rebuild_ec_files`` of four lost
     shards (sha256-equal), with no lock-order, race or dangling-view
     report; a planted dangling view on a pinned pool raises
     ``DanglingViewError``; protect mode on a page-locked buffer. Then
@@ -4595,11 +4872,11 @@ def checkers_step(dev, pres: dict, label: str, launches: dict) -> dict:
                         lambda: encode.encode_volume(base, device=dev,
                                                      stats=st),
                         {"transpose": True, "swar": False}, got)
-        check(sealed_digests(base) == pres["sealed"]
-              and got["transpose"] == st.batches,
-              f"armed encode: shards, .ecx and .vif sha256-equal to the "
-              f"path phase's seal; {got['transpose']} launches for "
-              f"{st.batches} batches")
+        check_runs("armed encode", counts()["transpose"], STEPS,
+                   seal_plans(os.path.getsize(base + ".dat"), dev=dev), st)
+        check(sealed_digests(base) == pres["sealed"],
+              "armed encode: shards, .ecx and .vif sha256-equal to the "
+              "path phase's seal")
         tracked = bufcheck.stats()["tracked"]
         result["encode_gibps"] = gib / wall
         for i in LOST_REBUILD:
@@ -4996,7 +5273,7 @@ def frontends_phase(dev, workdir: str, label: str, launches: dict) -> dict:
                 [f"ec.encode -volumeId {v} -collection {FILER_COLLECTION}"
                  for v in fvids]) + "; unlock",
             "server seal", {}, launches)
-        seal_s = sum(w for n, w, _ in seal_log if n == "ec.encode")
+        seal_s = sum(w for n, w, *_ in seal_log if n == "ec.encode")
         result["seal"] = {"bytes": sealed_bytes, "s": seal_s,
                           "gibps": sealed_bytes / GIB / seal_s}
         say(f"  ec.encode of volumes {[bench_vid] + fvids} in the server "

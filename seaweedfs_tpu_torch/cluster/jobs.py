@@ -62,7 +62,7 @@ from typing import Iterable, Optional
 
 from ..ops import rs_cuda
 from ..pb import master_pb2, volume_server_pb2
-from ..pipeline import encode as encode_mod
+from ..pipeline import encode as encode_mod, pipe
 from ..pipeline.scheme import DEFAULT_SCHEME, EcScheme
 from ..storage.superblock import ReplicaPlacement
 from ..util import glog, retry
@@ -850,9 +850,11 @@ class JobWorker:
     ``Heartbeat.job_progress`` — that IS the lease renewal.
 
     ``finished`` keeps the last tasks this worker ran, newest last, each
-    with its seconds and the kernel launches its thread made
-    (``rs_cuda.thread_launches``): with two workers on one card, the
-    card's counters alone cannot say whose launches they were.
+    with its seconds, the kernel launches its thread made
+    (``rs_cuda.thread_launches``) and the pipeline dispatch steps it
+    made (``pipe.recording_steps``, each the shapes of the batches
+    dispatched together): with two workers on one card, the card's
+    counters alone cannot say whose launches they were.
     """
 
     #: Entries ``finished`` keeps.
@@ -941,12 +943,14 @@ class JobWorker:
             self.claimed_total += 1
         ok, err = True, ""
         launched = rs_cuda.thread_launches()
+        steps: list = []
         t0 = time.perf_counter()
         try:
             glog.info("jobs: worker %s executing %s (%s volume %d)",
                       self.vs.url, task["taskId"], task["kind"],
                       task["volumeId"])
-            self._dispatch(task)
+            with pipe.recording_steps(this_thread=True) as steps:
+                self._dispatch(task)
         except Exception as e:  # noqa: BLE001 — report, don't die
             ok, err = False, f"{type(e).__name__}: {e}"
             glog.warning("jobs: %s failed on %s: %s", task["taskId"],
@@ -963,7 +967,8 @@ class JobWorker:
                     "seconds": time.perf_counter() - t0,
                     "launches": {k: n - launched.get(k, 0)
                                  for k, n in now.items()
-                                 if n != launched.get(k, 0)}})
+                                 if n != launched.get(k, 0)},
+                    "steps": steps})
                 del self.finished[:-self.FINISHED_KEEP]
             self._report(task, ok, err)
             with self._lock:

@@ -69,6 +69,11 @@ SWAR_GRANULE = 16
 #: A shard length that needs no padding for either kernel.
 GRANULE = max(TRANSPOSE_GRANULE, SWAR_GRANULE)
 
+#: A launch's bounds (csrc/gf_common.cuh ``gf::launch``): 16-byte vectors
+#: per shard row, and tasks (batch rows times 1 KiB blocks per row).
+MAX_VECS = (2 ** 31 - 1) - 64
+MAX_TASKS = (2 ** 31 - 1) // 2
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gf_transpose.cu", "gf_swar.cu")
 HEADERS = ("gf_common.cuh",)
@@ -234,6 +239,19 @@ def blocks_per_sm(kind: str, n_out: int, n_in: int) -> int:
         raise RuntimeError(f"{kind} occupancy query failed: CUDA error "
                            f"{-got}")
     return got
+
+
+def check_launch_size(batch: int, s_bytes: int) -> None:
+    """Raise ``ValueError`` where a launch over ``batch`` rows of
+    ``s_bytes`` (padded) bytes would pass the kernels' bounds
+    (:data:`MAX_VECS`, :data:`MAX_TASKS`): such a batch is refused, never
+    split behind the caller's back."""
+    vecs = -(-s_bytes // 16)
+    tasks = batch * -(-vecs // 64)
+    if vecs > MAX_VECS or tasks > MAX_TASKS:
+        raise ValueError(
+            f"a launch over {batch} rows of {s_bytes} bytes is {tasks} "
+            f"tasks of 1 KiB; the kernels take at most {MAX_TASKS}")
 
 
 # --------------------------------------------------------------------------

@@ -39,9 +39,27 @@ where the native library cannot be built every product goes to the
 kernels. A kernel that fails to build or launch raises; nothing gives
 way to the host for it.
 
-Each host slab is its own launch on the side stream (``*_host_multi``
-loops over the slabs): enqueueing several slabs together amortises
-nothing until one launch covers many slabs.
+Grouped dispatch (``*_host_multi``, the port of the JAX package's
+``apply_matrix_host_multi``): a run of adjacent slabs of one shape, at
+most :func:`_dispatch_group` of them (``SEAWEEDFS_TORCH_DISPATCH_GROUP``,
+16 by default), is ONE kernel call with batch G·B. The run's slabs are
+copied from their pool buffers into one device staging tensor, one
+launch per :func:`rs_cuda.outputs_per_launch` row block covers them
+all (one for RS(10,4)), and one copy back into one pinned output with
+one event serves every slab's result. The JAX package splits a run into
+power-of-two sub-dispatches to spare XLA's compile cache; a launch here
+takes any batch, so a run is dispatched whole. Its buffer-donation knob
+has no counterpart either: the staging tensor is allocated on the side
+stream, so the caching allocator hands its memory out again only in
+that stream's order. :func:`host_dispatch_group` is the pipelines'
+group width: 1 on the CPU and wherever ``parallel/mesh.routing_mesh``
+splits the batches. Two settings bound a group, as in the JAX package,
+and the smaller wins: ``SEAWEEDFS_TORCH_DISPATCH_GROUP`` is the most
+slabs one run carries, whoever calls :func:`apply_matrix_host_multi`
+(the environment variable keeps the JAX package's name and default);
+``[pipeline] group_cap`` narrows the pipelines' drain below it for one
+configuration (pipeline/pipe.py ``pick_grouped_dispatch``), so a
+drained group is never split here.
 """
 
 from __future__ import annotations
@@ -76,6 +94,37 @@ DEVICE_MIN_S = 128 * 1024
 _link_gibps: Optional[float] = None
 _native_gibps: Optional[float] = None
 _calibrate_lock = threading.Lock()
+
+
+def _dispatch_group() -> int:
+    """``SEAWEEDFS_TORCH_DISPATCH_GROUP`` (default 16): the most slabs one
+    run of the grouped host path carries. Read and validated at use time,
+    so a typo surfaces as a ``ValueError`` from the encode call."""
+    raw = os.environ.get("SEAWEEDFS_TORCH_DISPATCH_GROUP") or "16"
+    try:
+        g = int(raw)
+    except (TypeError, ValueError):
+        g = -1
+    if g < 1:
+        raise ValueError(
+            f"SEAWEEDFS_TORCH_DISPATCH_GROUP={raw!r}: expected a positive "
+            f"integer")
+    return g
+
+
+def host_dispatch_group(device=None) -> int:
+    """Group width for the host-slab pipelines on ``device`` (None = the
+    card), one policy for encode, rebuild and the batcher: 1 on the CPU,
+    1 where ``parallel/mesh.routing_mesh`` splits every batch over a mesh
+    (``-mesh``, ``[mesh]``, or more than one card), else
+    :func:`_dispatch_group`."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return 1
+    from ..parallel import mesh as mesh_mod
+    if mesh_mod.routing_mesh(dev) is not None:
+        return 1
+    return _dispatch_group()
 
 
 def host_codec_takes(s: int) -> bool:
@@ -196,8 +245,9 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 class _HostResult:
     """Async (B, n_out, S) result of a host slab on the card:
-    ``np.asarray`` waits on the event recorded after the D2H copy and
-    views the pinned output."""
+    ``np.asarray`` waits on the event recorded after the D2H copy (one
+    event and one pinned output for all the slabs of a run) and views the
+    slab's rows of that output."""
 
     __slots__ = ("host", "done")
 
@@ -236,33 +286,93 @@ def apply_matrix_host(coefs: np.ndarray, batch: np.ndarray, device=None):
     (B, n_out, S) uint8: a numpy array from the host codec (the hybrid
     rule, module docstring) or on the CPU, an async :class:`_HostResult`
     on the card."""
-    dev = resolve_device(device)
-    coefs = np.ascontiguousarray(coefs, dtype=np.uint8)
-    batch = np.ascontiguousarray(batch, dtype=np.uint8)
-    if _host_takes(batch.shape[-1], dev):
-        return rs_native.apply_gf_matrix(coefs, batch)
-    src = torch.from_numpy(batch)
-    if dev.type == "cpu":
-        # the plain version reads ``src`` (which shares the caller's
-        # buffer) and writes only fresh tensors
-        return rs_cuda.apply_gf_matrix(coefs, src).numpy()
-    b, _, s = batch.shape
-    stream = _side_stream(dev)
-    with torch.cuda.device(dev), torch.cuda.stream(stream):
-        x = src.to(dev, non_blocking=True)
-        y = rs_cuda.apply_gf_matrix(coefs, x)
-        host = torch.empty((b, coefs.shape[0], s), dtype=torch.uint8,
-                           pin_memory=True)
-        host.copy_(y, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-    return _HostResult(host, done)
+    return _apply_host(coefs, [batch], resolve_device(device), 1)[0]
 
 
 def apply_matrix_host_multi(coefs: np.ndarray, batches, device=None):
-    """:func:`apply_matrix_host` over a list of slabs, in order; each
-    slab is its own launch on the one side stream."""
-    return [apply_matrix_host(coefs, b, device) for b in batches]
+    """Grouped :func:`apply_matrix_host`: a list of HOST (B, n_in, S)
+    uint8 slabs -> their results, in order.
+
+    Slabs are walked in order. One the hybrid rule sends to the host
+    codec (:func:`_host_takes`; the link probe is taken once per process)
+    flushes the open run and goes to ``rs_native``. A slab whose
+    shape differs from the run's flushes it, and so does a run that
+    reached :func:`_dispatch_group` slabs. A flushed run is one kernel
+    call (:func:`_dispatch_run`), dispatched whole."""
+    return _apply_host(coefs, batches, resolve_device(device),
+                       _dispatch_group())
+
+
+def _apply_host(coefs: np.ndarray, batches, dev: torch.device,
+                cap: int) -> list:
+    """The run logic of :func:`apply_matrix_host_multi`, runs of at most
+    ``cap`` slabs."""
+    coefs = np.ascontiguousarray(coefs, dtype=np.uint8)
+    out: list = [None] * len(batches)
+    run: list[int] = []
+    slabs = [np.ascontiguousarray(b, dtype=np.uint8) for b in batches]
+
+    def flush():
+        if run:
+            for i, r in zip(run, _dispatch_run(coefs,
+                                               [slabs[i] for i in run],
+                                               dev)):
+                out[i] = r
+            run.clear()
+
+    for i, slab in enumerate(slabs):
+        if _host_takes(slab.shape[-1], dev):
+            flush()
+            out[i] = rs_native.apply_gf_matrix(coefs, slab)
+            continue
+        if run and (slab.shape != slabs[run[0]].shape or len(run) >= cap):
+            flush()
+        run.append(i)
+    flush()
+    return out
+
+
+def _dispatch_run(coefs: np.ndarray, slabs: list, dev: torch.device
+                  ) -> list:
+    """One run of G equal-shaped (B, n_in, S) host slabs as ONE
+    ``rs_cuda.apply_gf_matrix`` call with batch G·B: the slabs are copied
+    into one staging tensor of (G·B, n_in, S_pad), S_pad being S padded
+    to the chosen kernel's granule (pad columns zeroed once, so the
+    wrapper copies nothing again). On the card, everything is enqueued
+    on the side stream: G async copies from the (pinned) slabs, the
+    launches, one async copy into one pinned (G·B, n_out, S) output and
+    one event, which every slab's :class:`_HostResult` shares. On the
+    CPU, the plain version over the same staging tensor. A launch that
+    fails raises; nothing is retried slab by slab."""
+    g = len(slabs)
+    b, n_in, s = slabs[0].shape
+    n_out = coefs.shape[0]
+    granule = rs_cuda.TRANSPOSE_GRANULE if rs_cuda.kernel() == "transpose" \
+        else rs_cuda.SWAR_GRANULE
+    sp = -(-s // granule) * granule
+    rs_cuda.check_launch_size(g * b, sp)
+    if dev.type == "cpu":
+        x = torch.empty((g * b, n_in, sp), dtype=torch.uint8)
+        x[..., s:] = 0
+        for j, slab in enumerate(slabs):
+            x[j * b:(j + 1) * b, :, :s] = torch.from_numpy(slab)
+        y = rs_cuda.apply_gf_matrix(coefs, x)[..., :s].numpy()
+        return [y[j * b:(j + 1) * b] for j in range(g)]
+    stream = _side_stream(dev)
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        x = torch.empty((g * b, n_in, sp), dtype=torch.uint8, device=dev)
+        if sp != s:
+            x[..., s:].zero_()
+        for j, slab in enumerate(slabs):
+            x[j * b:(j + 1) * b, :, :s].copy_(torch.from_numpy(slab),
+                                              non_blocking=True)
+        y = rs_cuda.apply_gf_matrix(coefs, x)
+        host = torch.empty((g * b, n_out, s), dtype=torch.uint8,
+                           pin_memory=True)
+        host.copy_(y[..., :s], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return [_HostResult(host[j * b:(j + 1) * b], done) for j in range(g)]
 
 
 class Encoder:

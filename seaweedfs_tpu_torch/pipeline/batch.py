@@ -18,11 +18,13 @@ per-volume shard layout.
 Every batch is packed into a fresh array (one that holds a single span
 may be a view of its source), so the data-shard views the sinks receive
 stay valid for as long as a sink holds them. The batches ride the
-overlapped plane of pipe.py, one launch each — or, when
-``parallel/mesh.routing_mesh`` says to split, one launch per mesh cell
-(:func:`_pick_encode_fn`). The batch bound is ``[pipeline]
-batch_bytes``, and a completed run is published to the ring of recent
-runs as ``ec.batch``.
+overlapped plane of pipe.py; on one card, runs of same-shaped batches
+share one launch (grouped dispatch, ``pipe.pick_grouped_dispatch``), and
+when ``parallel/mesh.routing_mesh`` says to split, each batch takes one
+launch per mesh cell (:func:`_pick_encode_fn`). The batch bound is
+``[pipeline] batch_bytes``, ``grouped_batch_bytes`` while grouping is
+on, and a completed run is published to the ring of recent runs as
+``ec.batch``.
 """
 
 from __future__ import annotations
@@ -154,7 +156,8 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
     """Coalesced encode over many volumes with the 3-stage pipeline, on
     ``device`` (None = the card; raises when there is none), in batches
     of at most ``max_batch_bytes`` (default ``[pipeline]
-    batch_bytes``).
+    batch_bytes``; clamped to ``grouped_batch_bytes`` while grouped
+    dispatch is on).
 
     ``sink(key, shard_id, offset, blocks)`` receives each span's bytes
     addressed by shard-file offset (spans of one (key, shard) are
@@ -168,6 +171,14 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
     k = scheme.data_shards
     if max_batch_bytes is None:
         max_batch_bytes = pipe.current().batch_bytes
+    # grouped dispatch on one card (one shared policy,
+    # pipe.pick_grouped_dispatch): runs of same-shaped packed batches
+    # share one launch (the buckets emit equal shapes until the tail, so
+    # the steady state groups fully); a split mesh keeps one product per
+    # batch through _pick_encode_fn
+    multi, group, max_batch_bytes = pipe.pick_grouped_dispatch(
+        encoder.encode_parity_host_multi, max_batch_bytes,
+        device=encoder.device)
     total = 0
 
     def batches():
@@ -189,7 +200,8 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
                      parity[sp.r0:sp.r0 + sp.n, j])
 
     pipe.run_pipeline(batches(), _pick_encode_fn(encoder), write,
-                      stats=stats, kind="ec.batch")
+                      stats=stats, kind="ec.batch", encode_multi_fn=multi,
+                      group=group)
     return total
 
 

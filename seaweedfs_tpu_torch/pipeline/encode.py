@@ -2,10 +2,13 @@
 
 The port of ``seaweedfs_tpu/pipeline/encode.py``, the volume-server side
 of ``ec.encode`` (ec_encoder.go WriteEcFiles + WriteSortedFileFromIdx):
-striping produces (R, k, block) row batches, each batch is ONE kernel
-call computing all parities, and shard files are written at
-deterministic offsets per batch, so peak host memory is bounded by the
-batch size, not the volume size.
+striping produces (R, k, block) row batches, each batch computes all
+its parities in one pass, and shard files are written at deterministic
+offsets per batch, so peak host memory is bounded by the batch size,
+not the volume size. On one card, runs of batches of one shape share ONE
+kernel launch (grouped dispatch: ``pipe.pick_grouped_dispatch``,
+``rs_torch.apply_matrix_host_multi``), each batch then at most
+``[pipeline] grouped_batch_bytes``.
 
 Ingest is the overlapped plane of pipe.py/writeback.py: every batch is
 a set of fixed byte ranges of the .dat and a fixed offset in each shard
@@ -171,8 +174,9 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
     ``overlapped`` default to ``[pipeline] batch_bytes`` and
     ``overlapped``.
 
-    ``overlapped=False`` is the single-threaded path: identical plans
-    and offsets, so output bytes match the overlapped path exactly."""
+    ``overlapped=False`` is the single-threaded path, one batch per
+    dispatch: identical plans and offsets, so output bytes match the
+    overlapped (and grouped) path exactly."""
     cfg = pipe.current()
     if max_batch_bytes is None:
         max_batch_bytes = cfg.batch_bytes
@@ -188,12 +192,16 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
         # the split: prepare (copies to the cells) and apply (one
         # product per cell) are two stages of the pipeline, which
         # [pipeline] double_buffer overlaps, the copies then on a copy
-        # stream of their own
+        # stream of their own. Grouping is the one-card lever: off.
         prepare_fn, encode_fn = mesh_mod.encode_step_fns(
             encoder, mesh, copy_stream=lookahead)
+        encode_multi, group = None, 1
     else:
         prepare_fn = None
         encode_fn = encoder.encode_parity_host
+        encode_multi, group, max_batch_bytes = pipe.pick_grouped_dispatch(
+            encoder.encode_parity_host_multi, max_batch_bytes,
+            device=encoder.device, overlapped=overlapped)
 
     plans = list(plan_batches(dat_size, scheme, max_batch_bytes))
     paths = [str(ec_files.shard_path(base, i))
@@ -202,7 +210,7 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
 
     pool = pipe.HostBufferPool(
         max((p.nbytes for p in plans), default=1),
-        pipe.pool_buffers(len(plans), lookahead),
+        pipe.pool_buffers(len(plans), lookahead, group),
         pinned=encoder.device.type == "cuda")
     st = stats if stats is not None else pipe.PipeStats()
 
@@ -288,7 +296,8 @@ def write_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
                 batches(), encode_fn,
                 write_pooled if writer is not None else write_inline,
                 recycle_fn=recycle, stats=st, overlapped=overlapped,
-                publish=False, prepare_fn=prepare_fn)
+                publish=False, prepare_fn=prepare_fn,
+                encode_multi_fn=encode_multi, group=group)
         except pipe.PipelineError:
             if writer is not None:
                 writer.abort()

@@ -509,10 +509,7 @@ def occupancy(events: Optional[list[tuple]] = None,
     }
 
 
-#: bottleneck -> (headline, [pipeline] knob advice) for the analyzer:
-#: the JAX package's table without its grouped-dispatch knobs, which the
-#: port reads nowhere (pipeline/pipe.py) — ``group_cap``'s line is gone
-#: and ``grouped_batch_bytes`` reads ``batch_bytes``
+#: bottleneck -> (headline, [pipeline] knob advice) for the analyzer
 _ADVICE = {
     "dispatch/h2d": (
         "the dispatch/H2D link stage is the floor — batches sit in "
@@ -521,13 +518,15 @@ _ADVICE = {
          "transfers in flight)",
          "enable [pipeline] double_buffer = true on the mesh path "
          "(overlap the next batch's H2D with the current collective)",
-         "grow [pipeline] batch_bytes so each "
-         "dispatch amortizes the fixed per-call floor"]),
+         "grow [pipeline] batch_bytes / grouped_batch_bytes so each "
+         "dispatch amortizes the fixed per-call floor",
+         "raise [pipeline] group_cap (wider grouped dispatch on a "
+         "single accelerator)"]),
     "read": (
         "the reader is the floor — compute and writer idle waiting "
         "for batch materialization",
         ["raise [pipeline] pool_buffers so the reader can run ahead",
-         "shrink [pipeline] batch_bytes for finer overlap",
+         "shrink [pipeline] grouped_batch_bytes for finer overlap",
          "check the source filesystem (bench disk_write_gibps)"]),
     "pool_wait": (
         "the reader is blocked on buffer recycle — writeback "
@@ -565,10 +564,11 @@ def analyze(events: Optional[list[tuple]] = None,
     bottleneck = max(lanes, key=lanes.get)
     headline, recs = _ADVICE[bottleneck]
     # refine dispatch/h2d advice ordering: if the host enqueue
-    # dominates the device wait (d2h), larger batches come first
+    # dominates the device wait (d2h), larger batches and wider groups
+    # come first
     if bottleneck == "dispatch/h2d" and \
             frac.get("dispatch", 0.0) > frac.get("d2h", 0.0):
-        recs = [recs[2], recs[0], recs[1]]
+        recs = [recs[2], recs[3], recs[0], recs[1]]
     waited = occ["waited_on"]
     top_wait = max(waited, key=waited.get) if waited else None
     return {

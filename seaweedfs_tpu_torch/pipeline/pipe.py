@@ -7,29 +7,27 @@ The port of ``seaweedfs_tpu/pipeline/pipe.py``:
   depth-limited queue;
 - the calling thread hands each batch to ``encode_fn``, which returns at
   once (on the card: an async copy, kernel and copy back on a side
-  stream — ops/rs_torch.py), one dispatch per batch; with a
-  ``prepare_fn`` (the mesh path) the stage splits into prepare and
-  apply, and ``[pipeline] double_buffer`` issues the next batch's
-  prepare before the current batch's apply;
+  stream — ops/rs_torch.py); on one card, runs of batches already read
+  share ONE dispatch (``encode_multi_fn``, ops/rs_torch.py
+  ``apply_matrix_host_multi``: one kernel launch over the whole group),
+  with a :class:`GroupController` sizing the group from measured stage
+  latencies; with a ``prepare_fn`` (the mesh path) the stage splits into
+  prepare and apply, and ``[pipeline] double_buffer`` issues the next
+  batch's prepare before the current batch's apply;
 - a writer thread calls ``np.asarray`` on the oldest result, which waits
   for THAT batch only while newer ones are still in flight, and hands the
   bytes to ``write_fn``.
 
 On CUDA the pool buffers are pinned host memory, so the copies to and
-from the card run asynchronously. Queue depths, batch bounds and writer
-width come from the ``[pipeline]`` TOML section
+from the card run asynchronously. Queue depths, batch bounds, writer
+width and the group cap come from the ``[pipeline]`` TOML section
 (:func:`configure_from`, the shell's ``-config``); :class:`PipelineConfig`'s
 defaults are the only source of them. Every completed run is folded into
 the process totals and a ring of recent runs (:func:`publish_stats`,
 read by the shell's ``pipeline.status``), and every batch's lifecycle
 goes to the flight recorder when it is armed (pipeline/flight.py).
 
-Left out against the JAX package: grouped dispatch (the group drain,
-``GroupController``, ``pick_grouped_dispatch``). On the card a group
-would enqueue the same per-slab copies and launches as one dispatch per
-batch, and only shrink the batches, so it waits for a launch that
-covers many slabs (ROADMAP); its ``[pipeline]`` fields are accepted and
-shown, and change nothing. Each batch's read, compute (its dispatch
+Each batch's read, compute (its dispatch
 share plus the wait on its result) and write land in the tracing series
 ``trace_request_stage_seconds{stage=pipe.read|pipe.compute|pipe.write}``
 (``_stage_observe``). The race and buffer checkers hook in where the
@@ -37,14 +35,16 @@ JAX package hooks them (``SEAWEEDFS_TORCH_RACECHECK``,
 ``SEAWEEDFS_TORCH_BUFCHECK``, util/racecheck.py, util/bufcheck.py):
 each pool buffer is registered, tagged on acquire and poisoned on
 release, and the pool and each run's stats are registered with the race
-checker. The pool's buffers are page-aligned whole pages, so the buffer
-checker's ``protect`` mode can close them.
+checker, and so is a run's :class:`GroupController`. The pool's buffers
+are page-aligned whole pages, so the buffer checker's ``protect`` mode
+can close them.
 A failed run publishes nothing here, where the JAX package folds its
 partial stats into the totals.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -83,16 +83,16 @@ _END = object()
 @dataclass
 class PipelineConfig:
     """Tuning knobs of the overlapped ingest plane, at the JAX package's
-    defaults. Flags > TOML > these defaults. ``pool_buffers = 0`` means
-    "derive" (:func:`pool_buffers`). ``grouped_batch_bytes``,
-    ``group_cap`` and ``feedback`` tune the JAX package's grouped
-    dispatch, which the port leaves out (see the module docstring): a
-    TOML file may set them, ``pipeline.status`` shows them, and nothing
-    reads them."""
+    defaults. Flags > TOML > these defaults. ``0`` means "derive":
+    ``group_cap`` defers to ``SEAWEEDFS_TORCH_DISPATCH_GROUP``,
+    ``pool_buffers`` is sized from depth and group
+    (:func:`pool_buffers`)."""
 
     depth: int = 2                           # stage-queue depth
     batch_bytes: int = 256 * 1024 * 1024     # max input bytes per batch
-    grouped_batch_bytes: int = 64 * 1024 * 1024  # per-batch clamp, grouped
+    # max input bytes per batch while grouping: the queues then hold up
+    # to ``group`` batches each, so each batch shrinks to bound host memory
+    grouped_batch_bytes: int = 64 * 1024 * 1024
     group_cap: int = 0                       # max batches per dispatch
     writer_threads: int = 4                  # shard-writeback pool width
     writer_queue_depth: int = 4              # pending jobs per writer
@@ -130,15 +130,45 @@ def configure_from(conf: dict) -> None:
     configure(**sect)
 
 
-def pool_buffers(n_batches: int, lookahead: bool = False) -> int:
+def pick_grouped_dispatch(multi_fn, max_bytes: int,
+                          cap_bytes: Optional[int] = None, device=None,
+                          overlapped: Optional[bool] = None):
+    """ONE grouping policy for the encode, rebuild and batcher pipelines
+    on ``device`` (None = the card): returns (multi_fn or None, group,
+    max_bytes).
+
+    The group width is ``rs_torch.host_dispatch_group(device)`` — more
+    than 1 only on one card whose batches no mesh splits — clamped by
+    ``[pipeline] group_cap`` when set. When grouping is on, the per-item
+    byte bound is clamped to ``cap_bytes`` (default: ``[pipeline]
+    grouped_batch_bytes``). The synchronous path (``overlapped`` false;
+    None = ``[pipeline] overlapped``) dispatches one batch at a time, so
+    it never groups and keeps its bound, where the JAX package clamps
+    it all the same: output bytes do not depend on the bound."""
+    from ..ops import rs_torch
+    if cap_bytes is None:
+        cap_bytes = _CONFIG.grouped_batch_bytes
+    if overlapped is None:
+        overlapped = _CONFIG.overlapped
+    group = rs_torch.host_dispatch_group(device) if overlapped else 1
+    if _CONFIG.group_cap:
+        group = min(group, _CONFIG.group_cap)
+    if group <= 1:
+        return None, 1, max_bytes
+    return multi_fn, group, min(max_bytes, cap_bytes)
+
+
+def pool_buffers(n_batches: int, lookahead: bool = False,
+                 group: int = 1) -> int:
     """Reusable host buffers for a run of ``n_batches``: ``[pipeline]
     pool_buffers``, or one per queue slot on each side of the dispatch
-    plus the batches being read and written — and one more for the batch
-    the double-buffer lookahead holds. Never more buffers than batches,
-    and with the lookahead at least two: the held batch is dispatched
-    only once the next one has been read."""
+    (``max(depth, group)`` deep, so a group can form) plus the batches
+    being read and written — and one more for the batch the
+    double-buffer lookahead holds. Never more buffers than batches, and
+    with the lookahead at least two: the held batch is dispatched only
+    once the next one has been read."""
     want = _CONFIG.pool_buffers or \
-        max(4, _CONFIG.depth + 2) + int(lookahead)
+        max(4, max(_CONFIG.depth, group) + 2) + int(lookahead)
     if lookahead:
         want = max(want, 2)
     return max(1, min(want, n_batches))
@@ -317,6 +347,45 @@ def reset_telemetry() -> None:
         RECENT.clear()
 
 
+#: Open step records (:func:`recording_steps`): (thread ident or None,
+#: the list the steps go to). Empty, a dispatch step records nothing.
+_STEP_SINKS: list = []
+_STEP_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def recording_steps(this_thread: bool = False):
+    """Record the dispatch steps of every pipeline run while the block is
+    open (with ``this_thread``, only the steps the calling thread
+    dispatches). Yields a list that gains, per step, the tuple of the
+    shapes of the batches dispatched together: one batch on the
+    ungrouped paths, a group on the drain. From it a caller works out
+    the kernel runs those steps make on the host-slab path (one per
+    stretch of equal shapes, ops/rs_torch.py) apart from the kernels'
+    own launch counts."""
+    sink: list = []
+    entry = (threading.get_ident() if this_thread else None, sink)
+    with _STEP_LOCK:
+        _STEP_SINKS.append(entry)
+    try:
+        yield sink
+    finally:
+        with _STEP_LOCK:
+            _STEP_SINKS.remove(entry)
+
+
+def _note_step(batches) -> None:
+    """One dispatch step of ``batches``, to every open record."""
+    if not _STEP_SINKS:
+        return
+    shapes = tuple(tuple(np.shape(b)) for b in batches)
+    me = threading.get_ident()
+    with _STEP_LOCK:
+        for who, sink in _STEP_SINKS:
+            if who is None or who == me:
+                sink.append(shapes)
+
+
 #: stage name -> latency histogram + bytes counter in the tracing
 #: metrics family, so the pipeline's stage breakdown lands in the same
 #: ``trace_request_stage_seconds{stage=...}`` series every other
@@ -338,6 +407,76 @@ def _stage_observe(stage: str, seconds: float, nbytes: int = 0) -> None:
         tup[1].inc(nbytes)
 
 
+# --------------------------------------------------------------------------
+# feedback controller for grouped dispatch
+# --------------------------------------------------------------------------
+
+class GroupController:
+    """Sizes grouped dispatch from measured stage latencies, as the JAX
+    package's does (the same constants and hill-climb, so the same notes
+    give the same widths).
+
+    Wider groups pay one launch, one copy back and one event for more
+    slabs, but only when the reader keeps a group's worth of batches
+    queued, and only while the per-batch dispatch cost keeps falling with
+    the width:
+
+    - after each dispatch, EWMA the per-BATCH dispatch seconds at that
+      width; widen (x2, up to the cap) while wider stays cheaper per
+      batch, back off when it measures worse than half the width;
+    - when the reader repeatedly can't fill the current target
+      (starvation), halve the target.
+
+    ``wait_seconds`` bounds how long the compute stage may block for one
+    more batch while a group forms: one EWMA read latency, capped.
+    """
+
+    WAIT_CAP = 0.05        # never stall dispatch more than this per slot
+    ALPHA = 0.4            # EWMA weight for new measurements
+    WORSE = 1.05           # hysteresis: "wider got worse" margin
+
+    def __init__(self, cap: int):
+        self.cap = max(1, int(cap))
+        self.width = min(2, self.cap)
+        self._per_batch: dict[int, float] = {}
+        self._ewma_read = 0.0
+        self._starve = 0.0
+        racecheck.register(self, "pipeline.GroupController")
+
+    def note_read(self, seconds: float) -> None:
+        self._ewma_read = seconds if not self._ewma_read else \
+            (1 - self.ALPHA) * self._ewma_read + self.ALPHA * seconds
+
+    def note_dispatch(self, seconds: float, width: int) -> None:
+        width = max(1, width)
+        pb = seconds / width
+        cur = self._per_batch.get(width)
+        self._per_batch[width] = pb if cur is None else \
+            (1 - self.ALPHA) * cur + self.ALPHA * pb
+        half = self._per_batch.get(max(1, width // 2))
+        if width > 1 and half is not None \
+                and self._per_batch[width] > half * self.WORSE:
+            self.width = max(1, width // 2)
+        elif width >= self.width and self._starve < 0.5:
+            self.width = min(self.cap, max(width, self.width) * 2)
+
+    def note_starved(self) -> None:
+        self._starve = (1 - self.ALPHA) * self._starve + self.ALPHA
+        if self._starve > 0.8:
+            self.width = max(1, self.width // 2)
+
+    def note_supplied(self) -> None:
+        self._starve = (1 - self.ALPHA) * self._starve
+
+    def target(self) -> int:
+        return self.width
+
+    def wait_seconds(self) -> float:
+        if self.width <= 1:
+            return 0.0
+        return min(self._ewma_read or self.WAIT_CAP, self.WAIT_CAP)
+
+
 class PipelineError(RuntimeError):
     pass
 
@@ -355,8 +494,10 @@ def run_pipeline(batches: Iterable[tuple[Any, np.ndarray]],
                  overlapped: Optional[bool] = None,
                  kind: str = "pipe",
                  publish: bool = True,
-                 prepare_fn: Optional[Callable[[np.ndarray], Any]] = None
-                 ) -> int:
+                 prepare_fn: Optional[Callable[[np.ndarray], Any]] = None,
+                 encode_multi_fn: Optional[Callable[[list], list]] = None,
+                 group: int = 1,
+                 controller: Optional[GroupController] = None) -> int:
     """Drive (meta, host_batch) items through ``encode_fn`` with
     read/compute/write overlap.
 
@@ -377,9 +518,23 @@ def run_pipeline(batches: Iterable[tuple[Any, np.ndarray]],
     path runs prepare and encode back to back, so output bytes are the
     same either way.
 
+    When ``encode_multi_fn`` is given with ``group > 1``, the compute
+    stage of the overlapped path drains up to a target number of batches
+    already read and dispatches them together (``encode_multi_fn(list of
+    batches)`` returns their results in order; on the card one launch
+    covers them). The target comes from a :class:`GroupController` fed
+    with the stage latencies (``[pipeline] feedback``; pass
+    ``controller`` to share one across runs), which may wait a bounded
+    time for a group to form; with ``feedback = false`` the drain is
+    greedy and never waits. The queues grow to ``group`` deep so groups
+    CAN form. Grouping and ``prepare_fn`` exclude each other (grouping
+    is the one-card lever, the split the mesh's): asking for both raises
+    ``ValueError``.
+
     ``overlapped=False`` (or ``[pipeline] overlapped = false``) runs the
-    same stages inline on the calling thread: the synchronous path whose
-    output bytes the overlapped one must match.
+    same stages inline on the calling thread, one batch per dispatch:
+    the synchronous path whose output bytes the overlapped one must
+    match.
 
     ``stats`` receives the stage breakdown; a run that completes is also
     folded into the process totals under ``kind`` unless ``publish`` is
@@ -391,6 +546,14 @@ def run_pipeline(batches: Iterable[tuple[Any, np.ndarray]],
         overlapped = cfg.overlapped
     st = stats if stats is not None else PipeStats()
     racecheck.register(st, "pipeline.PipeStats")
+    grouping = encode_multi_fn is not None and group > 1
+    if grouping and prepare_fn is not None:
+        raise ValueError(
+            "prepare_fn cannot combine with grouped dispatch (grouping "
+            "is one-card only; the prepare/apply split is the mesh "
+            "path)")
+    if grouping and controller is None and cfg.feedback:
+        controller = GroupController(group)
     t_wall = time.perf_counter()
     flight.record(flight.EV_RUN_START, arg=hash(kind) & 0x7FFFFFFF)
     done = False
@@ -401,7 +564,9 @@ def run_pipeline(batches: Iterable[tuple[Any, np.ndarray]],
         else:
             n = _run_overlapped(batches, encode_fn, write_fn, cfg.depth,
                                 recycle_fn, st, prepare_fn,
-                                cfg.double_buffer and prepare_fn is not None)
+                                cfg.double_buffer and prepare_fn is not None,
+                                encode_multi_fn if grouping else None,
+                                group, controller)
         done = True
     finally:
         st.wall_seconds = time.perf_counter() - t_wall
@@ -462,6 +627,7 @@ def _run_sync(batches, encode_fn, write_fn, recycle_fn, st: PipeStats,
             t2 = time.perf_counter()
             st.dispatch_seconds += t2 - t1
             flight.record(flight.EV_DISPATCH_DONE, batch=seq, arg=1)
+            _note_step((batch,))
             flight.record(flight.EV_SYNC_START, batch=seq)
             result_np = np.asarray(result)
             t3 = time.perf_counter()
@@ -496,7 +662,11 @@ def _run_sync(batches, encode_fn, write_fn, recycle_fn, st: PipeStats,
 
 def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
                     st: PipeStats, prepare_fn=None,
-                    lookahead: bool = False) -> int:
+                    lookahead: bool = False, encode_multi_fn=None,
+                    group: int = 1,
+                    controller: Optional[GroupController] = None) -> int:
+    if encode_multi_fn is not None:
+        depth = max(depth, group)
     read_q: queue.Queue = queue.Queue(maxsize=depth)
     write_q: queue.Queue = queue.Queue(maxsize=depth)
     errors: list[BaseException] = []
@@ -521,7 +691,8 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
             recycle_quietly(meta, batch)
 
     # Per-stage batch sequence numbers for the flight recorder: every
-    # queue between stages is FIFO and the lookahead keeps order,
+    # queue between stages is FIFO and grouping and the lookahead keep
+    # order,
     # so the reader's n-th batch IS the compute stage's n-th and the
     # writer's n-th.
     def reader():
@@ -541,6 +712,8 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
                               arg=_batch_nbytes(item[1]))
                 seq += 1
                 _stage_observe("pipe.read", dt, _batch_nbytes(item[1]))
+                if controller is not None:
+                    controller.note_read(dt)
                 read_q.put(item)
                 _record_depth(read_q, 0)
         except Exception as e:  # noqa: BLE001 — re-raised by the caller
@@ -608,6 +781,7 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
             fail(e, drop)
             return
         flight.record(flight.EV_DISPATCH_DONE, batch=cseq, arg=1)
+        _note_step((batch,))
         cseq += 1
         disp = time.perf_counter() - t0
         st.dispatch_seconds += disp
@@ -615,6 +789,58 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
         st.max_group = 1
         write_q.put((meta, batch, result, disp))
         _record_depth(write_q, 1)
+
+    def dispatch_group(item) -> bool:
+        # the group drain: whatever is already queued, plus — while the
+        # controller's measured amortization pays for it — a bounded
+        # wait for the group to fill to its target; one encode_multi_fn
+        # call for the lot. True when the reader's end marker was taken.
+        nonlocal cseq
+        target = min(group, controller.target()) if controller else group
+        items, ended = [item], False
+        while len(items) < target:
+            try:
+                nxt = read_q.get_nowait()
+            except queue.Empty:
+                wait = controller.wait_seconds() if controller else 0.0
+                try:
+                    nxt = read_q.get(timeout=wait) if wait > 0.0 \
+                        else read_q.get_nowait()
+                except queue.Empty:
+                    if controller is not None:
+                        controller.note_starved()
+                    break
+            if nxt is _END:
+                ended = True
+                break
+            items.append(nxt)
+        if controller is not None and len(items) >= target:
+            controller.note_supplied()
+        if stop.is_set():
+            for it in items:
+                recycle_quietly(*it)
+            return ended
+        t0 = time.perf_counter()
+        flight.record(flight.EV_DISPATCH, batch=cseq)
+        try:
+            results = encode_multi_fn([b for _, b in items])
+        except Exception as e:  # noqa: BLE001 — see fail()
+            fail(e, items)
+            return ended
+        disp = time.perf_counter() - t0
+        st.dispatch_seconds += disp
+        flight.record(flight.EV_DISPATCH_DONE, batch=cseq, arg=len(items))
+        _note_step([b for _, b in items])
+        cseq += len(items)
+        st.groups += 1
+        st.max_group = max(st.max_group, len(items))
+        if controller is not None:
+            controller.note_dispatch(disp, len(items))
+        share = disp / len(items)
+        for (meta, batch), result in zip(items, results):
+            write_q.put((meta, batch, result, share))
+            _record_depth(write_q, 1)
+        return ended
 
     rt = threading.Thread(target=reader, name="ec-pipe-read", daemon=True)
     wt = threading.Thread(target=writer, name="ec-pipe-write", daemon=True)
@@ -634,6 +860,10 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
                 # a later stage failed: drain the reader, recycling so a
                 # pooled reader blocked on acquire() can finish
                 recycle_quietly(*item)
+                continue
+            if encode_multi_fn is not None:
+                if dispatch_group(item):
+                    break
                 continue
             meta, batch = item
             t0 = time.perf_counter()

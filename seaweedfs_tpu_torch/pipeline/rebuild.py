@@ -13,8 +13,19 @@ deterministic offsets in preallocated files via the positioned-write
 pool. Rebuilt bytes are a fresh pinned array (the D2H copy), so input
 buffers recycle as soon as a chunk's result has synced.
 
-When ``parallel/mesh.routing_mesh`` says to split, every chunk splits
-over the mesh's devices (:func:`_pick_reconstruct_fn`). A completed
+On one card, runs of chunks of one length share ONE kernel launch
+(grouped dispatch, ``pipe.pick_grouped_dispatch`` and
+``rs_torch.apply_matrix_host_multi``); a chunk's input is k times its
+per-shard take, so the grouped byte bound ``[pipeline]
+grouped_batch_bytes`` is converted back through k. The take is a whole
+number of the kernels' granules (``rs_cuda.GRANULE``: the transpose
+kernel's 128 bytes, a multiple of the SWAR kernel's 16) where the JAX
+package aligns to its Pallas segment: a chunk of whole granules needs
+no padding copy in the wrapper, and since :func:`chunk_length` splits a
+shard into equal shares, every chunk but the last has one shape and
+the runs of equal shape stay long. When ``parallel/mesh.routing_mesh``
+says to split, every chunk splits over the mesh's devices
+(:func:`_pick_reconstruct_fn`) and grouping is off. A completed
 rebuild is published to the ring of recent runs as ``ec.rebuild``, and
 every live chunk cache drops the volume (``base_invalidated``). The run
 lies inside an ``ec.rebuild`` trace span carrying the rebuilt bytes and
@@ -104,11 +115,17 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
     # rest from disk at all.
     present = present[:scheme.data_shards]
     k = scheme.data_shards
-    chunk_bytes = chunk_length(size, k, chunk_bytes)
+    if chunk_bytes is None:
+        chunk_bytes = pipe.current().batch_bytes // k
+    reconstruct_multi, group, grouped_total = pipe.pick_grouped_dispatch(
+        lambda chunks: enc.reconstruct_batch_host_multi(chunks, present,
+                                                        missing),
+        k * chunk_bytes, device=enc.device)
+    chunk_bytes = chunk_length(size, k, grouped_total // k)
     n_chunks = -(-size // chunk_bytes) if size else 0
     pool = pipe.HostBufferPool(
         max(1, k * min(chunk_bytes, size)),
-        pipe.pool_buffers(n_chunks),
+        pipe.pool_buffers(n_chunks, group=group),
         pinned=enc.device.type == "cuda")
     in_fds = [os.open(ec_files.shard_path(base, i), os.O_RDONLY)
               for i in present]
@@ -150,7 +167,8 @@ def rebuild_ec_files(base: str | Path, scheme: EcScheme = DEFAULT_SCHEME,
             try:
                 pipe.run_pipeline(
                     chunks(), _pick_reconstruct_fn(enc, present, missing),
-                    write, recycle_fn=recycle, stats=st, publish=False)
+                    write, recycle_fn=recycle, stats=st, publish=False,
+                    encode_multi_fn=reconstruct_multi, group=group)
             except pipe.PipelineError:
                 writer.abort()
                 writer = None

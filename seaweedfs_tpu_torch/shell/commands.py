@@ -641,8 +641,6 @@ def cmd_pipeline_status(env: CommandEnv, argv: list[str]) -> None:
     p = _parser("pipeline.status")
     p.parse_args(argv)
     cfg = pipe.current()
-    # the JAX package's line: the grouped-dispatch fields are shown as
-    # set, though the port reads them nowhere (pipeline/pipe.py)
     env.println(
         f"pipeline.status depth={cfg.depth} "
         f"batch_bytes={cfg.batch_bytes} "

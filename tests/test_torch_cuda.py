@@ -18,6 +18,7 @@ from seaweedfs_tpu_torch.pipeline import encode, pipe, read, repair
 from seaweedfs_tpu_torch.pipeline import repair_bench
 from seaweedfs_tpu_torch.pipeline.scheme import EcScheme
 from seaweedfs_tpu_torch.storage import ec_files, volume
+from torch_runs import dispatched, expected_runs, plan_shapes
 
 LOST = (2, 7, 11, 13)
 PRESENT = [i for i in range(14) if i not in LOST]
@@ -33,6 +34,15 @@ SWEEP = [(10, m) for m in range(1, 9)] + [(4, 4), (6, 3), (12, 4), (70, 8)]
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def _grouped_plans(dat_size: int) -> list:
+    """The batch shapes of a seal on one card: grouped dispatch is on
+    there, so each batch is at most ``[pipeline] grouped_batch_bytes``."""
+    from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
+    bound = pipe.pick_grouped_dispatch(None, pipe.current().batch_bytes,
+                                       device="cuda")[2]
+    return plan_shapes(encode.plan_batches(dat_size, DEFAULT_SCHEME, bound))
 
 
 @pytest.fixture(autouse=True)
@@ -197,8 +207,8 @@ def test_repair_bench_on_the_card(tmp_path):
 @pytest.mark.cuda
 def test_host_slabs_on_the_card_match_plain(monkeypatch):
     """A list of host slabs of mixed shapes: one below the small-payload
-    threshold goes to the host codec, every other slab launches the
-    kernel; all byte-equal to the plain versions."""
+    threshold goes to the host codec, every run of adjacent slabs of one
+    shape is one launch; all byte-equal to the plain versions."""
     _need_card()
     monkeypatch.setattr(rs_torch, "DEVICE_MIN_S", 4096)
     rng = np.random.default_rng(4)
@@ -209,11 +219,38 @@ def test_host_slabs_on_the_card_match_plain(monkeypatch):
     slabs = [rng.integers(0, 256, s, dtype=np.uint8) for s in shapes]
     n = _launches()
     outs = enc.encode_parity_host_multi(slabs)
-    assert _launches() == n + len(slabs) - 1      # one slab below 4 KiB
+    # runs: 3 of 64 KiB | (the 2 KiB slab to the host codec) | the ragged
+    # slab | the 1 MiB slab | 5 of 64 KiB
+    assert _launches() == n + 4
     for x, out in zip(slabs, outs):
         assert isinstance(out, np.ndarray) == (x.shape[-1] < 4096)
         np.testing.assert_array_equal(np.asarray(out),
                                       cpu.encode_parity_host(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KINDS)
+def test_grouped_launch_equals_per_slab_launches_and_plain(monkeypatch,
+                                                          kernel):
+    """One run of 16 pinned slabs of a ragged S is ONE launch, byte-equal
+    to 16 single-slab launches and to the plain version."""
+    _need_card()
+    monkeypatch.setenv("SEAWEEDFS_TORCH_KERNEL", kernel)
+    wrapper, plain = KERNELS[KINDS.index(kernel)]
+    enc = rs_torch.Encoder(10, 4)
+    gen = torch.Generator("cuda").manual_seed(16)
+    slabs = [torch.randint(0, 256, (2, 10, (1 << 17) + 1003),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+             for _ in range(16)]
+    host = [t.cpu().pin_memory().numpy() for t in slabs]
+    n = wrapper.launches
+    outs = enc.encode_parity_host_multi(host)
+    assert wrapper.launches == n + 1
+    got = torch.from_numpy(np.concatenate([np.asarray(o) for o in outs]))
+    singles = torch.cat([wrapper(enc.parity_coefs, t) for t in slabs])
+    assert wrapper.launches == n + 17
+    assert torch.equal(got, singles.cpu())
+    assert torch.equal(got, plain(enc.parity_coefs, torch.cat(slabs)).cpu())
 
 
 @pytest.mark.cuda
@@ -465,8 +502,14 @@ def test_armed_encode_records_every_batch_of_its_plans(tmp_path,
     plans = list(encode.plan_batches(dat, DEFAULT_SCHEME, 4 << 20))
     flight.configure(enabled=True)
     n = _launches()
-    encode.write_ec_files(base, max_batch_bytes=4 << 20)
-    assert _launches() - n == len(plans) == 6
+    st = pipe.PipeStats()
+    with pipe.recording_steps() as steps:
+        encode.write_ec_files(base, max_batch_bytes=4 << 20, stats=st)
+    # grouped dispatch: one launch per stretch of equal-shaped batches
+    # inside a dispatch step
+    assert dispatched(steps) == plan_shapes(plans) and len(plans) == 6
+    assert _launches() - n == expected_runs(steps)
+    assert st.groups == len(steps) and st.batches == len(plans)
     occ = flight.occupancy()
     assert occ["batches"] == len(plans)
     assert occ["busy_seconds"]["d2h"] > 0
@@ -574,7 +617,8 @@ def card_server(tmp_path):
 @pytest.mark.cuda
 def test_volume_server_generate_launches_once_per_batch(card_server):
     """``VolumeEcShardsGenerate`` on the card: one transpose launch per
-    batch of the seal, and parity equal to ``rs_ref`` on sampled rows."""
+    run of the seal's (grouped) batches, and parity equal to ``rs_ref``
+    on sampled rows."""
     from seaweedfs_tpu_torch.ops import rs_ref
     from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
     from seaweedfs_tpu_torch.pipeline.scheme import DEFAULT_SCHEME
@@ -582,12 +626,14 @@ def test_volume_server_generate_launches_once_per_batch(card_server):
     base = vs.store.get_volume(9).base
     dat = volume.dat_path(base)
     dat_size = dat.stat().st_size
-    batches = len(list(encode.plan_batches(dat_size, DEFAULT_SCHEME,
-                                           pipe.current().batch_bytes)))
+    plans = _grouped_plans(dat_size)
     n = rs_cuda.apply_gf_matrix_transpose.launches
-    stub.VolumeEcShardsGenerate(vpb.VolumeEcShardsGenerateRequest(
-        volume_id=9))
-    assert rs_cuda.apply_gf_matrix_transpose.launches - n == batches
+    with pipe.recording_steps() as steps:
+        stub.VolumeEcShardsGenerate(vpb.VolumeEcShardsGenerateRequest(
+            volume_id=9))
+    assert dispatched(steps) == plans
+    assert rs_cuda.apply_gf_matrix_transpose.launches - n == \
+        expected_runs(steps)
     assert dat.exists()
     ref = rs_ref.ReferenceEncoder(10, 4)
     size = ec_files.shard_path(base, 0).stat().st_size
@@ -667,7 +713,8 @@ def test_hot_degraded_needle_launches_only_on_the_first_read(card_server):
 @pytest.mark.cuda
 def test_master_driven_ec_lifecycle_on_the_card(tmp_path):
     """A port master and two port servers on the card: the cluster
-    shell's ``ec.encode`` launches once per batch, ``operation.download``
+    shell's ``ec.encode`` launches once per run of its grouped batches,
+    ``operation.download``
     with shards 0, 5, 11 and 13 gone reconstructs on the card (the
     server fetching the shards it lacks through ``ec_shard_peers``),
     ``ec.rebuild`` restores the lost shards byte-equal and ``ec.decode``
@@ -718,11 +765,13 @@ def test_master_driven_ec_lifecycle_on_the_card(tmp_path):
         dat = volume.dat_path(vol.base)
         dat_size = dat.stat().st_size
         dat_sha = hashlib.sha256(dat.read_bytes()).hexdigest()
-        batches = len(list(encode.plan_batches(
-            dat_size, DEFAULT_SCHEME, pipe.current().batch_bytes)))
+        plans = _grouped_plans(dat_size)
         n = rs_cuda.apply_gf_matrix_transpose.launches
-        run_cluster_command(env, f"ec.encode -volumeId {vid}")
-        assert rs_cuda.apply_gf_matrix_transpose.launches - n == batches
+        with pipe.recording_steps() as steps:
+            run_cluster_command(env, f"ec.encode -volumeId {vid}")
+        assert dispatched(steps) == plans
+        assert rs_cuda.apply_gf_matrix_transpose.launches - n == \
+            expected_runs(steps)
         settle()
         for vs in servers:
             m = vs.store.ec_mounts[("", vid)]
@@ -762,7 +811,7 @@ def test_master_driven_ec_lifecycle_on_the_card(tmp_path):
 def test_job_worker_ec_encode_launches_the_transpose_kernel(tmp_path):
     """``ec.encode -distributed`` through a port master to one port
     server on the card: the job worker's seal launches the transpose
-    kernel once per batch on its own thread, and the parity equals
+    kernel once per run (grouped) on its own thread, and the parity equals
     ``rs_ref``'s."""
     _need_card()
     import io
@@ -790,13 +839,14 @@ def test_job_worker_ec_encode_launches_the_transpose_kernel(tmp_path):
     try:
         base = vs.store.get_volume(3, "jobs").base
         dat_size = volume.dat_path(base).stat().st_size
-        batches = len(list(encode.plan_batches(
-            dat_size, DEFAULT_SCHEME, pipe.current().batch_bytes)))
+        plans = _grouped_plans(dat_size)
         n = rs_cuda.apply_gf_matrix_transpose.launches
         run_cluster_command(env, "ec.encode -distributed -collection jobs")
-        assert rs_cuda.apply_gf_matrix_transpose.launches - n == batches
         [task] = vs.job_worker.finished
-        assert task["ok"] and task["launches"] == {"transpose": batches}
+        runs = expected_runs(task["steps"])
+        assert dispatched(task["steps"]) == plans
+        assert rs_cuda.apply_gf_matrix_transpose.launches - n == runs
+        assert task["ok"] and task["launches"] == {"transpose": runs}
         k = DEFAULT_SCHEME.data_shards
         shards = [np.fromfile(ec_files.shard_path(base, i), dtype=np.uint8)
                   for i in range(DEFAULT_SCHEME.total_shards)]
@@ -815,7 +865,8 @@ def test_policy_seals_a_full_volume_on_the_card_with_no_command(tmp_path):
     port server on ``cuda:0`` holding an unread 4 MiB volume, past 90% of
     the limit:
     the master submits ``ec_encode`` on its own, the seal launches the
-    transpose kernel once per batch, its parity equals ``rs_ref``'s, and
+    transpose kernel once per run (grouped), its parity equals ``rs_ref``'s,
+    and
     a degraded read after the source and shards 0, 5, 11 and 13 are
     dropped is counted once as an EC decode at the master."""
     _need_card()
@@ -851,8 +902,7 @@ def test_policy_seals_a_full_volume_on_the_card_with_no_command(tmp_path):
     st.load_existing()
     base = st.get_volume(4, "").base
     dat_size = volume.dat_path(base).stat().st_size
-    batches = len(list(encode.plan_batches(
-        dat_size, DEFAULT_SCHEME, pipe.current().batch_bytes)))
+    plans = _grouped_plans(dat_size)
     n0 = rs_cuda.apply_gf_matrix_transpose.launches
     vs = VolumeServer(st, port=free_port_pair(), master_url=ms.url,
                       pulse_seconds=0.5, job_poll_seconds=0.1).start()
@@ -865,8 +915,10 @@ def test_policy_seals_a_full_volume_on_the_card_with_no_command(tmp_path):
         [task] = vs.job_worker.finished
         [job] = ms.jobs.to_map()["jobs"]
         assert job["submittedBy"] == "policy" and job["kind"] == "ec_encode"
-        assert task["ok"] and task["launches"] == {"transpose": batches}
-        assert rs_cuda.apply_gf_matrix_transpose.launches - n0 == batches
+        runs = expected_runs(task["steps"])
+        assert dispatched(task["steps"]) == plans
+        assert task["ok"] and task["launches"] == {"transpose": runs}
+        assert rs_cuda.apply_gf_matrix_transpose.launches - n0 == runs
         k = DEFAULT_SCHEME.data_shards
         shards = [np.fromfile(ec_files.shard_path(base, i), dtype=np.uint8)
                   for i in range(DEFAULT_SCHEME.total_shards)]
@@ -962,9 +1014,14 @@ def test_traced_encode_span_covers_the_compute_series(tmp_path):
     n0, s0 = h.n, h.total
     st = pipe.PipeStats()
     rs_cuda.apply_gf_matrix_transpose.launches = 0
-    with tracing.start_trace("unit.seal.cuda"):
+    with tracing.start_trace("unit.seal.cuda"), \
+            pipe.recording_steps() as steps:
         encode.encode_volume(base, device="cuda:0", stats=st)
-    assert rs_cuda.apply_gf_matrix_transpose.launches == st.batches >= 1
+    assert dispatched(steps) == _grouped_plans(
+        (tmp_path / "v.dat").stat().st_size)
+    assert rs_cuda.apply_gf_matrix_transpose.launches == \
+        expected_runs(steps)
+    assert st.groups == len(steps) and st.batches >= 1
     assert h.n - n0 == st.batches
     t = tracing.recent_traces()[-1]
     sp, = [s for s in t["spans"] if s["name"] == "ec.encode"]

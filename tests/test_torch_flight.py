@@ -90,18 +90,6 @@ def _random_stream(seed=1, n=600):
     return evs
 
 
-def _as_port_advice(recs):
-    """The JAX package's advice as the port words it: without the
-    grouped-dispatch knobs, which the port leaves out."""
-    return [r.replace("batch_bytes / grouped_batch_bytes", "batch_bytes")
-            .replace("grouped_batch_bytes", "batch_bytes")
-            for r in recs if "group_cap" not in r]
-
-
-def _as_port_analysis(ana):
-    return dict(ana, recommendations=_as_port_advice(ana["recommendations"]))
-
-
 def test_event_vocabulary_equals_jax():
     names = [n for n in dir(jax_flight) if n.startswith("EV_")]
     assert len(names) == 20
@@ -109,9 +97,7 @@ def test_event_vocabulary_equals_jax():
         assert getattr(flight, n) == getattr(jax_flight, n), n
     assert flight._NAMES == jax_flight._NAMES
     assert flight._SPAN_PAIRS == jax_flight._SPAN_PAIRS
-    assert flight._ADVICE == {
-        k: (headline, _as_port_advice(recs))
-        for k, (headline, recs) in jax_flight._ADVICE.items()}
+    assert flight._ADVICE == jax_flight._ADVICE
 
 
 # --------------------------------------------------------------------------
@@ -282,8 +268,7 @@ def test_trace_occupancy_and_analysis_equal_jax(seed, tmp_path):
             assert flight.occupancy(evs, last_run_only=last) == \
                 jax_flight.occupancy(evs, last_run_only=last)
             assert flight.analyze(evs, last_run_only=last) == \
-                _as_port_analysis(jax_flight.analyze(evs,
-                                                     last_run_only=last))
+                jax_flight.analyze(evs, last_run_only=last)
 
 
 # --------------------------------------------------------------------------

@@ -365,42 +365,68 @@ GROUPING = {"group_cap": 4, "grouped_batch_bytes": 24 * 1024,
 
 def test_grouping_fields_leave_the_encode_plans_alone(tmp_path,
                                                       pipe_config):
-    """The port leaves grouped dispatch out: a [pipeline] section that
-    sets its three fields loads, and the overlapped encode still makes
-    one dispatch per planned batch at the full batch bound, publishes
-    them to the ring, and writes the sync path's bytes."""
-    pipe.configure_from({"pipeline": GROUPING})
+    """On the CPU the grouping policy gives group 1 in both packages, as
+    the JAX package's does off its device path: a [pipeline] section
+    that sets the three grouping fields loads, and the overlapped encode
+    makes one dispatch per planned batch at the full batch bound,
+    publishes them to the ring, and writes the sync path's bytes, the
+    same in both packages."""
+    from seaweedfs_tpu.pipeline import encode as jax_encode
+    from seaweedfs_tpu.pipeline.scheme import EcScheme as JaxScheme
+    jax_scheme = JaxScheme(10, 4, large_block_size=8192,
+                           small_block_size=2048)
+    assert rs_torch.host_dispatch_group("cpu") == 1
+    for mod in (pipe, jax_pipe):
+        mod.configure_from({"pipeline": GROUPING})
     grouped, plain = _dat(tmp_path, "g"), _dat(tmp_path, "s")
+    twin = _dat(tmp_path, "j")
     dat_size = (tmp_path / "g.dat").stat().st_size
     plans = list(encode.plan_batches(dat_size, SCHEME, 48 * 1024))
-    st = pipe.PipeStats()
-    encode.write_ec_files(grouped, SCHEME, 48 * 1024, stats=st,
-                          device="cpu")
-    assert st.batches == st.groups == len(plans) > 1
-    assert st.max_group == 1
-    assert pipe.last_run()["kind"] == "ec.encode"
-    assert pipe.last_run()["groups"] == len(plans)
+    for mod, write in ((pipe, lambda st: encode.write_ec_files(
+            grouped, SCHEME, 48 * 1024, stats=st, device="cpu")),
+                       (jax_pipe, lambda st: jax_encode.write_ec_files(
+            twin, jax_scheme, 48 * 1024, stats=st))):
+        st = mod.PipeStats()
+        write(st)
+        assert st.batches == st.groups == len(plans) > 1
+        assert st.max_group == 1
+        assert mod.last_run()["kind"] == "ec.encode"
+        assert mod.last_run()["groups"] == len(plans)
     encode.write_ec_files(plain, SCHEME, 24 * 1024, overlapped=False,
                           device="cpu")
-    assert _shards(grouped) == _shards(plain)
+    assert _shards(grouped) == _shards(plain) == _shards(twin)
 
 
 def test_grouping_fields_leave_the_rebuild_chunks_alone(tmp_path,
                                                         pipe_config):
-    """The same fields leave a rebuild's chunks at ``[pipeline]
-    batch_bytes`` over the survivors, one dispatch each."""
+    """On the CPU the same fields leave a rebuild's chunks at
+    ``[pipeline] batch_bytes`` over the survivors, one dispatch each, in
+    both packages (the JAX package's default chunk is its own 64 MiB,
+    one chunk here, so its count is held against that)."""
+    from seaweedfs_tpu.pipeline import rebuild as jax_rebuild
+    from seaweedfs_tpu.pipeline.scheme import EcScheme as JaxScheme
     from seaweedfs_tpu_torch.pipeline import rebuild
+    jax_scheme = JaxScheme(10, 4, large_block_size=8192,
+                           small_block_size=2048)
     base = _dat(tmp_path, "r")
     encode.write_ec_files(base, SCHEME, 48 * 1024, device="cpu")
     sealed = _shards(base)
-    pipe.configure(batch_bytes=40 * 1024, **GROUPING)
+    for mod in (pipe, jax_pipe):
+        mod.configure(batch_bytes=40 * 1024, **GROUPING)
     size = ec_files.shard_path(base, 0).stat().st_size
     chunks = -(-size // rebuild.chunk_length(size, SCHEME.data_shards))
-    for i in (1, 12):
-        ec_files.shard_path(base, i).unlink()
-    st = pipe.PipeStats()
-    assert rebuild.rebuild_ec_files(base, SCHEME, device="cpu",
-                                    stats=st) == [1, 12]
-    assert st.batches == st.groups == chunks > 1
-    assert pipe.last_run()["kind"] == "ec.rebuild"
-    assert _shards(base) == sealed
+    for mod, rebuild_fn in (
+            (pipe, lambda: rebuild.rebuild_ec_files(base, SCHEME,
+                                                    device="cpu")),
+            (jax_pipe, lambda: jax_rebuild.rebuild_ec_files(
+                base, jax_scheme))):
+        for i in (1, 12):
+            ec_files.shard_path(base, i).unlink()
+        assert rebuild_fn() == [1, 12]
+        run = mod.last_run()
+        assert run["kind"] == "ec.rebuild"
+        assert run["batches"] == run["groups"] == (
+            chunks if mod is pipe else -(-size // (64 << 20)))
+        assert run["max_group"] == 1
+        assert _shards(base) == sealed
+    assert chunks > 1
