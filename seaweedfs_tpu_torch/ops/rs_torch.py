@@ -73,6 +73,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..pipeline import flight
 from . import gf256, rs_cuda, rs_native
 from .rs_ref import ShardSizeError, TooFewShardsError
 
@@ -341,7 +342,8 @@ def _dispatch_run(coefs: np.ndarray, slabs: list, dev: torch.device
     wrapper copies nothing again). On the card, everything is enqueued
     on the side stream: G async copies from the (pinned) slabs, the
     launches, one async copy into one pinned (G·B, n_out, S) output and
-    one event, which every slab's :class:`_HostResult` shares. On the
+    one event, which every slab's :class:`_HostResult` shares; the G
+    copies are one ``h2d`` flight span (batch ``flight.STAGED``). On the
     CPU, the plain version over the same staging tensor. A launch that
     fails raises; nothing is retried slab by slab."""
     g = len(slabs)
@@ -363,9 +365,14 @@ def _dispatch_run(coefs: np.ndarray, slabs: list, dev: torch.device
         x = torch.empty((g * b, n_in, sp), dtype=torch.uint8, device=dev)
         if sp != s:
             x[..., s:].zero_()
+        # the copy staging: from pageable slabs each copy returns once
+        # CUDA has staged it, so the calling thread waits here
+        flight.record(flight.EV_H2D_SUBMIT, batch=flight.STAGED)
         for j, slab in enumerate(slabs):
             x[j * b:(j + 1) * b, :, :s].copy_(torch.from_numpy(slab),
                                               non_blocking=True)
+        flight.record(flight.EV_H2D_READY, batch=flight.STAGED,
+                      arg=g * b * n_in * s)
         y = rs_cuda.apply_gf_matrix(coefs, x)
         host = torch.empty((g * b, n_out, s), dtype=torch.uint8,
                            pin_memory=True)

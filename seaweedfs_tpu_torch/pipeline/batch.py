@@ -40,7 +40,7 @@ from ..parallel import mesh as mesh_mod
 from ..storage import ec_files, volume as volume_mod
 from . import pipe, writeback
 from .scheme import DEFAULT_SCHEME, EcScheme
-from .stripe import iter_row_batches, stripe_rows
+from .stripe import iter_row_batches, pack, stripe_rows
 
 def max_rows_per_batch(k: int, block: int, max_batch_bytes: int) -> int:
     """Row cap at which a (k, block)-shaped bucket flushes — THE flush
@@ -59,13 +59,13 @@ class RowSpan:
 
 
 def _iter_volume_rows(sources: Iterable[tuple[object, np.ndarray]],
-                      scheme: EcScheme, max_batch_bytes: int
+                      scheme: EcScheme, max_batch_bytes: int, stats=None
                       ) -> Iterator[tuple[object, np.ndarray]]:
     """(key, dat bytes) -> (key, (R, k, block) row tensors) in layout
     order. A volume may yield several tensors (large rows, small rows,
     and column chunks when one row alone exceeds the batch bound)."""
     for key, dat in sources:
-        for rows, _is_large in stripe_rows(dat, scheme):
+        for rows, _is_large in stripe_rows(dat, scheme, stats):
             if rows.shape[1] * rows.shape[2] > max_batch_bytes:
                 # One row is bigger than a whole batch: column-split it
                 # (iter_row_batches emits (1, k, cols) chunks in order).
@@ -82,23 +82,31 @@ class _Bucket:
         self.pend: list[tuple[object, int, np.ndarray]] = []
         self.rows = 0
 
-    def flush(self) -> Optional[tuple[list[RowSpan], np.ndarray]]:
+    def flush(self, stats=None) -> Optional[tuple[list[RowSpan], np.ndarray]]:
+        """The pending rows as one batch: a single contiguous span is
+        handed on as it is, anything else is copied into a fresh array
+        (a ``pack`` span, counted in ``stats``)."""
         if not self.pend:
             return None
         spans, r0 = [], 0
         for key, offset, rows in self.pend:
             spans.append(RowSpan(key, r0, rows.shape[0], offset))
             r0 += rows.shape[0]
-        packed = np.concatenate([r for _, _, r in self.pend], axis=0) \
-            if len(self.pend) > 1 else \
-            np.ascontiguousarray(self.pend[0][2])
+        parts = [r for _, _, r in self.pend]
         self.pend, self.rows = [], 0
+        if len(parts) == 1 and parts[0].flags.c_contiguous:
+            return spans, parts[0]
+        packed = pack(
+            stats, sum(p.nbytes for p in parts),
+            lambda: np.concatenate(parts, axis=0) if len(parts) > 1
+            else np.ascontiguousarray(parts[0]))
         return spans, packed
 
 
 def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
                         scheme: EcScheme = DEFAULT_SCHEME,
-                        max_batch_bytes: Optional[int] = None
+                        max_batch_bytes: Optional[int] = None,
+                        stats: Optional[pipe.PipeStats] = None
                         ) -> Iterator[tuple[list[RowSpan], np.ndarray]]:
     """Pack per-volume row tensors into shared (B, k, block) batches of
     at most ``max_batch_bytes`` (default ``[pipeline] batch_bytes``).
@@ -106,12 +114,15 @@ def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
     Rows are grouped into per-shape buckets (so volumes that mix large
     and small rows still coalesce with their neighbours); a bucket
     flushes when it reaches the batch bound, and every span carries its
-    shard-file offset so results scatter back position-addressed."""
+    shard-file offset so results scatter back position-addressed. The
+    copies into fresh memory (packing, the pad of a volume's last small
+    rows) count in ``stats``' ``pack_seconds`` and ``pack_bytes``."""
     if max_batch_bytes is None:
         max_batch_bytes = pipe.current().batch_bytes
     buckets: dict[tuple[int, int], _Bucket] = {}
     cursor: dict[object, int] = {}
-    for key, rows in _iter_volume_rows(sources, scheme, max_batch_bytes):
+    for key, rows in _iter_volume_rows(sources, scheme, max_batch_bytes,
+                                       stats):
         shape = (rows.shape[1], rows.shape[2])
         block = shape[1]
         max_rows = max_rows_per_batch(shape[0], block, max_batch_bytes)
@@ -125,11 +136,11 @@ def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
             b.rows += take
             r += take
             if b.rows >= max_rows:
-                out = b.flush()
+                out = b.flush(stats)
                 if out:
                     yield out
     for b in buckets.values():
-        out = b.flush()
+        out = b.flush(stats)
         if out:
             yield out
 
@@ -179,12 +190,13 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
     multi, group, max_batch_bytes = pipe.pick_grouped_dispatch(
         encoder.encode_parity_host_multi, max_batch_bytes,
         device=encoder.device)
+    st = stats if stats is not None else pipe.PipeStats()
     total = 0
 
     def batches():
         nonlocal total
         for spans, packed in iter_packed_batches(sources, scheme,
-                                                 max_batch_bytes):
+                                                 max_batch_bytes, st):
             total += packed.size
             yield spans, packed
 
@@ -200,7 +212,7 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
                      parity[sp.r0:sp.r0 + sp.n, j])
 
     pipe.run_pipeline(batches(), _pick_encode_fn(encoder), write,
-                      stats=stats, kind="ec.batch", encode_multi_fn=multi,
+                      stats=st, kind="ec.batch", encode_multi_fn=multi,
                       group=group)
     return total
 

@@ -10,8 +10,10 @@ emits timestamped lifecycle events into a bounded per-process ring.
 
 Hot-path discipline:
 
-* the ring's slots are PREALLOCATED mutable records written in place —
-  recording an event allocates nothing;
+* the ring's slots are PREALLOCATED and written in place — recording an
+  event allocates nothing; the port keeps them as one flat list per
+  field, so a ring of any size is made in a few list allocations (a run
+  that a profile records arms one in its own window);
 * timestamps are ``time.monotonic_ns()`` (one clock for the whole
   process, immune to wall-clock steps);
 * when the recorder is disarmed, :func:`record` is a single attribute
@@ -39,6 +41,47 @@ On top of the ring:
   (the ``pipeline.analyze`` shell command);
 * ``seaweed_pipeline_*`` gauges + a "flight" payload
   (:func:`debug_payload`), refreshed at the end of every recorded run.
+
+The port's host stages. Every event of the JAX package keeps its code,
+name and pairing; the port adds the host stages that can leave the card
+idle on the one-card seal path, each with a ``PipeStats`` counter that
+``pipeline.status`` shows and that counts whether or not the recorder
+is armed:
+
+* ``pack`` (21 / 22, arg = bytes; the reader, paired by thread): the
+  batcher's copies into fresh memory, ``batch._Bucket.flush`` when it
+  concatenates rows or copies a non-contiguous column chunk, and
+  ``stripe._pad_to`` (``pack_seconds``, ``pack_bytes``);
+* ``reader_wait`` (23 / 24; compute, by thread): the blocking read-queue
+  get of the overlapped path's main loop (``reader_wait_seconds``);
+* ``group_wait`` (25 / 26, arg = group width; compute, by thread): one
+  span per group drain, from its first bounded wait to the last batch
+  it takes or its give-up (``group_wait_seconds``);
+* ``h2d`` with batch :data:`STAGED` (8 / 9; compute):
+  ``rs_torch._dispatch_run``'s copies of a run's slabs into the staging
+  tensor on the card (from pageable memory each copy returns once CUDA
+  has staged it).
+
+None of them adds busy time to :func:`occupancy` / :func:`analyze`:
+``pack`` lies inside ``read``, the two waits are waits, and a staged
+``h2d`` lies inside the ``dispatch`` that already counts it;
+:func:`chrome_trace` draws them on the reader's and the compute track,
+and :func:`spans` hands out every paired span.
+
+The ring follows a torch profile: at the start of every
+``pipe.run_pipeline``, a run that ``torch.profiler`` records and that
+finds no recorder armed arms one of :data:`PROFILE_CAPACITY` slots
+(:func:`follow_profiler`: one attribute read per run); it stays armed,
+to be read after the profile, until a run no profile records. Spans
+cannot go into the profile itself: a ``record_function`` range on a
+thread started inside the profile is not recorded unless the profile
+records all threads. One clock: the ring stamps ``time.monotonic_ns()``,
+which reads the same ``CLOCK_MONOTONIC`` as ``time.perf_counter()``, so
+a span lands on a profile's timeline by one host-clock reading taken
+beside a ``record_function`` mark the profile also holds:
+``(t_ns / 1e9 - t_mark) * 1e6 + mark_start_us``. The benchmark does
+this (``portbench/hostspans.py``) and puts each idle stretch of the
+card down to the state open at its middle.
 
 Armed via the ``[flight]`` TOML section (:func:`configure_from`) or
 ``SEAWEEDFS_TORCH_FLIGHT=1`` in the environment (:func:`install_from_env`
@@ -88,6 +131,17 @@ EV_PWRITEV_RETIRE = 17 # one positioned write retired; value=seconds, arg=bytes
 EV_RECYCLE = 18        # pooled buffer returned; value=in-flight after
 EV_QDEPTH = 19         # counter: value=depth, arg: 0=read_q 1=write_q
 EV_POOL_OCC = 20       # counter: value=in-flight pooled buffers
+#: the port's host stages that can hold the card (none in the JAX package)
+EV_PACK_START = 21     # reader copies rows into fresh memory (batch, stripe)
+EV_PACK_END = 22       # arg=bytes copied
+EV_READER_WAIT = 23    # compute stage blocks on the read queue
+EV_READER_GOT = 24     # it got a batch (or the reader's end marker)
+EV_GROUP_WAIT = 25     # the group drain's first bounded wait for a batch
+EV_GROUP_DONE = 26     # the drain took its last batch or gave up; arg=width
+
+#: Batch id of the one-card copy staging (ops/rs_torch.py): an h2d span
+#: nested in a dispatch span, whose seconds that dispatch already counts.
+STAGED = -2
 
 _NAMES = {
     EV_RUN_START: "run_start", EV_RUN_END: "run_end",
@@ -100,6 +154,9 @@ _NAMES = {
     EV_WRITE_END: "write_end", EV_WRITE_SUBMIT: "write_submit",
     EV_PWRITEV_RETIRE: "pwritev_retire", EV_RECYCLE: "recycle",
     EV_QDEPTH: "queue_depth", EV_POOL_OCC: "pool_occupancy",
+    EV_PACK_START: "pack_start", EV_PACK_END: "pack_end",
+    EV_READER_WAIT: "reader_wait", EV_READER_GOT: "reader_got",
+    EV_GROUP_WAIT: "group_wait", EV_GROUP_DONE: "group_done",
 }
 
 #: (start, end, track-name) pairs rendered as duration events; pairing
@@ -112,7 +169,12 @@ _SPAN_PAIRS = (
     (EV_DISPATCH, EV_DISPATCH_DONE, "dispatch"),
     (EV_SYNC_START, EV_SYNC_END, "d2h_sync"),
     (EV_WRITE_START, EV_WRITE_END, "write"),
+    (EV_PACK_START, EV_PACK_END, "pack"),
+    (EV_READER_WAIT, EV_READER_GOT, "reader_wait"),
+    (EV_GROUP_WAIT, EV_GROUP_DONE, "group_wait"),
 )
+_SPAN_START = {start: name for start, _end, name in _SPAN_PAIRS}
+_SPAN_END = {end: name for _start, end, name in _SPAN_PAIRS}
 
 _QUEUE_NAMES = {0: "read_q_depth", 1: "write_q_depth"}
 
@@ -130,21 +192,24 @@ class FlightRecorder:
 
     def __init__(self, capacity: int = 65536):
         self.capacity = max(64, int(capacity))
-        self._slots = [[0, 0, -1, 0, 0.0, 0]
-                       for _ in range(self.capacity)]
+        n = self.capacity
+        # one list per slot field (the slot layout's order)
+        self._fields = ([0] * n, [0] * n, [-1] * n, [0] * n, [0.0] * n,
+                        [0] * n)
         self._claim = itertools.count()
         self._hi = -1   # highest claimed index (benign race: monotone)
 
     def record(self, event: int, batch: int = -1, value: float = 0.0,
                arg: int = 0) -> None:
         i = next(self._claim)
-        s = self._slots[i % self.capacity]
-        s[_TS] = time.monotonic_ns()
-        s[_EV] = event
-        s[_BATCH] = batch
-        s[_TID] = threading.get_ident()
-        s[_VAL] = value
-        s[_ARG] = arg
+        j = i % self.capacity
+        ts, ev, bt, tid, val, ag = self._fields
+        ts[j] = time.monotonic_ns()
+        ev[j] = event
+        bt[j] = batch
+        tid[j] = threading.get_ident()
+        val[j] = value
+        ag[j] = arg
         self._hi = i
 
     @property
@@ -158,14 +223,14 @@ class FlightRecorder:
     def snapshot(self) -> list[tuple]:
         """Valid events oldest-first (a sorted copy; the ring itself is
         unordered once it wraps)."""
-        rows = [tuple(s) for s in self._slots if s[_EV] != 0]
+        rows = [r for r in zip(*self._fields) if r[_EV] != 0]
         rows.sort(key=lambda r: r[_TS])
         return rows
 
     def reset(self) -> None:
-        for s in self._slots:
-            s[_EV] = 0
-            s[_TS] = 0
+        n = self.capacity
+        self._fields[_EV][:] = [0] * n
+        self._fields[_TS][:] = [0] * n
         self._claim = itertools.count()
         self._hi = -1
 
@@ -185,6 +250,14 @@ class FlightConfig:
 
 _CONFIG = FlightConfig()
 _REC: Optional[FlightRecorder] = None
+#: True while ``_REC`` is the ring :func:`follow_profiler` armed.
+_FOLLOWING = False
+#: Held by every write of ``_REC`` and ``_FOLLOWING``: runs on several
+#: threads may arm or drop the ring at once.
+_ARM_LOCK = threading.Lock()
+#: Slots of the ring armed for a profiled run: a 51 s traced seal window
+#: of either benchmark cell records under a fifth of it.
+PROFILE_CAPACITY = 1 << 17
 
 
 def current() -> FlightConfig:
@@ -234,18 +307,42 @@ def install_from_env() -> None:
 
 def arm(capacity: Optional[int] = None) -> FlightRecorder:
     """Install (or keep) the process recorder; returns it."""
-    global _REC
+    global _REC, _FOLLOWING
     cap = int(capacity or _CONFIG.capacity)
-    if _REC is None or _REC.capacity != cap:
-        _REC = FlightRecorder(cap)
-    _CONFIG.enabled = True
-    return _REC
+    with _ARM_LOCK:
+        if _REC is None or _REC.capacity != cap:
+            _REC = FlightRecorder(cap)
+        _CONFIG.enabled = True
+        _FOLLOWING = False
+        return _REC
 
 
 def disarm() -> None:
-    global _REC
-    _REC = None
-    _CONFIG.enabled = False
+    global _REC, _FOLLOWING
+    with _ARM_LOCK:
+        _REC = None
+        _CONFIG.enabled = False
+        _FOLLOWING = False
+
+
+def follow_profiler(profiling: bool) -> None:
+    """Called at the start of every pipeline run with whether a torch
+    profile is recording. A profiled run that finds no recorder armed
+    arms a :data:`PROFILE_CAPACITY` ring, so the profile's timeline can
+    carry the pipeline's host stages (:func:`spans`); the ring stays
+    armed, to be read once the profile ends, until a run that no profile
+    records. A recorder armed by ``[flight]`` or the environment is left
+    as it is."""
+    global _REC, _FOLLOWING
+    if not (profiling and _REC is None or not profiling and _FOLLOWING):
+        return
+    with _ARM_LOCK:
+        if profiling and _REC is None:
+            _REC = FlightRecorder(PROFILE_CAPACITY)
+            _FOLLOWING = True
+        elif not profiling and _FOLLOWING:
+            _REC = None
+            _FOLLOWING = False
 
 
 def armed() -> bool:
@@ -265,6 +362,47 @@ def record(event: int, batch: int = -1, value: float = 0.0,
         r.record(event, batch, value, arg)
 
 
+def _paired(evs: list[tuple]):
+    """Every event in order as ``(event, span name, start event)``: a
+    span's start gives its name and None, its end the name and the start
+    it closes (None when none is open), any other event None and None.
+    Spans pair by batch id (>=0) or, for batchless spans, by thread
+    ident: the one pairing every exporter here reads."""
+    open_spans: dict[tuple, tuple] = {}
+    for ev in evs:
+        kind, batch = ev[_EV], ev[_BATCH]
+        name = _SPAN_START.get(kind) or _SPAN_END.get(kind)
+        if name is None:
+            yield ev, None, None
+            continue
+        key = (name, batch if batch >= 0 else ("t", ev[_TID]))
+        if kind in _SPAN_START:
+            open_spans[key] = ev
+            yield ev, name, None
+        else:
+            yield ev, name, open_spans.pop(key, None)
+
+
+def _events(events: Optional[list[tuple]]) -> list[tuple]:
+    """``events`` oldest-first, or the armed ring's (none disarmed)."""
+    if events is None:
+        return _REC.snapshot() if _REC is not None else []
+    return sorted(events, key=lambda r: r[_TS])
+
+
+def spans(events: Optional[list[tuple]] = None) -> list[tuple]:
+    """The recorded spans on the process's monotonic clock, oldest
+    start first: (name, start ns, end ns, thread ident, batch) for every
+    start/end pair of ``_SPAN_PAIRS`` (:func:`_paired`).
+    ``time.monotonic_ns`` and ``time.perf_counter`` read one clock, so
+    these lie on the timeline of any host clock reading taken with
+    either."""
+    out = [(name, st[_TS], ev[_TS], ev[_TID], ev[_BATCH])
+           for ev, name, st in _paired(_events(events)) if st is not None]
+    out.sort(key=lambda s: s[1])
+    return out
+
+
 # --------------------------------------------------------------------------
 # Chrome trace-event export
 # --------------------------------------------------------------------------
@@ -276,7 +414,8 @@ def _thread_names(events: list[tuple]) -> dict[int, str]:
     roles: dict[int, str] = {}
     for ev in events:
         tid, kind = ev[_TID], ev[_EV]
-        if kind in (EV_READ_START, EV_READ_END, EV_ENQUEUE):
+        if kind in (EV_READ_START, EV_READ_END, EV_ENQUEUE,
+                    EV_PACK_START, EV_PACK_END):
             roles.setdefault(tid, "reader")
         elif kind in (EV_SYNC_START, EV_SYNC_END,
                       EV_WRITE_START, EV_WRITE_END):
@@ -284,7 +423,8 @@ def _thread_names(events: list[tuple]) -> dict[int, str]:
         elif kind == EV_PWRITEV_RETIRE:
             roles.setdefault(tid, "writeback")
         elif kind in (EV_DISPATCH, EV_DISPATCH_DONE,
-                      EV_H2D_SUBMIT, EV_H2D_READY):
+                      EV_H2D_SUBMIT, EV_H2D_READY, EV_READER_WAIT,
+                      EV_READER_GOT, EV_GROUP_WAIT, EV_GROUP_DONE):
             roles.setdefault(tid, "compute")
     # distinct writeback workers get numbered tracks
     n_wb = 0
@@ -301,10 +441,7 @@ def chrome_trace(events: Optional[list[tuple]] = None) -> dict:
     codes per batch (per thread for batchless spans); queue depth and
     pool occupancy become counter tracks; submits/retires/recycles are
     instant events."""
-    if events is None:
-        evs = _REC.snapshot() if _REC is not None else []
-    else:
-        evs = sorted(events, key=lambda r: r[_TS])
+    evs = _events(events)
     pid = os.getpid()
     out: list[dict] = []
     if not evs:
@@ -318,19 +455,9 @@ def chrome_trace(events: Optional[list[tuple]] = None) -> dict:
         out.append({"name": "thread_name", "ph": "M", "pid": pid,
                     "tid": tid, "args": {"name": name}})
 
-    starts = {code: (end, name) for code, end, name in _SPAN_PAIRS}
-    ends = {end: (code, name) for code, end, name in _SPAN_PAIRS}
-    open_spans: dict[tuple, tuple] = {}
-    for ev in evs:
+    for ev, name, st in _paired(evs):
         ts, kind, batch, tid, val, arg = ev
-        if kind in starts:
-            _end, name = starts[kind]
-            key = (name, batch if batch >= 0 else ("t", tid))
-            open_spans[key] = ev
-        elif kind in ends:
-            _start, name = ends[kind]
-            key = (name, batch if batch >= 0 else ("t", tid))
-            st = open_spans.pop(key, None)
+        if name is not None:
             if st is None:
                 continue
             out.append({
@@ -415,15 +542,16 @@ def occupancy(events: Optional[list[tuple]] = None,
     * ``writeback`` — positioned-write pool busy seconds (sum across
       workers, so this one alone may exceed the window).
 
+    The port's host-stage spans (``pack``, ``reader_wait``,
+    ``group_wait``) and the staged copies (``h2d`` with batch
+    :data:`STAGED`) add to no stage: :func:`spans` hands them out.
+
     Per batch, the exclusive wait components are: queue-wait before
     dispatch (read_end -> dispatch start) and queue-wait before the
     writer picks it up (dispatch done -> sync start); ``waited_on``
     counts, per batch, the largest component — the stage that batch
     actually waited on."""
-    if events is None:
-        evs = _REC.snapshot() if _REC is not None else []
-    else:
-        evs = sorted(events, key=lambda r: r[_TS])
+    evs = _events(events)
     if last_run_only:
         evs = _last_run_events(evs)
     if not evs:
@@ -437,26 +565,21 @@ def occupancy(events: Optional[list[tuple]] = None,
             "d2h": 0.0, "write": 0.0, "writeback": 0.0}
     # per-batch timeline marks for critical-path attribution
     marks: dict[int, dict] = {}
-    open_spans: dict[tuple, tuple] = {}
     span_stage = {
         "read": "read", "pool_wait": "pool_wait", "h2d": "dispatch",
         "dispatch": "dispatch", "d2h_sync": "d2h", "write": "write",
     }
-    starts = {code: (end, name) for code, end, name in _SPAN_PAIRS}
-    ends = {end: (code, name) for code, end, name in _SPAN_PAIRS}
-    for ev in evs:
+    for ev, name, st in _paired(evs):
         ts, kind, batch, tid, val, arg = ev
-        if kind in starts:
-            _e, name = starts[kind]
-            open_spans[(name, batch if batch >= 0 else ("t", tid))] = ev
+        if kind in _SPAN_START:
             if batch >= 0:
                 m = marks.setdefault(batch, {})
                 m.setdefault(f"{name}_start", ts)
-        elif kind in ends:
-            _s, name = ends[kind]
-            st = open_spans.pop(
-                (name, batch if batch >= 0 else ("t", tid)), None)
-            if st is None:
+        elif name is not None:
+            if st is None or name not in span_stage or batch == STAGED:
+                # the port's host stages are waits or lie inside a read,
+                # and a staged copy lies inside its dispatch: no busy
+                # time of their own
                 continue
             dt = (ts - st[_TS]) / 1e9
             busy[span_stage[name]] += dt

@@ -25,7 +25,12 @@ width and the group cap come from the ``[pipeline]`` TOML section
 defaults are the only source of them. Every completed run is folded into
 the process totals and a ring of recent runs (:func:`publish_stats`,
 read by the shell's ``pipeline.status``), and every batch's lifecycle
-goes to the flight recorder when it is armed (pipeline/flight.py).
+goes to the flight recorder when it is armed (pipeline/flight.py), as it
+is for any run a torch profile records (``flight.follow_profiler``). The
+compute stage's wait on the reader (``reader_wait``) and the group
+drain's wait (``group_wait``) are flight spans and :class:`PipeStats`
+seconds of their own, beside the reader's ``pack`` (batch.py,
+stripe.py).
 
 Each batch's read, compute (its dispatch
 share plus the wait on its result) and write land in the tracing series
@@ -273,6 +278,12 @@ class PipeStats:
     sync_seconds: float = 0.0       # np.asarray device wait (writer)
     write_seconds: float = 0.0      # write_fn + positioned writes
     wall_seconds: float = 0.0
+    # the port's host stages that can hold the card (flight spans of the
+    # same names)
+    pack_seconds: float = 0.0       # copies into fresh batches (reader)
+    pack_bytes: int = 0             # bytes those copies moved (reader)
+    reader_wait_seconds: float = 0.0  # compute stage on the read queue
+    group_wait_seconds: float = 0.0   # the group drain's waits (compute)
 
     @property
     def compute_seconds(self) -> float:
@@ -292,7 +303,11 @@ class PipeStats:
                  max_group=self.max_group, bytes_in=self.bytes_in,
                  bytes_out=self.bytes_out,
                  dispatch_seconds=round(self.dispatch_seconds, 6),
-                 sync_seconds=round(self.sync_seconds, 6))
+                 sync_seconds=round(self.sync_seconds, 6),
+                 pack_seconds=round(self.pack_seconds, 6),
+                 pack_bytes=self.pack_bytes,
+                 reader_wait_seconds=round(self.reader_wait_seconds, 6),
+                 group_wait_seconds=round(self.group_wait_seconds, 6))
         if self.wall_seconds > 0:
             d["gibps"] = round(
                 self.bytes_in / (1 << 30) / self.wall_seconds, 3)
@@ -555,6 +570,11 @@ def run_pipeline(batches: Iterable[tuple[Any, np.ndarray]],
     if grouping and controller is None and cfg.feedback:
         controller = GroupController(group)
     t_wall = time.perf_counter()
+    # a torch profile of the run carries its host stages: arm a ring for
+    # it when nothing else did (one attribute read per run; a torch that
+    # lacks the private attribute only loses the profile-following ring)
+    flight.follow_profiler(
+        getattr(torch.autograd.profiler, "_is_profiler_enabled", False))
     flight.record(flight.EV_RUN_START, arg=hash(kind) & 0x7FFFFFFF)
     done = False
     try:
@@ -798,11 +818,15 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
         nonlocal cseq
         target = min(group, controller.target()) if controller else group
         items, ended = [item], False
+        waited = None   # host clock at the drain's first wait
         while len(items) < target:
             try:
                 nxt = read_q.get_nowait()
             except queue.Empty:
                 wait = controller.wait_seconds() if controller else 0.0
+                if wait > 0.0 and waited is None:
+                    flight.record(flight.EV_GROUP_WAIT)
+                    waited = time.perf_counter()
                 try:
                     nxt = read_q.get(timeout=wait) if wait > 0.0 \
                         else read_q.get_nowait()
@@ -814,6 +838,9 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
                 ended = True
                 break
             items.append(nxt)
+        if waited is not None:
+            st.group_wait_seconds += time.perf_counter() - waited
+            flight.record(flight.EV_GROUP_DONE, arg=len(items))
         if controller is not None and len(items) >= target:
             controller.note_supplied()
         if stop.is_set():
@@ -853,7 +880,11 @@ def _run_overlapped(batches, encode_fn, write_fn, depth, recycle_fn,
     pending = None
     try:
         while True:
+            flight.record(flight.EV_READER_WAIT)
+            t0 = time.perf_counter()
             item = read_q.get()
+            st.reader_wait_seconds += time.perf_counter() - t0
+            flight.record(flight.EV_READER_GOT)
             if item is _END:
                 break
             if stop.is_set():

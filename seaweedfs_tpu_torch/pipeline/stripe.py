@@ -1,7 +1,8 @@
 """Striping transforms: logical .dat bytes <-> per-shard file bytes.
 
 A copy of seaweedfs_tpu/pipeline/stripe.py (plain numpy) over the port's
-EcScheme.
+EcScheme, whose copies into fresh memory are recorded as the reader's
+``pack`` stage (:func:`pack`).
 
 The data-movement half of ec_encoder.go/ec_decoder.go (SURVEY.md §3.1):
 row-major striping over k shards in large-then-small blocks. Expressed as
@@ -12,26 +13,47 @@ codec consumes, so striping IS the batching.
 
 from __future__ import annotations
 
-from typing import Iterator
+import time
+from typing import Callable, Iterator
 
 import numpy as np
 
+from . import flight
 from .scheme import EcScheme
 
 
-def _pad_to(buf: np.ndarray, size: int) -> np.ndarray:
-    if buf.size == size:
-        return buf
-    out = np.zeros(size, dtype=np.uint8)
-    out[:buf.size] = buf
+def pack(stats, nbytes: int, copy: Callable[[], np.ndarray]) -> np.ndarray:
+    """``copy()``, a copy of ``nbytes`` into fresh memory on the pipeline's
+    reader, as a ``pack`` flight span; its seconds and bytes go to
+    ``stats`` (a ``pipe.PipeStats``) when one is given."""
+    flight.record(flight.EV_PACK_START)
+    t0 = time.perf_counter()
+    out = copy()
+    if stats is not None:
+        stats.pack_seconds += time.perf_counter() - t0
+        stats.pack_bytes += nbytes
+    flight.record(flight.EV_PACK_END, arg=nbytes)
     return out
 
 
-def stripe_rows(dat: np.ndarray, scheme: EcScheme
+def _pad_to(buf: np.ndarray, size: int, stats=None) -> np.ndarray:
+    if buf.size == size:
+        return buf
+
+    def copy():
+        out = np.zeros(size, dtype=np.uint8)
+        out[:buf.size] = buf
+        return out
+
+    return pack(stats, buf.nbytes, copy)
+
+
+def stripe_rows(dat: np.ndarray, scheme: EcScheme, stats=None
                 ) -> Iterator[tuple[np.ndarray, bool]]:
     """Yield (rows, is_large) batches: rows has shape (R, k, block) and
     covers the .dat in layout order — large rows first (possibly zero of
-    them), then the zero-padded small rows."""
+    them), then the zero-padded small rows. The pad copy of the small
+    rows counts in ``stats`` (:func:`pack`)."""
     k = scheme.data_shards
     large, small = scheme.large_block_size, scheme.small_block_size
     dat = np.asarray(dat, dtype=np.uint8).ravel()
@@ -42,7 +64,7 @@ def stripe_rows(dat: np.ndarray, scheme: EcScheme
     tail = dat[large_region:]
     if tail.size:
         small_rows = -(-tail.size // (small * k))
-        tail = _pad_to(tail, small_rows * small * k)
+        tail = _pad_to(tail, small_rows * small * k, stats)
         yield (tail.reshape(small_rows, k, small), False)
 
 

@@ -90,13 +90,35 @@ def _random_stream(seed=1, n=600):
     return evs
 
 
+#: The port's host-stage events, after the JAX package's 20: code, name.
+PORT_EVENTS = {"EV_PACK_START": (21, "pack_start"),
+               "EV_PACK_END": (22, "pack_end"),
+               "EV_READER_WAIT": (23, "reader_wait"),
+               "EV_READER_GOT": (24, "reader_got"),
+               "EV_GROUP_WAIT": (25, "group_wait"),
+               "EV_GROUP_DONE": (26, "group_done")}
+PORT_PAIRS = ((21, 22, "pack"), (23, 24, "reader_wait"),
+              (25, 26, "group_wait"))
+
+
 def test_event_vocabulary_equals_jax():
+    """Every JAX event keeps its code, name and pair in the port; the
+    port adds exactly its host-stage events, after them."""
     names = [n for n in dir(jax_flight) if n.startswith("EV_")]
     assert len(names) == 20
     for n in names:
         assert getattr(flight, n) == getattr(jax_flight, n), n
-    assert flight._NAMES == jax_flight._NAMES
-    assert flight._SPAN_PAIRS == jax_flight._SPAN_PAIRS
+    port_names = [n for n in dir(flight) if n.startswith("EV_")]
+    assert sorted(set(port_names) - set(names)) == sorted(PORT_EVENTS)
+    for n, (code, name) in PORT_EVENTS.items():
+        assert getattr(flight, n) == code
+        assert flight._NAMES[code] == name
+    assert {c: flight._NAMES[c] for c in jax_flight._NAMES} == \
+        jax_flight._NAMES
+    assert len(flight._NAMES) == len(jax_flight._NAMES) + len(PORT_EVENTS)
+    n_jax = len(jax_flight._SPAN_PAIRS)
+    assert flight._SPAN_PAIRS[:n_jax] == jax_flight._SPAN_PAIRS
+    assert flight._SPAN_PAIRS[n_jax:] == PORT_PAIRS
     assert flight._ADVICE == jax_flight._ADVICE
 
 
@@ -256,9 +278,11 @@ def test_trace_timestamps_relative_and_edge_cases(pkg, tmp_path):
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_trace_occupancy_and_analysis_equal_jax(seed, tmp_path):
     """The same event tuples through both packages: equal documents,
-    files and dicts, for the synthetic stream and a random soup."""
+    files and dicts, for the synthetic stream and a random soup of every
+    JAX event kind (the port's own kinds are in none of them)."""
     for evs in (synthetic_two_stage(flight, n_batches=3 + seed),
                 _random_stream(seed)):
+        assert {e[1] for e in evs} <= set(jax_flight._NAMES)
         assert flight.chrome_trace(evs) == jax_flight.chrome_trace(evs)
         a, b = tmp_path / "port.json", tmp_path / "jax.json"
         assert flight.dump_trace(str(a), evs) == \
@@ -269,6 +293,121 @@ def test_trace_occupancy_and_analysis_equal_jax(seed, tmp_path):
                 jax_flight.occupancy(evs, last_run_only=last)
             assert flight.analyze(evs, last_run_only=last) == \
                 jax_flight.analyze(evs, last_run_only=last)
+
+
+def _with_host_stages(fl):
+    """synthetic_two_stage with the port's host stages laid in: a pack
+    inside each read, the compute thread's wait on the reader before each
+    dispatch, a group wait, and the staged copies inside each dispatch."""
+    evs = synthetic_two_stage(fl)
+    more = []
+    for ts, kind, batch, tid, _v, _a in evs:
+        ms = ts / 1e6
+        if kind == fl.EV_READ_START:
+            more += [_ev(fl, ms + 0.2, fl.EV_PACK_START, tid=tid),
+                     _ev(fl, ms + 0.7, fl.EV_PACK_END, tid=tid, arg=512)]
+            more += [_ev(fl, ms, fl.EV_READER_WAIT, tid=2)]
+        elif kind == fl.EV_READ_END:
+            more += [_ev(fl, ms, fl.EV_READER_GOT, tid=2),
+                     _ev(fl, ms, fl.EV_GROUP_WAIT, tid=2),
+                     _ev(fl, ms, fl.EV_GROUP_DONE, tid=2, arg=1)]
+        elif kind == fl.EV_DISPATCH:
+            more += [_ev(fl, ms + 1.0, fl.EV_H2D_SUBMIT, batch=fl.STAGED,
+                         tid=tid),
+                     _ev(fl, ms + 15.0, fl.EV_H2D_READY, batch=fl.STAGED,
+                         tid=tid, arg=1 << 20)]
+    return sorted(evs + more, key=lambda e: e[0])
+
+
+def test_host_stage_spans_render_and_add_no_busy_time():
+    """Port only: the host-stage spans and the staged copies are trace
+    bars on the reader's and the compute stage's tracks, and leave the
+    occupancy and the verdict as the stream without them has them."""
+    plain, staged = synthetic_two_stage(flight), _with_host_stages(flight)
+    doc = flight.chrome_trace(staged)["traceEvents"]
+    bars = Counter(e["name"] for e in doc if e["ph"] == "X")
+    assert bars["pack"] == bars["reader_wait"] == bars["h2d"] == 4
+    assert bars["group_wait"] == 4
+    tracks = {e["tid"]: e["args"]["name"] for e in doc if e["ph"] == "M"}
+    assert tracks[1] == "reader" and tracks[2] == "compute"
+    occ = flight.occupancy(staged)
+    assert occ == dict(flight.occupancy(plain), events=occ["events"])
+    assert flight.analyze(staged)["verdict"] == \
+        flight.analyze(plain)["verdict"]
+
+
+def test_spans_pair_as_the_chrome_trace_does():
+    """Port only: flight.spans hands out the trace's bars on the
+    monotonic clock, oldest start first."""
+    evs = _with_host_stages(flight)
+    got = flight.spans(evs)
+    assert [s[1] for s in got] == sorted(s[1] for s in got)
+    doc = flight.chrome_trace(evs)["traceEvents"]
+    t0 = min(e[0] for e in evs)
+    bars = sorted((e["name"], e["ts"], e["dur"]) for e in doc
+                  if e["ph"] == "X")
+    assert sorted((n, round((a - t0) / 1000.0, 3),
+                   round((b - a) / 1000.0, 3))
+                  for n, a, b, _t, _b in got) == bars
+    assert {s[4] for s in got if s[0] == "h2d"} == {flight.STAGED}
+    assert flight.spans([]) == [] and flight.spans() == []
+
+
+def test_a_profiled_run_arms_a_ring_that_follows_the_profile():
+    """Port only: a run under a profile arms a ring when nothing is
+    armed, keeps it after the profile for reading, and drops it at the
+    first run no profile records; a ring armed by [flight] is left."""
+    flight.follow_profiler(False)
+    assert not flight.armed()
+    flight.follow_profiler(True)
+    rec = flight.recorder()
+    assert rec is not None and rec.capacity == flight.PROFILE_CAPACITY
+    assert not flight.current().enabled
+    flight.follow_profiler(True)
+    assert flight.recorder() is rec
+    flight.follow_profiler(False)
+    assert not flight.armed()
+    flight.configure(enabled=True, capacity=128)
+    for profiling in (True, False):
+        flight.follow_profiler(profiling)
+        assert flight.recorder().capacity == 128
+
+
+def test_concurrent_profiled_runs_share_one_ring():
+    """Port only: runs starting at once on many threads under a profile
+    arm one ring between them (none is lost to a race), and drop it at
+    once when no profile records them."""
+    import sys
+    import threading
+    n = 16
+    seen, gate = [], threading.Barrier(n)
+
+    def start(profiling):
+        gate.wait(timeout=10)
+        for _ in range(50):
+            flight.follow_profiler(profiling)
+            seen.append(flight.recorder())
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for profiling in (True, False):
+            seen.clear()
+            threads = [threading.Thread(target=start, args=(profiling,))
+                       for _ in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30)
+            assert not any(t.is_alive() for t in threads)
+            assert len(seen) == n * 50
+            if profiling:
+                assert len({id(r) for r in seen}) == 1 and seen[0]
+                assert seen[0] is flight.recorder()
+            else:
+                assert seen[-1] is None and not flight.armed()
+    finally:
+        sys.setswitchinterval(old)
 
 
 # --------------------------------------------------------------------------

@@ -293,6 +293,11 @@ def test_lookahead_never_recycles_a_buffer_a_prepared_batch_reads(
 # -- the ring of recent runs ----------------------------------------------
 
 
+#: PipeStats.to_dict's keys the JAX package has not, at a fresh run's 0.
+HOST_STAGE_KEYS = {"pack_seconds": 0.0, "pack_bytes": 0,
+                   "reader_wait_seconds": 0.0, "group_wait_seconds": 0.0}
+
+
 def test_stats_publish_and_debug_payload_equal_jax(pipe_config):
     """The JAX case, then the same stats folded into both rings give the
     same totals and entries."""
@@ -320,9 +325,18 @@ def test_stats_publish_and_debug_payload_equal_jax(pipe_config):
                       wall_seconds=1.0 + i)
         for mod, _c in PACKAGES.values():
             mod.publish_stats(mod.PipeStats(**fields), kind=f"k{i}")
-    assert pipe.debug_payload() == jax_pipe.debug_payload()
+    # the port's entries are the JAX ones plus exactly its host-stage
+    # counters, at 0 here; the totals are equal
+    port, ref = pipe.debug_payload(), jax_pipe.debug_payload()
+    assert len(port["recent"]) == len(ref["recent"]) == 8
+    for mine, theirs in zip(port.pop("recent"), ref.pop("recent")):
+        assert {k: v for k, v in mine.items() if k in theirs} == theirs
+        assert {k: mine[k] for k in mine if k not in theirs} == \
+            HOST_STAGE_KEYS
+    assert port == ref
     assert len(pipe.RECENT) == 8 == pipe.RECENT.maxlen
-    assert pipe.last_run() == jax_pipe.last_run()
+    mine, theirs = pipe.last_run(), jax_pipe.last_run()
+    assert mine == dict(theirs, **HOST_STAGE_KEYS)
     assert pipe.last_run()["kind"] == "k9"
     pipe.reset_telemetry()
     assert pipe.last_run() is None and pipe.debug_payload()["runs"] == 0
