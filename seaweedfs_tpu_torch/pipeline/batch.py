@@ -15,9 +15,17 @@ deterministic), so per-shape buckets can flush in any order — mixed
 large/small-row volumes still coalesce across volumes without corrupting
 per-volume shard layout.
 
-Every batch is packed into a fresh array (one that holds a single span
-may be a view of its source), so the data-shard views the sinks receive
-stay valid for as long as a sink holds them. The batches ride the
+:func:`encode_packed` packs every batch into a buffer of a
+``pipe.HostBufferPool``, page-locked on the card so the batch's copy to
+the card is an asynchronous DMA, and recycles the buffer once the batch's
+parity has landed and every write that views it has retired
+(``writeback.BatchToken``, :func:`encode_volumes`). The packer copies
+each volume byte once, straight from its source: a volume's last small
+row is not padded into a copy of the volume first, its pad is zeroed in
+the buffer. So the data-shard views a sink receives are valid only until
+the sink returns. :func:`iter_packed_batches` without a buffer source
+packs into fresh arrays, as before (one that holds a single span may be
+a view of its source). The batches ride the
 overlapped plane of pipe.py; on one card, runs of same-shaped batches
 share one launch (grouped dispatch, ``pipe.pick_grouped_dispatch``), and
 when ``parallel/mesh.routing_mesh`` says to split, each batch takes one
@@ -29,6 +37,8 @@ on, and a completed run is published to the ring of recent runs as
 
 from __future__ import annotations
 
+import sys
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Iterable, Iterator, Optional, Sequence
@@ -38,9 +48,9 @@ import numpy as np
 from ..ops.rs_torch import Encoder
 from ..parallel import mesh as mesh_mod
 from ..storage import ec_files, volume as volume_mod
-from . import pipe, writeback
+from . import encode, pipe, writeback
 from .scheme import DEFAULT_SCHEME, EcScheme
-from .stripe import iter_row_batches, pack, stripe_rows
+from .stripe import column_width, iter_row_batches, pack, stripe_rows
 
 def max_rows_per_batch(k: int, block: int, max_batch_bytes: int) -> int:
     """Row cap at which a (k, block)-shaped bucket flushes — THE flush
@@ -58,14 +68,72 @@ class RowSpan:
     offset: int
 
 
+class _PaddedRow:
+    """A volume's last small row where its bytes stop short of the row,
+    or columns ``[c, c + width)`` of it: a (1, k, width) part whose
+    bytes past ``src`` (the row's valid bytes) are zero. The pooled
+    packer copies the valid bytes and zeroes the pad in its buffer, as
+    ``encode.py``'s reader does, so the padded row is never made."""
+
+    __slots__ = ("src", "block", "c", "shape")
+
+    def __init__(self, src: np.ndarray, k: int, block: int, c: int = 0,
+                 width: Optional[int] = None):
+        self.src, self.block, self.c = src, block, c
+        self.shape = (1, k, block if width is None else width)
+
+    def __getitem__(self, idx) -> "_PaddedRow":
+        # the two slicings rows get: [0:1] (iter_packed_batches takes the
+        # row whole) and [0:1, :, c0:c1] (stripe.iter_row_batches)
+        rows, cols = (idx, slice(None)) if isinstance(idx, slice) \
+            else (idx[0], idx[2])
+        if rows.indices(1) != (0, 1, 1):
+            raise IndexError("a padded row has one row")
+        c0, c1, _ = cols.indices(self.shape[2])
+        return _PaddedRow(self.src, self.shape[1], self.block,
+                          self.c + c0, c1 - c0)
+
+    def copy_into(self, out: np.ndarray) -> None:
+        """Write the part into ``out`` (1, k, width)."""
+        width = self.shape[2]
+        for s in range(self.shape[1]):
+            lo = s * self.block + self.c
+            have = min(width, max(0, self.src.size - lo))
+            out[0, s, :have] = self.src[lo:lo + have]
+            out[0, s, have:] = 0
+
+
+def _unpadded_rows(dat: np.ndarray, scheme: EcScheme):
+    """``stripe.stripe_rows`` without its pad copy: the large rows and
+    the whole small rows as views of ``dat``, then the last small row,
+    where ``dat`` stops short of it, as a :class:`_PaddedRow`."""
+    k = scheme.data_shards
+    large, small = scheme.large_block_size, scheme.small_block_size
+    dat = np.asarray(dat, dtype=np.uint8).ravel()
+    rows = scheme.large_rows_count(dat.size)
+    large_region = rows * large * k
+    if rows:
+        yield dat[:large_region].reshape(rows, k, large)
+    tail = dat[large_region:]
+    whole = tail.size // (small * k) * small * k
+    if whole:
+        yield tail[:whole].reshape(-1, k, small)
+    if tail.size > whole:
+        yield _PaddedRow(tail[whole:], k, small)
+
+
 def _iter_volume_rows(sources: Iterable[tuple[object, np.ndarray]],
-                      scheme: EcScheme, max_batch_bytes: int, stats=None
-                      ) -> Iterator[tuple[object, np.ndarray]]:
+                      scheme: EcScheme, max_batch_bytes: int, stats=None,
+                      pooled: bool = False) -> Iterator[tuple[object, object]]:
     """(key, dat bytes) -> (key, (R, k, block) row tensors) in layout
     order. A volume may yield several tensors (large rows, small rows,
-    and column chunks when one row alone exceeds the batch bound)."""
+    and column chunks when one row alone exceeds the batch bound).
+    ``pooled``: the padded last small row is a :class:`_PaddedRow`, not
+    a padded copy (``stripe._pad_to``)."""
     for key, dat in sources:
-        for rows, _is_large in stripe_rows(dat, scheme, stats):
+        parts = _unpadded_rows(dat, scheme) if pooled else \
+            (rows for rows, _ in stripe_rows(dat, scheme, stats))
+        for rows in parts:
             if rows.shape[1] * rows.shape[2] > max_batch_bytes:
                 # One row is bigger than a whole batch: column-split it
                 # (iter_row_batches emits (1, k, cols) chunks in order).
@@ -82,10 +150,13 @@ class _Bucket:
         self.pend: list[tuple[object, int, np.ndarray]] = []
         self.rows = 0
 
-    def flush(self, stats=None) -> Optional[tuple[list[RowSpan], np.ndarray]]:
-        """The pending rows as one batch: a single contiguous span is
-        handed on as it is, anything else is copied into a fresh array
-        (a ``pack`` span, counted in ``stats``)."""
+    def flush(self, stats=None, buffers=None
+              ) -> Optional[tuple[list[RowSpan], np.ndarray]]:
+        """The pending rows as one batch, packed by a ``pack`` span
+        (counted in ``stats``). With ``buffers``, into the front of the
+        buffer it returns (``pack_pooled_bytes``); without, a single
+        contiguous span is handed on as it is, anything else is copied
+        into a fresh array."""
         if not self.pend:
             return None
         spans, r0 = [], 0
@@ -94,19 +165,39 @@ class _Bucket:
             r0 += rows.shape[0]
         parts = [r for _, _, r in self.pend]
         self.pend, self.rows = [], 0
-        if len(parts) == 1 and parts[0].flags.c_contiguous:
-            return spans, parts[0]
-        packed = pack(
-            stats, sum(p.nbytes for p in parts),
-            lambda: np.concatenate(parts, axis=0) if len(parts) > 1
-            else np.ascontiguousarray(parts[0]))
-        return spans, packed
+        if buffers is None:
+            if len(parts) == 1 and parts[0].flags.c_contiguous:
+                return spans, parts[0]
+            packed = pack(
+                stats, sum(p.nbytes for p in parts),
+                lambda: np.concatenate(parts, axis=0) if len(parts) > 1
+                else np.ascontiguousarray(parts[0]))
+            return spans, packed
+        shape = (r0,) + parts[0].shape[1:]
+        out = buffers()[:r0 * shape[1] * shape[2]].reshape(shape)
+
+        def copy():
+            r = 0
+            for p in parts:
+                dst = out[r:r + p.shape[0]]
+                if isinstance(p, _PaddedRow):
+                    p.copy_into(dst)
+                else:
+                    np.copyto(dst, p)
+                r += p.shape[0]
+            return out
+
+        pack(stats, out.nbytes, copy)
+        if stats is not None:
+            stats.pack_pooled_bytes += out.nbytes
+        return spans, out
 
 
 def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
                         scheme: EcScheme = DEFAULT_SCHEME,
                         max_batch_bytes: Optional[int] = None,
-                        stats: Optional[pipe.PipeStats] = None
+                        stats: Optional[pipe.PipeStats] = None,
+                        buffers: Optional[Callable[[], np.ndarray]] = None
                         ) -> Iterator[tuple[list[RowSpan], np.ndarray]]:
     """Pack per-volume row tensors into shared (B, k, block) batches of
     at most ``max_batch_bytes`` (default ``[pipeline] batch_bytes``).
@@ -115,14 +206,21 @@ def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
     and small rows still coalesce with their neighbours); a bucket
     flushes when it reaches the batch bound, and every span carries its
     shard-file offset so results scatter back position-addressed. The
-    copies into fresh memory (packing, the pad of a volume's last small
-    rows) count in ``stats``' ``pack_seconds`` and ``pack_bytes``."""
+    copies (packing, the pad of a volume's last small rows) count in
+    ``stats``' ``pack_seconds`` and ``pack_bytes``.
+
+    ``buffers``, the buffer source, is called once for every batch,
+    just before the batch is packed into the front of the uint8 buffer
+    it returns, of at least :func:`max_packed_bytes` bytes: each batch
+    is then a view of its buffer, every byte is copied once, and a
+    padded row's pad is zeroed there. Without it every batch is a fresh
+    array or a view of its source."""
     if max_batch_bytes is None:
         max_batch_bytes = pipe.current().batch_bytes
     buckets: dict[tuple[int, int], _Bucket] = {}
     cursor: dict[object, int] = {}
     for key, rows in _iter_volume_rows(sources, scheme, max_batch_bytes,
-                                       stats):
+                                       stats, pooled=buffers is not None):
         shape = (rows.shape[1], rows.shape[2])
         block = shape[1]
         max_rows = max_rows_per_batch(shape[0], block, max_batch_bytes)
@@ -136,13 +234,19 @@ def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
             b.rows += take
             r += take
             if b.rows >= max_rows:
-                out = b.flush(stats)
+                out = b.flush(stats, buffers)
                 if out:
                     yield out
     for b in buckets.values():
-        out = b.flush(stats)
+        out = b.flush(stats, buffers)
         if out:
             yield out
+
+
+def max_packed_bytes(k: int, max_batch_bytes: int) -> int:
+    """The most bytes one packed batch holds: the bound, or one column
+    chunk where the bound is narrower than a chunk can be."""
+    return max(max_batch_bytes, k * column_width(k, max_batch_bytes))
 
 
 def _pick_encode_fn(encoder: Encoder):
@@ -158,28 +262,41 @@ def _pick_encode_fn(encoder: Encoder):
     return encoder.encode_parity_host
 
 
-def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
-                  sink: Callable[[object, int, int, np.ndarray], None],
-                  scheme: EcScheme = DEFAULT_SCHEME,
-                  max_batch_bytes: Optional[int] = None,
-                  device=None,
-                  stats: Optional[pipe.PipeStats] = None) -> int:
-    """Coalesced encode over many volumes with the 3-stage pipeline, on
-    ``device`` (None = the card; raises when there is none), in batches
-    of at most ``max_batch_bytes`` (default ``[pipeline]
-    batch_bytes``; clamped to ``grouped_batch_bytes`` while grouped
-    dispatch is on).
+class _Batch:
+    """Rides a packed batch through the pipeline: its spans and the pool
+    buffer it views, released once: after the write, by ``run_pipeline``'s
+    ``recycle_fn`` (also on a failure path), unless the write stage handed
+    the release to the queued writes that view it (:meth:`token`)."""
 
-    ``sink(key, shard_id, offset, blocks)`` receives each span's bytes
-    addressed by shard-file offset (spans of one (key, shard) are
-    disjoint and cover the file), on the pipeline's writer thread.
-    ``blocks`` may be a strided (n, block) VIEW whose rows are
-    contiguous — sinks either write row-wise (zero-copy) or flatten.
-    Data shards come straight from the host batch, parity from the
-    codec. ``stats`` receives the run's stage breakdown. Returns total
+    __slots__ = ("spans", "pool", "buf", "handed")
+
+    def __init__(self, spans: list[RowSpan], pool: pipe.HostBufferPool,
+                 buf: np.ndarray):
+        self.spans, self.pool, self.buf = spans, pool, buf
+        self.handed = False
+
+    def token(self, writes: int) -> writeback.BatchToken:
+        """A token that releases the buffer once ``writes`` queued writes
+        have each called ``done_one``; :meth:`release` no longer does."""
+        self.handed = True
+        pool, buf = self.pool, self.buf
+        return writeback.BatchToken(writes, lambda: pool.release(buf))
+
+    def release(self) -> None:
+        if not self.handed:
+            self.handed = True
+            self.pool.release(self.buf)
+
+
+def _encode_pooled(sources: Iterable[tuple[object, np.ndarray]],
+                   write: Callable[[_Batch, np.ndarray, np.ndarray], None],
+                   scheme: EcScheme, max_batch_bytes: Optional[int],
+                   device, stats: Optional[pipe.PipeStats]) -> int:
+    """The pipeline under :func:`encode_packed` and
+    :func:`encode_volumes`: batches packed into a pool of host buffers,
+    ``write(meta, batch, parity)`` on the writer thread. Returns total
     input bytes."""
     encoder = scheme.encoder(device)
-    k = scheme.data_shards
     if max_batch_bytes is None:
         max_batch_bytes = pipe.current().batch_bytes
     # grouped dispatch on one card (one shared policy,
@@ -191,30 +308,74 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
         encoder.encode_parity_host_multi, max_batch_bytes,
         device=encoder.device)
     st = stats if stats is not None else pipe.PipeStats()
+    # pinned on the card: a batch's copy there is a DMA from the bytes the
+    # reader packed, not a staging copy on the dispatch thread. A stream
+    # of volumes has no known batch count, so none caps the pool.
+    pool = pipe.HostBufferPool(
+        max_packed_bytes(scheme.data_shards, max_batch_bytes),
+        pipe.pool_buffers(sys.maxsize, group=group),
+        pinned=encoder.device.type == "cuda")
+    held: list[np.ndarray] = []  # the buffer of the batch being packed
     total = 0
+
+    def acquire():
+        t0 = time.perf_counter()
+        buf = pool.acquire()
+        st.pool_wait_seconds += time.perf_counter() - t0
+        held.append(buf)
+        return buf
 
     def batches():
         nonlocal total
-        for spans, packed in iter_packed_batches(sources, scheme,
-                                                 max_batch_bytes, st):
+        for spans, packed in iter_packed_batches(
+                sources, scheme, max_batch_bytes, st, acquire):
             total += packed.size
-            yield spans, packed
+            yield _Batch(spans, pool, held.pop()), packed
 
-    def write(spans, batch, parity):
+    pipe.run_pipeline(batches(), _pick_encode_fn(encoder), write,
+                      recycle_fn=lambda meta, _batch: meta.release(),
+                      stats=st, kind="ec.batch", encode_multi_fn=multi,
+                      group=group)
+    return total
+
+
+def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
+                  sink: Callable[[object, int, int, np.ndarray], None],
+                  scheme: EcScheme = DEFAULT_SCHEME,
+                  max_batch_bytes: Optional[int] = None,
+                  device=None,
+                  stats: Optional[pipe.PipeStats] = None) -> int:
+    """Coalesced encode over many volumes with the 3-stage pipeline, on
+    ``device`` (None = the card; raises when there is none), in batches
+    of at most ``max_batch_bytes`` (default ``[pipeline]
+    batch_bytes``; clamped to ``grouped_batch_bytes`` while grouped
+    dispatch is on), each packed into a pooled host buffer (module
+    docstring).
+
+    ``sink(key, shard_id, offset, blocks)`` receives each span's bytes
+    addressed by shard-file offset (spans of one (key, shard) are
+    disjoint and cover the file), on the pipeline's writer thread.
+    ``blocks`` may be a strided (n, block) VIEW whose rows are
+    contiguous — sinks either write row-wise (zero-copy) or flatten.
+    Data shards come straight from the host batch, parity from the
+    codec. A data shard's ``blocks`` views the pooled batch, which is
+    recycled once the sink has returned: a sink that keeps the bytes
+    copies them. ``stats`` receives the run's stage breakdown. Returns
+    total input bytes."""
+    k = scheme.data_shards
+
+    def write(meta, batch, parity):
         # Views, not gather copies: each span row is already contiguous.
-        # Sinks that need flat bytes copy on demand; the file sink
-        # writes row-wise with no copy at all.
-        for sp in spans:
+        # Sinks that need flat bytes copy on demand.
+        for sp in meta.spans:
             for s in range(k):
                 sink(sp.key, s, sp.offset, batch[sp.r0:sp.r0 + sp.n, s])
             for j in range(parity.shape[1]):
                 sink(sp.key, k + j, sp.offset,
                      parity[sp.r0:sp.r0 + sp.n, j])
 
-    pipe.run_pipeline(batches(), _pick_encode_fn(encoder), write,
-                      stats=st, kind="ec.batch", encode_multi_fn=multi,
-                      group=group)
-    return total
+    return _encode_pooled(sources, write, scheme, max_batch_bytes, device,
+                          stats)
 
 
 def encode_many(payloads: Sequence[np.ndarray],
@@ -233,10 +394,10 @@ def encode_many(payloads: Sequence[np.ndarray],
 
     def sink(key, shard_id, offset, blocks):
         if pieces is not None:
-            # keep_output must own the bytes: copy the (possibly
-            # strided) span view into a flat array
+            # keep_output must own the bytes: the data views are of a
+            # pooled batch that is recycled once the sink returns
             pieces.setdefault((key, shard_id), []).append(
-                (offset, np.ascontiguousarray(blocks).reshape(-1)))
+                (offset, blocks.flatten()))
 
     sources = ((i, np.asarray(p, dtype=np.uint8).ravel())
                for i, p in enumerate(payloads))
@@ -266,11 +427,11 @@ def encode_volumes(bases: Sequence[str | Path],
     writes .ecx / .vif per volume as in single-volume encode. Returns
     total .dat bytes encoded."""
     bases = [str(b) for b in bases]
+    k = scheme.data_shards
     shard_sizes: dict[str, int] = {}
     # spans address disjoint shard-file byte ranges, so writes go to
     # the positioned-write pool (preallocated files, pwritev) and
-    # retire while the next batch packs and computes. The span views
-    # keep their batch (or source mapping) alive until their write lands.
+    # retire while the next batch packs and computes
     writer = writeback.WriterPool()
 
     def sources():
@@ -278,28 +439,47 @@ def encode_volumes(bases: Sequence[str | Path],
             datp = volume_mod.dat_path(b)
             size = datp.stat().st_size
             shard_sizes[b] = scheme.shard_file_size(size)
-            # copy-on-write mapping: a batch that views it is writable
-            # for torch.from_numpy, and no write could reach the .dat
-            dat = np.memmap(datp, dtype=np.uint8, mode="c") \
+            # read-only: the packer copies every byte into a pool buffer
+            dat = np.memmap(datp, dtype=np.uint8, mode="r") \
                 if size else np.zeros(0, dtype=np.uint8)
             yield b, dat
 
-    def sink(base, shard_id, offset, blocks):
+    def submit(base, shard_id, offset, rows, token=None):
         path = str(ec_files.shard_path(base, shard_id))
         writer.open_file(path, shard_sizes[base])
-        if blocks.ndim > 1 and \
-                blocks.shape[-1] >= pipe.ROW_WRITE_MIN_BLOCK:
-            # (n, block) span view: rows are contiguous even when the
-            # span itself is strided — queue them without a gather copy
-            writer.submit(path, offset,
-                          [blocks[r] for r in range(blocks.shape[0])])
-        else:
-            writer.submit(path, offset,
-                          [np.ascontiguousarray(blocks).reshape(-1)])
+        writer.submit(path, offset, rows, token)
+
+    def write(meta, batch, parity):
+        row_ok = batch.shape[2] >= pipe.ROW_WRITE_MIN_BLOCK
+        writes = k * len(meta.spans)
+        # data rows VIEW the pooled batch on the row path (rows are
+        # contiguous even when a span is strided): its buffer is
+        # recycled once all of their writes have retired. The copy path
+        # flattens, and the batch is recycled when this returns.
+        token = meta.token(writes) if row_ok else None
+        done = 0
+        try:
+            for sp in meta.spans:
+                for s in range(k):
+                    submit(sp.key, s, sp.offset, encode._shard_rows(
+                        batch[sp.r0:sp.r0 + sp.n, s], row_ok, pooled=True),
+                        token)
+                    done += 1
+        except BaseException:
+            # a failed writer or a crash point: fire the unreached counts
+            # so the buffer still comes back and the reader can drain out
+            if token is not None:
+                for _ in range(writes - done):
+                    token.done_one()
+            raise
+        for sp in meta.spans:
+            for j in range(parity.shape[1]):
+                submit(sp.key, k + j, sp.offset, encode._shard_rows(
+                    parity[sp.r0:sp.r0 + sp.n, j], row_ok))
 
     try:
-        total = encode_packed(sources(), sink, scheme, max_batch_bytes,
-                              device=device, stats=stats)
+        total = _encode_pooled(sources(), write, scheme, max_batch_bytes,
+                               device, stats)
         writer.close()
         writer = None
         return total

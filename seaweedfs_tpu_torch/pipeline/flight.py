@@ -49,9 +49,12 @@ idle on the one-card seal path, each with a ``PipeStats`` counter that
 is armed:
 
 * ``pack`` (21 / 22, arg = bytes; the reader, paired by thread): the
-  batcher's copies into fresh memory, ``batch._Bucket.flush`` when it
-  concatenates rows or copies a non-contiguous column chunk, and
-  ``stripe._pad_to`` (``pack_seconds``, ``pack_bytes``);
+  batcher's copies into its batches, ``batch._Bucket.flush`` (on a seal
+  every batch, into a pool buffer: ``pack_pooled_bytes``; without a
+  pool, when it concatenates rows or copies a non-contiguous column
+  chunk) and ``stripe._pad_to`` (``pack_seconds``, ``pack_bytes``); the
+  reader's wait for a pool buffer lies outside it
+  (``pool_wait_seconds``);
 * ``reader_wait`` (23 / 24; compute, by thread): the blocking read-queue
   get of the overlapped path's main loop (``reader_wait_seconds``);
 * ``group_wait`` (25 / 26, arg = group width; compute, by thread): one
@@ -132,7 +135,7 @@ EV_RECYCLE = 18        # pooled buffer returned; value=in-flight after
 EV_QDEPTH = 19         # counter: value=depth, arg: 0=read_q 1=write_q
 EV_POOL_OCC = 20       # counter: value=in-flight pooled buffers
 #: the port's host stages that can hold the card (none in the JAX package)
-EV_PACK_START = 21     # reader copies rows into fresh memory (batch, stripe)
+EV_PACK_START = 21     # reader copies rows into a batch (batch, stripe)
 EV_PACK_END = 22       # arg=bytes copied
 EV_READER_WAIT = 23    # compute stage blocks on the read queue
 EV_READER_GOT = 24     # it got a batch (or the reader's end marker)

@@ -30,7 +30,9 @@ is for any run a torch profile records (``flight.follow_profiler``). The
 compute stage's wait on the reader (``reader_wait``) and the group
 drain's wait (``group_wait``) are flight spans and :class:`PipeStats`
 seconds of their own, beside the reader's ``pack`` (batch.py,
-stripe.py).
+stripe.py) and the batcher's pool counters (``pack_pooled_bytes``,
+``pool_wait_seconds``: its reader's wait on :meth:`HostBufferPool.acquire`,
+whose ``pool_wait`` / ``recycle`` events the recorder already has).
 
 Each batch's read, compute (its dispatch
 share plus the wait on its result) and write land in the tracing series
@@ -280,10 +282,13 @@ class PipeStats:
     wall_seconds: float = 0.0
     # the port's host stages that can hold the card (flight spans of the
     # same names)
-    pack_seconds: float = 0.0       # copies into fresh batches (reader)
+    pack_seconds: float = 0.0       # copies into batches (reader)
     pack_bytes: int = 0             # bytes those copies moved (reader)
     reader_wait_seconds: float = 0.0  # compute stage on the read queue
     group_wait_seconds: float = 0.0   # the group drain's waits (compute)
+    # the batcher's pool of host buffers (pipeline/batch.py)
+    pack_pooled_bytes: int = 0      # of pack_bytes, into pool buffers
+    pool_wait_seconds: float = 0.0  # the reader blocked on acquire
 
     @property
     def compute_seconds(self) -> float:
@@ -307,7 +312,9 @@ class PipeStats:
                  pack_seconds=round(self.pack_seconds, 6),
                  pack_bytes=self.pack_bytes,
                  reader_wait_seconds=round(self.reader_wait_seconds, 6),
-                 group_wait_seconds=round(self.group_wait_seconds, 6))
+                 group_wait_seconds=round(self.group_wait_seconds, 6),
+                 pack_pooled_bytes=self.pack_pooled_bytes,
+                 pool_wait_seconds=round(self.pool_wait_seconds, 6))
         if self.wall_seconds > 0:
             d["gibps"] = round(
                 self.bytes_in / (1 << 30) / self.wall_seconds, 3)

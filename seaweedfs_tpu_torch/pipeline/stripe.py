@@ -23,9 +23,10 @@ from .scheme import EcScheme
 
 
 def pack(stats, nbytes: int, copy: Callable[[], np.ndarray]) -> np.ndarray:
-    """``copy()``, a copy of ``nbytes`` into fresh memory on the pipeline's
-    reader, as a ``pack`` flight span; its seconds and bytes go to
-    ``stats`` (a ``pipe.PipeStats``) when one is given."""
+    """``copy()``, a copy of ``nbytes`` into a batch (fresh memory, or a
+    pooled buffer the caller already holds) on the pipeline's reader, as
+    a ``pack`` flight span; its seconds and bytes go to ``stats`` (a
+    ``pipe.PipeStats``) when one is given."""
     flight.record(flight.EV_PACK_START)
     t0 = time.perf_counter()
     out = copy()
@@ -119,6 +120,13 @@ def unstripe(shards: list[np.ndarray], dat_size: int,
     return full[:dat_size]
 
 
+def column_width(k: int, max_batch_bytes: int) -> int:
+    """Columns of one column chunk of a row too wide for the batch bound:
+    128-byte aligned (the device packing group), at least 128, so a
+    chunk holds at most ``max(max_batch_bytes, 128 * k)`` bytes."""
+    return max(128, (max_batch_bytes // k) // 128 * 128)
+
+
 def iter_row_batches(rows: np.ndarray, max_batch_bytes: int
                      ) -> Iterator[np.ndarray]:
     """Split a (R, k, block) row tensor into batches bounded by
@@ -139,7 +147,7 @@ def iter_row_batches(rows: np.ndarray, max_batch_bytes: int
         for start in range(0, r_total, rows_per_batch):
             yield rows[start:start + rows_per_batch]
         return
-    cols = max(128, (max_batch_bytes // k) // 128 * 128)
+    cols = column_width(k, max_batch_bytes)
     for r in range(r_total):
         for c in range(0, block, cols):
             yield rows[r:r + 1, :, c:c + cols]

@@ -274,6 +274,40 @@ def test_encode_many_on_the_card_matches_the_cpu(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_encode_packed_hands_pinned_batches_to_the_card(monkeypatch):
+    """The batcher packs every batch on the card into a page-locked pool
+    buffer, so each slab ``encode_parity_host_multi`` copies to the card
+    is pinned; the shards equal the CPU path's, and every byte was packed
+    into the pool."""
+    _need_card()
+    from seaweedfs_tpu_torch.pipeline import batch
+    monkeypatch.setattr(rs_torch, "DEVICE_MIN_S", 4096)
+    pinned = []
+    multi = rs_torch.Encoder.encode_parity_host_multi
+
+    def spy(self, batches):
+        pinned.extend(torch.from_numpy(b).is_pinned() for b in batches)
+        return multi(self, batches)
+
+    monkeypatch.setattr(rs_torch.Encoder, "encode_parity_host_multi", spy)
+    scheme = EcScheme(10, 4, large_block_size=64 * 1024,
+                      small_block_size=8 * 1024)
+    rng = np.random.default_rng(24)
+    payloads = [rng.integers(0, 256, int(rng.integers(1, 900 * 1024)),
+                             dtype=np.uint8) for _ in range(9)]
+    st = pipe.PipeStats()
+    total, got = batch.encode_many(payloads, scheme, 1 << 20,
+                                   keep_output=True, stats=st)
+    assert pinned and all(pinned)
+    assert st.pack_pooled_bytes == st.pack_bytes == total
+    _, want = batch.encode_many(payloads, scheme, 1 << 20, keep_output=True,
+                                device="cpu")
+    for mine, ref in zip(got, want):
+        for a, b in zip(mine, ref):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
 def test_shell_encode_on_the_card_matches_the_cpu(tmp_path):
     """``ec.encode`` through the admin shell on the card (device=None):
     every shard, .ecx and .vif sha256-equal to the ``-device cpu`` run,
