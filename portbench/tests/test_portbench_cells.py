@@ -125,11 +125,12 @@ def test_the_source_stops_at_the_deadline_and_counts_what_it_fed():
 
 
 def test_the_window_byte_count_equals_the_sink_count():
+    size = tiny.overrides("seal_backlog_30mib")
     with tiny.small_batches():
         result, outcome = harness.run(
             "seal_backlog_30mib", 11, 0.2, False, time.perf_counter(),
-            device="cpu", overrides=tiny.overrides("seal_backlog_30mib"))
-    r, cfg = outcome.readings, tiny.SEAL["config"]
+            device="cpu", overrides=size)
+    r, cfg = outcome.readings, size["config"]
     volumes = outcome.info["volumes"]
     assert volumes >= 1 and r["dat_bytes"] == volumes * cfg["volume_bytes"]
     from portbench import reference

@@ -3,11 +3,12 @@
 synthetic intervals, the readers on the tiny CPU seal cells, and on the
 card each seal cell traced over a short window."""
 
+import json
 import time
 
 import pytest
 
-from portbench import harness, hostspans
+from portbench import harness, hostspans, trace
 from portbench.tests import tiny
 
 READERS = ("pack_busy.seal", "idle_reader_wait.seal",
@@ -90,6 +91,73 @@ def test_device_ops_are_the_cards_kernels_and_copies_in_either_torch():
            (_Event("CPU"), False)]
     for e, want in new + old:
         assert hostspans._device_op(e) is want
+
+
+def test_each_idle_gap_is_labelled_by_the_first_state_open_at_its_middle():
+    states = {"dispatch": _ms((0, 50)), "reader_wait": _ms((12, 18)),
+              "h2d": _ms((14, 16)), "group_wait": _ms((30, 39.5))}
+    gaps = [(a * 1e3, b * 1e3, op) for a, b, op in (
+        (10, 20, "Memcpy HtoD"),       # middle 15: h2d beats the rest
+        (30, 40, "Memcpy HtoD"),       # 35: group_wait beats dispatch
+        (32, 38, "kernel"),            # 35 again, another operation
+        (40, 46, "Memcpy DtoH"),       # 43: dispatch alone
+        (50, 60, "end of window"))]    # 55: under no span
+    got = dict(trace._label_gaps(gaps, states))
+    assert got == {
+        "h2d -> Memcpy HtoD (1 gaps)": pytest.approx(0.010),
+        "group_wait -> Memcpy HtoD (1 gaps)": pytest.approx(0.010),
+        "group_wait -> kernel (1 gaps)": pytest.approx(0.006),
+        "dispatch -> Memcpy DtoH (1 gaps)": pytest.approx(0.006),
+        "none -> end of window (1 gaps)": pytest.approx(0.010)}
+    assert list(got)[0].startswith(("h2d", "group_wait", "none"))
+    unringed = trace._label_gaps(gaps[:2], None)
+    assert unringed == [["no ring -> Memcpy HtoD (2 gaps)",
+                         pytest.approx(0.020)]]
+
+
+class _Profile:
+    """A finished profile that exports a fixed chrome trace."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as f:
+            json.dump({"traceEvents": self.events}, f)
+
+
+def test_the_labels_sum_to_the_idle_seconds_device_idle_reads(monkeypatch):
+    from seaweedfs_tpu_torch.pipeline import flight
+    w0, t0 = 1_000_000.0, 50.0       # the trace's µs at host second 50
+    # 24 kernels of 1 ms, one every 4 ms, each under its own name: 24
+    # labels, more than the breakdown keeps, so the rest fold into one
+    ops = [{"ph": "X", "cat": "kernel", "name": f"op{i}",
+            "ts": w0 + 4e3 * i + 2e3, "dur": 1e3} for i in range(24)]
+    mark = {"ph": "X", "cat": "user_annotation", "name": "pb.window",
+            "ts": w0, "dur": 100e3}
+    # the group drain waits over the first 40 ms of the window
+    ring = [("group_wait", int(t0 * 1e9), int((t0 + 0.040) * 1e9), 1, -1),
+            ("h2d", int((t0 + 0.060) * 1e9), int((t0 + 0.070) * 1e9), 1,
+             flight.STAGED)]
+    monkeypatch.setattr(flight, "recorder",
+                        lambda: type("Ring", (), {"dropped": 0})())
+    monkeypatch.setattr(flight, "spans", lambda: ring)
+    w = trace.Window(True, True)
+    w._t0, w._prof = t0, _Profile([mark] + ops)
+    reading = w.reading = w._read()
+    labels = reading.idle_gaps
+    assert len(labels) == trace.TOP and labels[-1][0].startswith("other (")
+    assert labels[0][0] == "none -> end of window (1 gaps)"
+    states = {label.split(" -> ")[0] for label, _ in labels[:-1]}
+    assert states <= {"group_wait", "h2d", "none"} and "group_wait" in states
+    assert sum(int(label.rsplit("(", 1)[1].split()[0])
+               for label, _ in labels) == 25
+    idle_share = harness.load_metric("device_idle.seal").read(
+        harness.Outcome(setup_s=1.0, attempted=1, failed=0, checks=[],
+                        readings={"dat_bytes": 1}, window=w))
+    idle_s = reading.window_s * idle_share / 100
+    assert idle_s == pytest.approx(0.100 - 0.024)
+    assert sum(s for _, s in labels) == pytest.approx(idle_s, rel=1e-9)
 
 
 @pytest.mark.parametrize("cell", tiny.SEAL_CELLS)

@@ -1,6 +1,13 @@
 """The cells cut to a size a CPU test run holds: 128 KiB blocks (the
 smallest product that still takes the kernels' plain versions, at
-rs_torch.DEVICE_MIN_S), a few volumes or needles, short windows."""
+rs_torch.DEVICE_MIN_S), a few volumes or needles, short windows.
+
+The cells are read from ``BENCHMARK.json`` and grouped by their mix's
+``mode``; each mode has its tiny size (:data:`TINY`). A configuration
+file or a mix file may carry a ``"tiny"`` object, merged over its mode's
+size (``config`` and ``traffic`` respectively): the one place a cell
+says how it is cut to the CPU. So a cell is added as files and appended
+``BENCHMARK.json`` entries alone, and these tests take it up."""
 
 import contextlib
 import json
@@ -8,24 +15,27 @@ import subprocess
 import sys
 from pathlib import Path
 
+from portbench import harness
+
 ROOT = Path(__file__).resolve().parents[2]
-SEAL = {"config": {"scheme": {"small_block_bytes": 131072},
-                   "volume_bytes": 2_700_000},
-        "traffic": {"pool_volumes": 3, "warmup_volumes": 2,
-                    "check_share": 0.25, "tail_share": 1.0}}
-READ = {"config": {"scheme": {"small_block_bytes": 131072},
-                   "volume_bytes": 6_000_000,
-                   "needle_avg_bytes": 262_144},
-        "traffic": {"clients": 4, "warmup_reads": 8, "check_share": 0.5,
-                    "check_longest": 2}}
+#: Each mode's tiny size, {"config": ..., "traffic": ...} overrides.
+TINY = {
+    "seal": {"config": {"scheme": {"small_block_bytes": 131072},
+                        "volume_bytes": 2_700_000},
+             "traffic": {"pool_volumes": 3, "warmup_volumes": 2,
+                         "check_share": 0.25, "tail_share": 1.0}},
+    "read": {"config": {"scheme": {"small_block_bytes": 131072},
+                        "volume_bytes": 6_000_000,
+                        "needle_avg_bytes": 262_144},
+             "traffic": {"clients": 4, "warmup_reads": 8,
+                         "check_share": 0.5, "check_longest": 2}}}
 #: Every check reads, sound or broken.
 EVERYTHING = {"traffic": {"check_share": 1.0}}
-SEAL_CELLS = ("seal_backlog_30mib", "seal_1gib_volumes")
 READ_CELL = "degraded_read_4lost"
-CELLS = SEAL_CELLS + (READ_CELL,)
-#: The degraded-read cell's BENCHMARK.json entries, as a later PR adds
-#: them: its mode, mix and metric readers are in the benchmark, but the
-#: cell is not (its runs spread too widely on the card's host, PERF.md).
+#: The one cell list left: the degraded-read cell's BENCHMARK.json
+#: entries, as a later PR adds them. Its mode, mix and metric readers
+#: are in the benchmark, but the cell is not (its runs spread too widely
+#: on the card's host, PERF.md), so this is the read mode's fixture.
 READ_ENTRIES = {
     "workloads": [{
         "name": READ_CELL, "config": "volume_1gib_rs10_4",
@@ -49,19 +59,50 @@ READ_ENTRIES = {
              "device (one H100)"))]}
 
 
+def _entry(cell: str, root: Path = ROOT) -> tuple[dict, dict]:
+    """(``BENCHMARK.json`` at ``root``, the workload entry of ``cell``:
+    its own, else the read mode's fixture)."""
+    bench = harness.load_benchmark(root)
+    for w in bench["workloads"] + READ_ENTRIES["workloads"]:
+        if w["name"] == cell:
+            return bench, w
+    raise KeyError(f"no workload {cell!r}")
+
+
+def cells(mode: str, root: Path = ROOT) -> tuple:
+    """The cells of ``BENCHMARK.json`` at ``root`` whose mix has ``mode``,
+    and the read mode's fixture where it is not among them."""
+    bench = harness.load_benchmark(root)
+    names = [w["name"] for w in bench["workloads"]]
+    entries = bench["workloads"] + [w for w in READ_ENTRIES["workloads"]
+                                    if w["name"] not in names]
+    return tuple(w["name"] for w in entries if harness.load_traffic(
+        w["traffic"], root)["mode"] == mode)
+
+
+SEAL_CELLS = cells("seal")
+READ_CELLS = cells("read")
+CELLS = SEAL_CELLS + READ_CELLS
+
+
 def root_with_read_cell(tmp: Path) -> Path:
     """A checkout root in ``tmp``: this benchmark's files (linked) and a
-    BENCHMARK.json that holds the degraded-read cell too."""
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    BENCHMARK.json that holds the degraded-read cell's entries too, those
+    it does not hold already."""
+    bench = harness.load_benchmark(ROOT)
     for key, entries in READ_ENTRIES.items():
-        bench[key] += entries
+        have = {e["name"] for e in bench[key]}
+        bench[key] += [e for e in entries if e["name"] not in have]
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
     (tmp / "portbench").symlink_to(ROOT / "portbench")
     return tmp
 
 
 def root_for(cell: str, tmp: Path) -> Path:
-    return root_with_read_cell(tmp) if cell == READ_CELL else ROOT
+    """ROOT where its BENCHMARK.json holds ``cell``, else a root in
+    ``tmp`` that holds the read mode's fixture too."""
+    names = {w["name"] for w in harness.load_benchmark(ROOT)["workloads"]}
+    return ROOT if cell in names else root_with_read_cell(tmp)
 
 
 #: A batch bound that keeps the CPU's plain kernels to a few MiB in
@@ -81,9 +122,16 @@ def small_batches():
         pipe.configure(batch_bytes=saved[0], grouped_batch_bytes=saved[1])
 
 
-def overrides(cell: str, everything: bool = False) -> dict:
-    base = READ if cell.startswith("degraded") else SEAL
-    out = json.loads(json.dumps(base))
+def overrides(cell: str, everything: bool = False,
+              root: Path = ROOT) -> dict:
+    """The CPU size of ``cell`` (of ``BENCHMARK.json`` at ``root``): its
+    mode's :data:`TINY`, with the configuration's and the mix's ``tiny``
+    objects merged over it; ``everything`` checks every answer."""
+    bench, w = _entry(cell, root)
+    mix = harness.load_traffic(w["traffic"], root)
+    config = harness.load_config(bench, w["config"], root)
+    out = harness._merge(TINY[mix["mode"]], {
+        "config": config.get("tiny", {}), "traffic": mix.get("tiny", {})})
     if everything:
         out["traffic"].update(EVERYTHING["traffic"])
     return out
@@ -104,7 +152,7 @@ def run_cli(cell: str, seed: int = 2 ** 31 + 7, seconds: float = 0.3,
         f"grouped_batch_bytes={BATCH_BYTES})\n"
         f"rc = harness.main(['--workload', {cell!r}, '--seed', '{seed}', "
         f"'--seconds', '{seconds}', '--trace', '{trace}'], t0, "
-        f"device='cpu', overrides={overrides(cell)!r}, "
+        f"device='cpu', overrides={overrides(cell, root=root)!r}, "
         f"root=harness.Path({str(root)!r}))\n"
         "print('MODULES ' + json.dumps(sorted({m.split('.')[0] for m in "
         "list(sys.modules)})), file=sys.stderr)\n"

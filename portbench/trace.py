@@ -5,15 +5,17 @@ timed call: no profiler, no spans. With tracing on, ``torch.profiler``
 records the device's kernels and copies (CUPTI), the benchmark's own
 files record spans around their calls into the program (:meth:`span`,
 on any thread, in host-clock time), and :func:`gf_calls` records the
-shapes of every GF(2^8) product handed to the kernels. The host spans
+shapes of every GF(2^8) product handed to the kernels. The device's idle
+gaps are labelled by the pipeline's state (``hostspans.STATES``) that the
+program's flight ring has open at each one's middle; the ring's spans
 are placed on the trace's clock by the ``pb.window`` annotation, whose
 start the profiler and the host clock both mark.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
-import heapq
 import json
 import os
 import tempfile
@@ -129,34 +131,53 @@ class Window:
                 edge = b
         if edge < w1:
             gaps.append((edge, w1, "end of window"))
-        spans = sorted(((t0 - self._t0) * 1e6 + w0,
-                        (t1 - self._t0) * 1e6 + w0, name)
-                       for name, t0, t1 in self._spans)
         return Reading(
             busy_s=busy / 1e6, window_s=(w1 - w0) / 1e6,
             device_ops=sorted(ops.items(), key=lambda kv: -kv[1])[:TOP],
-            idle_gaps=_label_gaps(gaps, spans), gf_kernel_s=gf_s)
+            idle_gaps=_label_gaps(gaps, _ring_states(self._t0, w0)),
+            gf_kernel_s=gf_s)
 
 
-def _label_gaps(gaps: list, spans: list) -> list:
-    """Sum the idle gaps by the host spans open at each one's middle and
-    the device operation that ends it: [[label, seconds], ...], largest
-    first."""
+def _ring_states(t0: float, w0: float) -> Optional[dict]:
+    """The flight ring's spans of ``hostspans.STATES`` on the trace's
+    clock (``t0``: the host clock at the trace's ``w0``), or None where
+    no ring ran or it dropped events."""
+    from seaweedfs_tpu_torch.pipeline import flight
+
+    from . import hostspans
+    rec, spans_of = flight.recorder(), getattr(flight, "spans", None)
+    if rec is None or spans_of is None or rec.dropped:
+        return None
+    return hostspans.placed(spans_of(), flight.STAGED, t0, w0)
+
+
+def _label_gaps(gaps: list, states: Optional[dict]) -> list:
+    """Sum the idle gaps by the pipeline state open at each one's middle
+    (the first of ``hostspans.STATES`` whose ``states`` spans hold it,
+    else ``none``; ``no ring`` where ``states`` is None) and the device
+    operation that ends it: [[label, seconds], ...], largest first, the
+    state first in each label. Past :data:`TOP` labels the smallest go
+    to one ``other`` entry, so the seconds always sum to the idle."""
+    from . import hostspans
+    open_at = {s: hostspans._merged(states.get(s, ()))
+               for s in hostspans.STATES} if states is not None else {}
     sums: dict = {}
-    active: list = []          # heap of (end, seq, name)
-    i = 0
-    for a, b, nxt in gaps:     # gaps come in time order
+    for a, b, nxt in gaps:
         mid = (a + b) / 2
-        while i < len(spans) and spans[i][0] <= mid:
-            heapq.heappush(active, (spans[i][1], i, spans[i][2]))
-            i += 1
-        while active and active[0][0] <= mid:
-            heapq.heappop(active)
-        names = sorted({name for _, _, name in active}) or ["no span"]
-        key = f"{'|'.join(names)} -> {nxt}"
+        state = hostspans.NONE if states is not None else "no ring"
+        for name, (starts, ends) in open_at.items():
+            i = bisect.bisect_right(starts, mid) - 1
+            if i >= 0 and ends[i] > mid:
+                state = name
+                break
+        key = f"{state} -> {nxt}"
         total, count = sums.get(key, (0.0, 0))
         sums[key] = (total + (b - a) / 1e6, count + 1)
-    ranked = sorted(sums.items(), key=lambda kv: -kv[1][0])[:TOP]
+    ranked = sorted(sums.items(), key=lambda kv: -kv[1][0])
+    if len(ranked) > TOP:
+        rest = ranked[TOP - 1:]
+        ranked = ranked[:TOP - 1] + [("other", (
+            sum(t for _, (t, _) in rest), sum(c for _, (_, c) in rest)))]
     return [[f"{key} ({count} gaps)", total]
             for key, (total, count) in ranked]
 
