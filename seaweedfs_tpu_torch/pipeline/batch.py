@@ -7,7 +7,9 @@ Encoding each volume alone would run thousands of tiny device calls (a
 from MANY volumes into shared ``(B, k, block)`` batches, bucketing by
 row shape (k, block size) so every launch is full width. Rows larger
 than the batch bound are column-split first (the codec is position-wise),
-so one oversized large row can never breach the batch bound.
+so one oversized large row can never breach the batch bound; each of its
+column chunks is a batch of its own, handed on before the next row is
+packed, so no chunk waits in a bucket for later volumes' rows.
 
 Scatter-back is OFFSET-ADDRESSED: every packed span records the exact
 shard-file byte offset its blocks occupy (the striping layout is
@@ -48,7 +50,7 @@ import numpy as np
 from ..ops.rs_torch import Encoder
 from ..parallel import mesh as mesh_mod
 from ..storage import ec_files, volume as volume_mod
-from . import encode, pipe, writeback
+from . import encode, flight, pipe, writeback
 from .scheme import DEFAULT_SCHEME, EcScheme
 from .stripe import column_width, iter_row_batches, pack, stripe_rows
 
@@ -124,10 +126,13 @@ def _unpadded_rows(dat: np.ndarray, scheme: EcScheme):
 
 def _iter_volume_rows(sources: Iterable[tuple[object, np.ndarray]],
                       scheme: EcScheme, max_batch_bytes: int, stats=None,
-                      pooled: bool = False) -> Iterator[tuple[object, object]]:
-    """(key, dat bytes) -> (key, (R, k, block) row tensors) in layout
-    order. A volume may yield several tensors (large rows, small rows,
-    and column chunks when one row alone exceeds the batch bound).
+                      pooled: bool = False
+                      ) -> Iterator[tuple[object, object, bool]]:
+    """(key, dat bytes) -> (key, rows, chunk) in layout order: (R, k,
+    block) row tensors (``chunk`` False), or, where one row alone exceeds
+    the batch bound, that row's (1, k, cols) column chunks (``chunk``
+    True; counted in ``stats``' ``split_rows`` / ``split_chunks``). A
+    volume may yield several of each (large rows, small rows).
     ``pooled``: the padded last small row is a :class:`_PaddedRow`, not
     a padded copy (``stripe._pad_to``)."""
     for key, dat in sources:
@@ -137,10 +142,14 @@ def _iter_volume_rows(sources: Iterable[tuple[object, np.ndarray]],
             if rows.shape[1] * rows.shape[2] > max_batch_bytes:
                 # One row is bigger than a whole batch: column-split it
                 # (iter_row_batches emits (1, k, cols) chunks in order).
+                if stats is not None:
+                    stats.split_rows += rows.shape[0]
                 for chunk in iter_row_batches(rows, max_batch_bytes):
-                    yield key, chunk
+                    if stats is not None:
+                        stats.split_chunks += 1
+                    yield key, chunk, True
             else:
-                yield key, rows
+                yield key, rows, False
 
 
 class _Bucket:
@@ -214,13 +223,26 @@ def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
     it returns, of at least :func:`max_packed_bytes` bytes: each batch
     is then a view of its buffer, every byte is copied once, and a
     padded row's pad is zeroed there. Without it every batch is a fresh
-    array or a view of its source."""
+    array or a view of its source.
+
+    A row wider than the batch bound is column-split, and each of its
+    chunks leaves at once as a batch of its own (a ``split_flush``
+    flight event; its copy counts in ``split_pack_*`` too): every column
+    chunk of a volume's row is emitted before the packer takes the next
+    row, so none waits in a bucket for later volumes' rows. Rows that fit
+    the bound share the per-shape buckets across volumes as before."""
     if max_batch_bytes is None:
         max_batch_bytes = pipe.current().batch_bytes
     buckets: dict[tuple[int, int], _Bucket] = {}
     cursor: dict[object, int] = {}
-    for key, rows in _iter_volume_rows(sources, scheme, max_batch_bytes,
-                                       stats, pooled=buffers is not None):
+    for key, rows, chunk in _iter_volume_rows(
+            sources, scheme, max_batch_bytes, stats,
+            pooled=buffers is not None):
+        if chunk:
+            off = cursor.get(key, 0)
+            cursor[key] = off + rows.shape[2]
+            yield _flush_chunk(key, off, rows, stats, buffers)
+            continue
         shape = (rows.shape[1], rows.shape[2])
         block = shape[1]
         max_rows = max_rows_per_batch(shape[0], block, max_batch_bytes)
@@ -241,6 +263,28 @@ def iter_packed_batches(sources: Iterable[tuple[object, np.ndarray]],
         out = b.flush(stats, buffers)
         if out:
             yield out
+
+
+def _flush_chunk(key, offset: int, chunk, stats=None, buffers=None
+                 ) -> tuple[list[RowSpan], np.ndarray]:
+    """One column chunk as a batch of its own (:meth:`_Bucket.flush`).
+    In ``stats``: its copy in ``split_pack_*``, and in
+    ``split_hold_max_seconds`` the host time from the packer taking it to
+    its batch leaving, the wait for a pool buffer included."""
+    taken = time.perf_counter()
+    b = _Bucket()
+    b.pend.append((key, offset, chunk))
+    if stats is None:
+        out = b.flush(None, buffers)
+    else:
+        seconds, nbytes = stats.pack_seconds, stats.pack_bytes
+        out = b.flush(stats, buffers)
+        stats.split_pack_seconds += stats.pack_seconds - seconds
+        stats.split_pack_bytes += stats.pack_bytes - nbytes
+        stats.split_hold_max_seconds = max(stats.split_hold_max_seconds,
+                                           time.perf_counter() - taken)
+    flight.record(flight.EV_SPLIT_FLUSH, arg=out[1].nbytes)
+    return out
 
 
 def max_packed_bytes(k: int, max_batch_bytes: int) -> int:
@@ -361,7 +405,16 @@ def encode_packed(sources: Iterable[tuple[object, np.ndarray]],
     codec. A data shard's ``blocks`` views the pooled batch, which is
     recycled once the sink has returned: a sink that keeps the bytes
     copies them. ``stats`` receives the run's stage breakdown. Returns
-    total input bytes."""
+    total input bytes.
+
+    Batches reach the sink in the order they were packed, and a row
+    wider than the batch bound (a 1 GiB-block large row) reaches it
+    whole, chunk after chunk, before any later row is packed
+    (:func:`iter_packed_batches`). Only rows that fit the bound wait in
+    a bucket for other volumes' rows, a batch's worth at most: where each
+    volume has a batch of small rows or more (a 30000 MiB volume's 952,
+    six to a batch at 64 MiB), every span of a volume reaches the sink
+    before the first byte of the volume two after it."""
     k = scheme.data_shards
 
     def write(meta, batch, parity):
@@ -425,7 +478,13 @@ def encode_volumes(bases: Sequence[str | Path],
     batches on ``device`` (the file-level config-3 path of ``ec.encode``
     over a collection). Writes <base>.ec00.. for every base; the caller
     writes .ecx / .vif per volume as in single-volume encode. Returns
-    total .dat bytes encoded."""
+    total .dat bytes encoded.
+
+    A volume's large rows are column-split and written chunk after
+    chunk, each row before the next row is packed (:func:`encode_packed`):
+    where each volume has a batch of small rows or more, every write of a
+    volume is submitted before the first write of the volume two after
+    it, as upstream ``ec.encode`` finishes a volume before the next."""
     bases = [str(b) for b in bases]
     k = scheme.data_shards
     shard_sizes: dict[str, int] = {}

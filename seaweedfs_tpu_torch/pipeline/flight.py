@@ -63,7 +63,13 @@ is armed:
 * ``h2d`` with batch :data:`STAGED` (8 / 9; compute):
   ``rs_torch._dispatch_run``'s copies of a run's slabs into the staging
   tensor on the card (from pageable memory each copy returns once CUDA
-  has staged it).
+  has staged it);
+* ``split_flush`` (27, arg = bytes; the reader, an instant event): a
+  column chunk of a row wider than the batch bound leaving the batcher
+  as a batch of its own (``batch.iter_packed_batches``), so a trace
+  shows where each split row closed; its counters are ``split_rows``,
+  ``split_chunks``, ``split_pack_bytes`` / ``split_pack_seconds`` (the
+  chunks' share of ``pack``) and ``split_hold_max_seconds``.
 
 None of them adds busy time to :func:`occupancy` / :func:`analyze`:
 ``pack`` lies inside ``read``, the two waits are waits, and a staged
@@ -141,6 +147,7 @@ EV_READER_WAIT = 23    # compute stage blocks on the read queue
 EV_READER_GOT = 24     # it got a batch (or the reader's end marker)
 EV_GROUP_WAIT = 25     # the group drain's first bounded wait for a batch
 EV_GROUP_DONE = 26     # the drain took its last batch or gave up; arg=width
+EV_SPLIT_FLUSH = 27    # a column chunk leaves the batcher; arg=bytes
 
 #: Batch id of the one-card copy staging (ops/rs_torch.py): an h2d span
 #: nested in a dispatch span, whose seconds that dispatch already counts.
@@ -160,6 +167,7 @@ _NAMES = {
     EV_PACK_START: "pack_start", EV_PACK_END: "pack_end",
     EV_READER_WAIT: "reader_wait", EV_READER_GOT: "reader_got",
     EV_GROUP_WAIT: "group_wait", EV_GROUP_DONE: "group_done",
+    EV_SPLIT_FLUSH: "split_flush",
 }
 
 #: (start, end, track-name) pairs rendered as duration events; pairing
@@ -418,7 +426,7 @@ def _thread_names(events: list[tuple]) -> dict[int, str]:
     for ev in events:
         tid, kind = ev[_TID], ev[_EV]
         if kind in (EV_READ_START, EV_READ_END, EV_ENQUEUE,
-                    EV_PACK_START, EV_PACK_END):
+                    EV_PACK_START, EV_PACK_END, EV_SPLIT_FLUSH):
             roles.setdefault(tid, "reader")
         elif kind in (EV_SYNC_START, EV_SYNC_END,
                       EV_WRITE_START, EV_WRITE_END):
@@ -483,7 +491,7 @@ def chrome_trace(events: Optional[list[tuple]] = None) -> dict:
                 "args": {"in_flight": val},
             })
         elif kind in (EV_WRITE_SUBMIT, EV_RECYCLE, EV_ENQUEUE,
-                      EV_RUN_START, EV_RUN_END):
+                      EV_RUN_START, EV_RUN_END, EV_SPLIT_FLUSH):
             out.append({
                 "name": _NAMES[kind], "ph": "i", "s": "t",
                 "cat": "flight", "ts": round(us(ts), 3),

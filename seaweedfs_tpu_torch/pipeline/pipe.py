@@ -32,7 +32,10 @@ drain's wait (``group_wait``) are flight spans and :class:`PipeStats`
 seconds of their own, beside the reader's ``pack`` (batch.py,
 stripe.py) and the batcher's pool counters (``pack_pooled_bytes``,
 ``pool_wait_seconds``: its reader's wait on :meth:`HostBufferPool.acquire`,
-whose ``pool_wait`` / ``recycle`` events the recorder already has).
+whose ``pool_wait`` / ``recycle`` events the recorder already has) and
+column-split counters (``split_*``: rows wider than the batch bound, their
+chunks, the share of ``pack`` spent on them and the longest a chunk
+waited to leave; each chunk's batch is a ``split_flush`` flight event).
 
 Each batch's read, compute (its dispatch
 share plus the wait on its result) and write land in the tracing series
@@ -289,6 +292,13 @@ class PipeStats:
     # the batcher's pool of host buffers (pipeline/batch.py)
     pack_pooled_bytes: int = 0      # of pack_bytes, into pool buffers
     pool_wait_seconds: float = 0.0  # the reader blocked on acquire
+    # the batcher's column split of rows wider than the batch bound
+    # (pipeline/batch.py; the reader)
+    split_rows: int = 0             # rows column-split
+    split_chunks: int = 0           # their column chunks, each a batch
+    split_pack_bytes: int = 0       # of pack_bytes, into chunk batches
+    split_pack_seconds: float = 0.0  # of pack_seconds, on chunk batches
+    split_hold_max_seconds: float = 0.0  # longest chunk taken -> batch out
 
     @property
     def compute_seconds(self) -> float:
@@ -314,7 +324,13 @@ class PipeStats:
                  reader_wait_seconds=round(self.reader_wait_seconds, 6),
                  group_wait_seconds=round(self.group_wait_seconds, 6),
                  pack_pooled_bytes=self.pack_pooled_bytes,
-                 pool_wait_seconds=round(self.pool_wait_seconds, 6))
+                 pool_wait_seconds=round(self.pool_wait_seconds, 6),
+                 split_rows=self.split_rows,
+                 split_chunks=self.split_chunks,
+                 split_pack_bytes=self.split_pack_bytes,
+                 split_pack_seconds=round(self.split_pack_seconds, 6),
+                 split_hold_max_seconds=round(
+                     self.split_hold_max_seconds, 6))
         if self.wall_seconds > 0:
             d["gibps"] = round(
                 self.bytes_in / (1 << 30) / self.wall_seconds, 3)

@@ -83,8 +83,45 @@ def _payloads(case):
     return make(np.random.default_rng(seed)), bound
 
 
+#: Cases with a row wider than the bound whose last column chunk is
+#: narrower than the others: the port hands it on right after its row
+#: (every chunk a batch of its own), the JAX package holds it in a bucket
+#: until the call's end and packs it with other volumes' (ROADMAP, faults
+#: of the reference), so the batches differ and what each shard range
+#: receives is compared instead.
+SPLIT_ORDER = {"oversized-row"}
+
+
 def _spans(spans):
     return [(sp.key, sp.r0, sp.n, sp.offset) for sp in spans]
+
+
+def _received(batches) -> dict:
+    """(key, data shard, shard offset) -> the bytes the batches put
+    there, whatever their order."""
+    out = {}
+    for spans, packed in batches:
+        for sp in spans:
+            for s in range(packed.shape[1]):
+                out[(sp.key, s, sp.offset)] = \
+                    packed[sp.r0:sp.r0 + sp.n, s].tobytes()
+    return out
+
+
+def _assert_same_batches(case, mine, ref, spans_equal):
+    """In order, batch for batch; in :data:`SPLIT_ORDER`'s cases, the
+    same bytes at every (key, shard, offset), and as many in all."""
+    assert mine and ref
+    if case in SPLIT_ORDER:
+        assert sum(p.nbytes for _, p in mine) == \
+            sum(p.nbytes for _, p in ref)
+        assert _received(mine) == _received(ref)
+        return
+    assert len(mine) == len(ref)
+    for (spans, packed), (jspans, jpacked) in zip(mine, ref):
+        assert packed.shape == jpacked.shape
+        np.testing.assert_array_equal(packed, jpacked)
+        assert spans_equal(spans, jspans, packed.shape[2])
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -93,11 +130,8 @@ def test_packed_batches_equal_across_packages(case):
     src = list(enumerate(payloads))
     mine = list(batch.iter_packed_batches(iter(src), SCHEME, bound))
     ref = list(jax_batch.iter_packed_batches(iter(src), JAX_SCHEME, bound))
-    assert len(mine) == len(ref) > 0
-    for (spans, packed), (jspans, jpacked) in zip(mine, ref):
-        assert _spans(spans) == _spans(jspans)
-        assert packed.shape == jpacked.shape
-        np.testing.assert_array_equal(packed, jpacked)
+    _assert_same_batches(case, mine, ref,
+                         lambda a, b, _block: _spans(a) == _spans(b))
     if case == "oversized-row":
         # one row exceeds the bound: column-split, and the bound held
         assert all(p.size <= 210 * 1024 for _, p in mine)
@@ -145,12 +179,8 @@ def test_pooled_batches_equal_across_packages(case):
             batch.iter_packed_batches(iter(src), SCHEME, bound, st,
                                       _poisoned_buffers(bound))]
     ref = list(jax_batch.iter_packed_batches(iter(src), JAX_SCHEME, bound))
-    assert len(mine) == len(ref) > 0
-    for (spans, packed), (jspans, jpacked) in zip(mine, ref):
-        assert packed.shape == jpacked.shape
-        np.testing.assert_array_equal(packed, jpacked)
-        assert _runs(spans, packed.shape[2]) == \
-            _runs(jspans, jpacked.shape[2])
+    _assert_same_batches(case, mine, ref, lambda a, b, block:
+                         _runs(a, block) == _runs(b, block))
     assert st.pack_pooled_bytes == st.pack_bytes == \
         sum(p.nbytes for _, p in mine)
 

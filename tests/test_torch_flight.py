@@ -96,7 +96,8 @@ PORT_EVENTS = {"EV_PACK_START": (21, "pack_start"),
                "EV_READER_WAIT": (23, "reader_wait"),
                "EV_READER_GOT": (24, "reader_got"),
                "EV_GROUP_WAIT": (25, "group_wait"),
-               "EV_GROUP_DONE": (26, "group_done")}
+               "EV_GROUP_DONE": (26, "group_done"),
+               "EV_SPLIT_FLUSH": (27, "split_flush")}
 PORT_PAIRS = ((21, 22, "pack"), (23, 24, "reader_wait"),
               (25, 26, "group_wait"))
 

@@ -296,7 +296,10 @@ def test_lookahead_never_recycles_a_buffer_a_prepared_batch_reads(
 #: PipeStats.to_dict's keys the JAX package has not, at a fresh run's 0.
 HOST_STAGE_KEYS = {"pack_seconds": 0.0, "pack_bytes": 0,
                    "reader_wait_seconds": 0.0, "group_wait_seconds": 0.0,
-                   "pack_pooled_bytes": 0, "pool_wait_seconds": 0.0}
+                   "pack_pooled_bytes": 0, "pool_wait_seconds": 0.0,
+                   "split_rows": 0, "split_chunks": 0, "split_pack_bytes": 0,
+                   "split_pack_seconds": 0.0,
+                   "split_hold_max_seconds": 0.0}
 
 
 def test_stats_publish_and_debug_payload_equal_jax(pipe_config):
